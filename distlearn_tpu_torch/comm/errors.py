@@ -1,0 +1,17 @@
+"""Transport error taxonomy shared by the Python and native IO paths (a
+copy of ``distlearn_tpu/comm/errors.py``).
+
+Lives in its own module (rather than comm/transport.py) because the
+native ctypes shim (comm/native.py) must raise the same types while
+transport.py imports native.py — a shared leaf module breaks the cycle.
+"""
+
+from __future__ import annotations
+
+
+class PeerClosed(ConnectionError):
+    """Clean FIN on a frame boundary: the peer finished its stream and
+    closed the socket with no frame in flight.  Distinct from
+    ``ConnectionResetError`` (FIN/RST mid-frame — a torn frame) so drop
+    policy (``Server.recv_any``) can classify the shutdown by type
+    instead of string-matching the message."""

@@ -1,0 +1,370 @@
+"""Process-global runtime telemetry registry (a copy of
+``distlearn_tpu/obs/core.py``) — counters, gauges, and
+fixed-bucket histograms.
+
+The reference's entire observability story is ``colorPrint``
+(lua/colorPrint.lua via ``utils/logging.py``); every performance or
+robustness number in docs/PERF.md was recomputed by hand from ad-hoc
+prints or attributes like ``Conn.bytes_sent``.  This module is the
+runtime counterpart of the static analyzers (distlint/distcost): the
+framework reports what it actually did — wire bytes per connection,
+handshake latencies, eviction churn, step timing — in one process-global
+registry that ``obs.export`` can snapshot to JSONL or serve as
+Prometheus text.
+
+Design constraints (they shape every API here):
+
+* **Dependency-free.**  Standard library only (the span bridge in
+  ``obs.trace`` attaches to ``torch.profiler`` lazily and only when torch
+  is already loaded for other reasons).
+* **One-branch kill switch.**  ``DISTLEARN_OBS=0`` (parsed with the
+  shared ``utils.flags.env_truthy`` rule) turns the whole subsystem off.
+  Disabled, the factory functions return the shared :data:`NULL`
+  sink whose methods are no-ops — instrumentation sites pay one
+  no-op method call, never a per-event ``if``.  Callers that must skip
+  work the null object cannot absorb (e.g. ``time.perf_counter()``
+  pairs) branch once on :func:`enabled` at *object construction*, not
+  per event.
+* **Lock-cheap increments.**  Counter/gauge writes are plain attribute
+  updates — no lock.  The framework's hot writers are single-threaded
+  per metric child (one thread does IO on a ``Conn``), so counts are
+  exact where exactness is claimed (wire bytes); for genuinely shared
+  counters the worst case under the GIL is a lost increment at
+  thread-switch granularity, which telemetry tolerates.  Histograms
+  update several fields per observation and take a small per-child
+  lock; they sit on coarse paths (handshakes, steps), not per-frame.
+* **Bounded label cardinality.**  A metric family accepts at most
+  ``max_children`` distinct label sets (default 64; per-conn byte
+  counters use a higher bound); past that, new label sets collapse
+  into one ``__overflow__`` child, so a rejoin-churning client or a
+  port-scanning peer cannot grow the registry without bound.
+"""
+
+from __future__ import annotations
+
+import bisect
+import re
+import threading
+import time
+from typing import Any
+
+from distlearn_tpu_torch.utils.flags import env_truthy
+
+#: The subsystem kill switch.  Unset or truthy = on; ``0``/``false``/
+#: ``off``/empty = off (the shared ``env_truthy`` spelling rule).
+KILL_SWITCH = "DISTLEARN_OBS"
+
+_enabled: bool | None = None
+_lock = threading.Lock()          # registry + child creation only
+
+
+def enabled() -> bool:
+    """Resolved kill-switch state (cached after the first read)."""
+    global _enabled
+    if _enabled is None:
+        v = env_truthy(KILL_SWITCH)
+        _enabled = True if v is None else v
+    return _enabled
+
+
+def configure(on: bool | None = None):
+    """Override the kill switch (tests), or re-read the env with ``None``.
+
+    Only affects metric handles created AFTER the call — instrumented
+    objects resolve their sinks at construction time, so flip this
+    before building the server/conn/iterator under test."""
+    global _enabled
+    _enabled = on
+
+
+class _Null:
+    """Shared no-op sink: every metric/label operation on the disabled
+    path lands here.  Methods allocate nothing (asserted by the tier-1
+    overhead test)."""
+
+    __slots__ = ()
+
+    def inc(self, n=1):
+        pass
+
+    def dec(self, n=1):
+        pass
+
+    def set(self, v):
+        pass
+
+    def observe(self, v):
+        pass
+
+    def labels(self, **kv):
+        return self
+
+
+NULL = _Null()
+
+#: Default histogram buckets (seconds): spans frame receives (~10us on
+#: loopback) through multi-second handshakes.
+LATENCY_BUCKETS = (1e-5, 1e-4, 1e-3, 5e-3, 0.025, 0.1, 0.5, 1.0, 5.0, 30.0)
+
+
+class _Counter:
+    kind = "counter"
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def inc(self, n=1):
+        self.value += n
+
+    def sample(self):
+        return {"value": self.value}
+
+
+class _Gauge:
+    kind = "gauge"
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def set(self, v):
+        self.value = v
+
+    def inc(self, n=1):
+        self.value += n
+
+    def dec(self, n=1):
+        self.value -= n
+
+    def sample(self):
+        return {"value": self.value}
+
+
+class _Histogram:
+    kind = "histogram"
+    __slots__ = ("buckets", "counts", "sum", "count", "_hlock")
+
+    def __init__(self, buckets=LATENCY_BUCKETS):
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        self.counts = [0] * (len(self.buckets) + 1)   # last = +Inf
+        self.sum = 0.0
+        self.count = 0
+        self._hlock = threading.Lock()
+
+    def observe(self, v):
+        v = float(v)
+        i = bisect.bisect_left(self.buckets, v)
+        with self._hlock:
+            self.counts[i] += 1
+            self.sum += v
+            self.count += 1
+
+    def sample(self):
+        with self._hlock:
+            counts = list(self.counts)
+            return {"sum": self.sum, "count": self.count,
+                    "buckets": {str(b): c
+                                for b, c in zip(self.buckets, counts)},
+                    "inf": counts[-1]}
+
+
+_OVERFLOW = "__overflow__"
+
+
+class Family:
+    """One named metric with labeled children.  ``labels()`` resolves a
+    child (creating it under the registry lock on first use — cache the
+    returned child on hot paths); families declared without label names
+    proxy the metric operations to their single default child."""
+
+    def __init__(self, cls, name: str, help: str = "",
+                 labelnames: tuple = (), max_children: int = 64, **kw):
+        self._cls, self._kw = cls, kw
+        self.name, self.help = name, help
+        self.labelnames = tuple(labelnames)
+        self.max_children = max_children
+        self.kind = cls.kind
+        self._children: dict[tuple, Any] = {}
+        if not self.labelnames:
+            self._children[()] = cls(**kw)
+
+    def labels(self, **kv):
+        key = tuple(str(kv.get(k, "")) for k in self.labelnames)
+        child = self._children.get(key)
+        if child is None:
+            with _lock:
+                child = self._children.get(key)
+                if child is None:
+                    if len(self._children) >= self.max_children:
+                        key = (_OVERFLOW,) * len(self.labelnames)
+                        child = self._children.get(key)
+                        if child is None:
+                            child = self._cls(**self._kw)
+                            self._children[key] = child
+                    else:
+                        child = self._cls(**self._kw)
+                        self._children[key] = child
+        return child
+
+    # unlabeled families act as the metric itself
+    def inc(self, n=1):
+        self._children[()].inc(n)
+
+    def dec(self, n=1):
+        self._children[()].dec(n)
+
+    def set(self, v):
+        self._children[()].set(v)
+
+    def observe(self, v):
+        self._children[()].observe(v)
+
+    @property
+    def value(self):
+        return self._children[()].value
+
+    def sample(self):
+        with _lock:
+            items = list(self._children.items())
+        return [{"labels": dict(zip(self.labelnames, key)), **c.sample()}
+                for key, c in items]
+
+
+class Registry:
+    """Name -> :class:`Family`.  One process-global instance
+    (:data:`REGISTRY`); tests may build private ones."""
+
+    def __init__(self):
+        self._families: dict[str, Family] = {}
+
+    def _get(self, cls, name, help, labelnames, **kw) -> Family:
+        fam = self._families.get(name)
+        if fam is None:
+            with _lock:
+                fam = self._families.get(name)
+                if fam is None:
+                    fam = Family(cls, name, help, labelnames, **kw)
+                    self._families[name] = fam
+        if fam.kind != cls.kind or fam.labelnames != tuple(labelnames):
+            raise ValueError(
+                f"metric {name!r} re-registered as {cls.kind} with labels "
+                f"{tuple(labelnames)!r} (was {fam.kind} {fam.labelnames!r})")
+        return fam
+
+    def counter(self, name, help="", labels=(), **kw) -> Family:
+        return self._get(_Counter, name, help, labels, **kw)
+
+    def gauge(self, name, help="", labels=(), **kw) -> Family:
+        return self._get(_Gauge, name, help, labels, **kw)
+
+    def histogram(self, name, help="", labels=(), buckets=LATENCY_BUCKETS,
+                  **kw) -> Family:
+        return self._get(_Histogram, name, help, labels, buckets=buckets,
+                         **kw)
+
+    def snapshot(self) -> list[dict]:
+        """All families as plain dicts (the JSONL ``snapshot`` payload)."""
+        with _lock:
+            fams = list(self._families.values())
+        return [{"name": f.name, "kind": f.kind, "help": f.help,
+                 "labelnames": list(f.labelnames), "samples": f.sample()}
+                for f in fams]
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition format (the ``/metrics`` body).
+        Metric/label names are sanitized (stable: same input, same
+        output), label values escaped, HELP text escaped — so a scraper
+        round-trips whatever instrumentation names reach the registry."""
+        out = []
+        for fam in self.snapshot():
+            name = _sane_name(fam["name"])
+            if fam["help"]:
+                out.append(f"# HELP {name} {_escape_help(fam['help'])}")
+            out.append(f"# TYPE {name} {fam['kind']}")
+            for s in fam["samples"]:
+                lbl = _fmt_labels(s["labels"])
+                if fam["kind"] == "histogram":
+                    cum = 0
+                    for b, c in s["buckets"].items():
+                        cum += c
+                        out.append(f"{name}_bucket"
+                                   f"{_fmt_labels(s['labels'], le=b)} {cum}")
+                    out.append(f"{name}_bucket"
+                               f"{_fmt_labels(s['labels'], le='+Inf')} "
+                               f"{s['count']}")
+                    out.append(f"{name}_sum{lbl} {s['sum']}")
+                    out.append(f"{name}_count{lbl} {s['count']}")
+                else:
+                    out.append(f"{name}{lbl} {s['value']}")
+        return "\n".join(out) + "\n"
+
+    def reset(self):
+        """Drop every family (tests only — live handles go stale)."""
+        with _lock:
+            self._families.clear()
+
+
+def _fmt_labels(labels: dict, **extra) -> str:
+    kv = {**labels, **{k: str(v) for k, v in extra.items()}}
+    if not kv:
+        return ""
+    body = ",".join(f'{_sane_label(k)}="{_escape(v)}"'
+                    for k, v in kv.items())
+    return "{" + body + "}"
+
+
+def _escape(v: str) -> str:
+    return str(v).replace("\\", r"\\").replace('"', r'\"').replace(
+        "\n", r"\n")
+
+
+def _escape_help(v: str) -> str:
+    # HELP lines escape backslash and newline only (quotes stay literal
+    # — the exposition format, not the label-value rule).
+    return str(v).replace("\\", r"\\").replace("\n", r"\n")
+
+
+def _sane_name(name: str) -> str:
+    """Map an arbitrary metric name onto ``[a-zA-Z_:][a-zA-Z0-9_:]*``
+    deterministically (each invalid char becomes ``_``) so one registry
+    name always renders as one exposition name."""
+    name = re.sub(r"[^a-zA-Z0-9_:]", "_", str(name))
+    return name if name and not name[0].isdigit() else "_" + name
+
+
+def _sane_label(name: str) -> str:
+    """Label names additionally exclude ``:`` (reserved for recording
+    rules on the Prometheus side)."""
+    name = re.sub(r"[^a-zA-Z0-9_]", "_", str(name))
+    return name if name and not name[0].isdigit() else "_" + name
+
+
+REGISTRY = Registry()
+
+
+# -- module-level factories (the instrumentation surface) -------------------
+
+def counter(name, help="", labels=(), **kw):
+    """A counter family, or :data:`NULL` when the kill switch is off."""
+    if not enabled():
+        return NULL
+    return REGISTRY.counter(name, help, labels, **kw)
+
+
+def gauge(name, help="", labels=(), **kw):
+    if not enabled():
+        return NULL
+    return REGISTRY.gauge(name, help, labels, **kw)
+
+
+def histogram(name, help="", labels=(), buckets=LATENCY_BUCKETS, **kw):
+    if not enabled():
+        return NULL
+    return REGISTRY.histogram(name, help, labels, buckets=buckets, **kw)
+
+
+def snapshot_record() -> dict:
+    """One JSONL ``snapshot`` record of the whole registry."""
+    return {"type": "snapshot", "ts": time.time(),
+            "metrics": REGISTRY.snapshot()}

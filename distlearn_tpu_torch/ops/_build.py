@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "distlearn_tpu_torch_kernels"
-SOURCES = ("fused_update.cu",)
+SOURCES = ("fused_update.cu", "wire_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,3 +75,14 @@ def load(source: str) -> ctypes.CDLL:
     """The built library of ``source`` (building it first if needed)."""
     build_all((source,))
     return ctypes.CDLL(str(library_path(source)))
+
+
+@functools.cache
+def function(source: str, name: str, argtypes: tuple):
+    """The C function ``name`` of ``source``'s library, typed: ``argtypes``
+    (``ctypes.c_void_p`` for every pointer and the stream) and an ``int``
+    return, the cudaError_t of the launch."""
+    fn = getattr(load(source), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

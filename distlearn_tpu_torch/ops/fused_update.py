@@ -21,7 +21,6 @@ other.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Any
 
 import torch
@@ -59,12 +58,8 @@ def cast_scalar(x: float, dtype: torch.dtype) -> float:
     return torch.tensor(x, dtype=dtype).item()
 
 
-@functools.cache
 def _kernel(name: str):
-    fn = getattr(_build.load(_SOURCE), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.function(_SOURCE, name, _SIGNATURES[name])
 
 
 def _check(name: str, *tensors: torch.Tensor) -> int:

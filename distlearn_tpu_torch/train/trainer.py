@@ -70,8 +70,8 @@ def local_update(params: PyTree, grads: PyTree, vel: PyTree, lr: float,
     return tree_map(lambda p, v: sgd(p, v, lr), params, vel), vel
 
 
-def _value_and_grad(model: Model, params: PyTree, mstate: PyTree, x, y,
-                    rng, tree: MeshTree | None, bn_weight=None):
+def value_and_grad(model: Model, params: PyTree, mstate: PyTree, x, y,
+                   rng, tree: MeshTree | None, bn_weight=None):
     """Loss, log-probs, new batchnorm state and parameter gradients of one
     training forward; nothing returned carries an autograd graph."""
     leaves, treedef = tree_flatten(params)
@@ -127,7 +127,7 @@ def build_sgd_step(model: Model, tree: MeshTree, lr: float,
         y = torch.as_tensor(y, device=tree.device)
         c = None if contrib is None else \
             torch.as_tensor(contrib, device=tree.device).to(torch.int32)
-        loss, log_probs, mstate, grads = _value_and_grad(
+        loss, log_probs, mstate, grads = value_and_grad(
             model, ts.params, ts.model_state, x, y, ts.rng, tree, c)
         if use_fused:
             spec = flatten_lib.make_bucket_spec(grads, max_bucket_bytes)
@@ -257,7 +257,7 @@ def build_ea_steps(model: Model, tree: MeshTree, lr: float, alpha: float,
     def local_step(ts: EATrainState, x, y):
         x = torch.as_tensor(x, device=tree.device)
         y = torch.as_tensor(y, device=tree.device)
-        loss, log_probs, mstate, grads = _value_and_grad(
+        loss, log_probs, mstate, grads = value_and_grad(
             model, ts.params, ts.model_state, x, y, ts.rng, None)
         params, vel = local_update(ts.params, grads, ts.vel, lr, momentum)
         cm = metrics_lib.update_confusion(ts.cm, log_probs, y)

@@ -35,6 +35,12 @@ def test_port_sources_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "distlearn_tpu_torch/train/trainer.py" in names
     assert "distlearn_tpu_torch/ops/fused_update.py" in names
+    for mod in ("utils/logging.py", "utils/flags.py", "obs/__init__.py",
+                "obs/core.py", "obs/trace.py", "comm/__init__.py",
+                "comm/errors.py", "comm/wire.py", "comm/native.py",
+                "comm/transport.py", "ops/wire_kernels.py",
+                "parallel/async_ea.py", "examples/easgd.py"):
+        assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
 
 

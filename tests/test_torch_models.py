@@ -17,7 +17,7 @@ from distlearn_tpu.models.core import loss_fn as jax_loss_fn  # noqa: E402
 from distlearn_tpu.models.core import param_count as jax_param_count  # noqa: E402
 from distlearn_tpu_torch.models import (cifar_convnet, loss_fn, mnist_cnn,  # noqa: E402
                                         param_count)
-from distlearn_tpu_torch.models.convert import from_jax  # noqa: E402
+from distlearn_tpu_torch.models.convert import from_jax, to_jax  # noqa: E402
 
 # float32 on both sides.  XLA and PyTorch run the convolutions with
 # different algorithms (different summation orders), and batchnorm's
@@ -125,3 +125,22 @@ def test_from_jax_moves_layouts():
         tp["conv2"]["w"].numpy()[7, 3, 1, 4],
         np.asarray(params["conv2"]["w"])[1, 4, 3, 7])
     assert len(_leaves(params)) == sum(len(d) for d in tp.values())
+
+
+@pytest.mark.parametrize("name", sorted(_MODELS))
+def test_to_jax_inverts_from_jax(name):
+    """JAX -> port -> JAX gives the JAX pytree back bit for bit (params and
+    batchnorm state), and port -> JAX -> port the port's."""
+    jm, tm, params, state, tp, ts, _, _ = _setup(name)
+    for jtree, ttree in ((params, tp), (state, ts)):
+        back = to_jax(ttree)
+        jleaves = jax.tree_util.tree_leaves(jax.device_get(jtree))
+        bleaves = jax.tree_util.tree_leaves(back)
+        assert len(bleaves) == len(jleaves)
+        for b, j in zip(bleaves, jleaves):
+            assert b.shape == j.shape and b.dtype == j.dtype
+            np.testing.assert_array_equal(b, j)
+        again, _ = from_jax(back, {})
+        for a, t in zip(jax.tree_util.tree_leaves(again),
+                        jax.tree_util.tree_leaves(ttree)):
+            assert torch.equal(a, t)
