@@ -43,7 +43,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    convnet, batch 128 per client, tau 4, alpha 0.2, int8, 8 syncs per
    client; 16 syncs applied, 5 tester pushes, finite losses, and the B3/B4
    launch counts the design implies.  Prints where a sync's time goes.
-9. report  — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+9. flash   — kernel B5a (causal flash-attention forward) against its plain
+   twin and the xla route at the serving shape (B=1, H=16, D=64) for L =
+   128, 256, 1024, 2048, at B=4, H=8, D=128, L=1024 and at B=2, H=4, D=32,
+   L=512, float32 and bfloat16;
+   median times (L2 flushed) beside the plain twin,
+   ``F.scaled_dot_product_attention(is_causal=True)`` (timed as the
+   library yardstick only) and the bound.
+10. serve  — the served transformer LM at full width (vocab 32768, dim
+   1024, depth 8, 16 heads, max_len 2048, the seeded init, float32
+   params) under ``DISTLEARN_TPU_ATTN=flash``: (a) float32 compute, TF32
+   off, a 1024-token prompt, the engine with the flash and the xla route
+   against ``greedy_generate`` on the xla route; (b) bfloat16 compute, 4 slots, a
+   ``ServeServer`` on loopback answering 8 requests (prompts of 100-1500
+   tokens, 32 new tokens each) from 4 client threads, some admitted while
+   others decode (the chunk pass): every stream against its isolated
+   ``greedy_generate`` stream on the xla route, B5a launched 8 times per full-prompt
+   prefill at a bucket of 128 or more, and TTFT, TPOT, tokens/s and B5a's
+   share of a prefill's device time.
+11. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -92,9 +110,45 @@ RAGGED_LEAF = CONV4 - 1021               # not a multiple of 4
 ROLE_TIMEOUT_S = 300
 
 # Card rates for the bound (NVIDIA's H100 and H200 SXM data sheets): HBM
-# bytes/s by part, FP32 (non-tensor-core) FLOP/s.
+# bytes/s by part, FP32 (non-tensor-core) FLOP/s, dense bf16 tensor-core
+# FLOP/s.
 HBM_BYTES_PER_S = {"H200": 4.8e12, "H100": 3.35e12}
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
+# Phase 9: B5a at (B, H, D, L): the served LM's head shape at the prompt
+# buckets phase 10 prefills at, one shape per other head dim the kernel is
+# built for; the kernels line reports bfloat16 at the serving shape
+# FLASH_MAIN, the dtype and shape the served LM runs.
+FLASH_SHAPES = ((1, 16, 64, 128), (1, 16, 64, 256), (1, 16, 64, 1024),
+                (1, 16, 64, 2048), (4, 8, 128, 1024), (2, 4, 32, 512))
+FLASH_MAIN = (1, 16, 64, 1024)
+# float32 (TF32 off): the kernel and the plain twin differ only in the
+# order of float32 sums and FMA contraction (measured ~1e-6 on outputs of
+# order 1), so 1e-5 absolute, against the twin and the xla route alike.
+FLASH_F32_TOL = 1e-5
+# bfloat16: the reference's own flash tolerance, rtol = atol = 2e-2
+# (tests/test_sequence.py:161-162), never looser.
+FLASH_BF16_TOL = 2e-2
+
+# Phase 10: the LM of bench.py:1705, served at 4 slots.
+LM_FLAGS = ["--steps", "0", "--serve", "4", "--vocab", "32768", "--dim",
+            "1024", "--depth", "8", "--seqLen", "2048", "--bf16",
+            "--device", "cuda"]
+LM_CHECK_PROMPT, LM_CHECK_STEPS = 1024, 16
+SERVE_REQUESTS, SERVE_THREADS, SERVE_MAX_NEW = 8, 4, 32
+SERVE_PROMPTS = (100, 1500)
+SERVE_PREFILL_CHUNK = 256
+PROFILE_PROMPT = 1000     # one full prefill profiled for B5a's share
+# Greedy streams are compared token by token.  Two computations of the same
+# logits (other shapes, other summation orders) may pick different argmax
+# tokens only where the top two logits nearly tie: a mismatch passes only if
+# the token taken scores within this much of the top logit of the
+# reference's own logits at that position (teacher forced), and the streams
+# are compared up to it.  float32: logits of order 1 carry ~1e-5 of
+# rounding difference, so 1e-3.  bfloat16: 4 ulps of a logit of magnitude
+# 2 to 4 (one ulp there is 2^-6).
+TIE_TOL = {"float32": 1e-3, "bfloat16": 0.0625}
 
 
 class SmokeFailure(Exception):
@@ -894,6 +948,314 @@ def phase_async_train(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: kernel B5a against its plain twin and the xla route
+# ---------------------------------------------------------------------------
+
+def flash_bound(torch, B, H, D, L, dtype, rate):
+    """(bound ms, bound_by, bytes, flops): q, k, v read once and o written
+    once over the HBM rate; the causal products 2*B*H*L*L*D over the peak
+    for the dtype (CUDA cores for float32, tensor cores for bfloat16)."""
+    elt = 4 if dtype == torch.float32 else 2
+    nbytes = 4 * B * L * H * D * elt
+    flops = 2 * B * H * L * L * D
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    by_bytes, by_ops = nbytes / rate * 1e3, flops / peak * 1e3
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops
+            else "operations", nbytes, flops)
+
+
+def phase_flash(torch, card):
+    import torch.nn.functional as F
+    from distlearn_tpu_torch.ops import flash_attention as fa
+    from distlearn_tpu_torch.parallel.sequence import local_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rate, part = hbm_rate(card)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    main_row = None
+    for B, H, D, L in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((B, L, H, D), generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            out = fa.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            plain = fa.flash_attention_plain(q, k, v, True)
+            xla = local_attention(q, k, v, causal=True, impl="xla")
+            name = f"B={B} H={H} D={D} L={L} {str(dtype)[6:]}"
+            check(bool(torch.isfinite(out).all()),
+                  f"flash_attention {name}: non-finite output")
+            err_plain, err_xla = max_abs(torch, out, plain), \
+                max_abs(torch, out, xla)
+            if dtype == torch.float32:
+                check(err_plain <= FLASH_F32_TOL and err_xla <= FLASH_F32_TOL,
+                      f"flash_attention {name}: max abs {err_plain} against "
+                      f"the plain twin, {err_xla} against xla (> "
+                      f"{FLASH_F32_TOL})")
+            else:
+                for ref, what in ((plain, "plain twin"), (xla, "xla route")):
+                    check(torch.allclose(out.float(), ref.float(),
+                                         rtol=FLASH_BF16_TOL,
+                                         atol=FLASH_BF16_TOL),
+                          f"flash_attention {name}: outside rtol = atol = "
+                          f"{FLASH_BF16_TOL} of the {what}")
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            bound, bound_by, nbytes, flops = flash_bound(torch, B, H, D, L,
+                                                         dtype, rate)
+            row = {
+                "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v),
+                              flush),
+                "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                    q, k, v, True), flush),
+                "library_ms": time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), flush),
+                "bound_ms": bound, "bound_by": bound_by,
+                "max_abs_err": err_plain,
+            }
+            log(f"[flash] {name}: {row['ms']:.4f} ms | plain "
+                f"{row['plain_ms']:.4f} ms | sdpa {row['library_ms']:.4f} ms"
+                f" | bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB"
+                f" at {rate / 1e12:.2f} TB/s ({part}), {flops / 1e9:.2f} "
+                f"GFLOP) = {bound / row['ms']:.1%} of bound | max abs err "
+                f"{err_plain:.3g} (plain), {err_xla:.3g} (xla)")
+            if (B, H, D, L) == FLASH_MAIN and dtype == torch.bfloat16:
+                main_row = row
+    del flush
+    log(f"[flash] float32 within {FLASH_F32_TOL} of the plain twin and the "
+        f"xla route, bfloat16 within rtol = atol = {FLASH_BF16_TOL}, all "
+        "outputs finite")
+    return main_row
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the served transformer LM
+# ---------------------------------------------------------------------------
+
+def compare_stream(torch, model, params, prompt, got, ref, tol):
+    """``None`` when ``got == ref``; else ``(t, gap, margin)`` at the first
+    mismatch ``t``, from the reference's own logits there (a teacher-forced
+    forward of the prompt and ``ref[:t]``): how far the taken token scores
+    below the top logit, and the top-2 margin.  Raises when the gap exceeds
+    ``tol``."""
+    check(len(got) == len(ref), f"stream of {len(got)} tokens, reference "
+          f"{len(ref)}")
+    for t, (a, b) in enumerate(zip(got, ref)):
+        if a == b:
+            continue
+        seq = torch.tensor([list(prompt) + list(ref[:t])],
+                           device=params["embed"].device)
+        with torch.no_grad():
+            logits = model.apply(params, {}, seq)[0][0, -1].float()
+        top2 = logits.topk(2).values
+        gap = float(top2[0] - logits[a])
+        margin = float(top2[0] - top2[1])
+        check(gap <= tol, f"stream diverges from greedy_generate at token "
+              f"{t} ({a} against {b}) where the reference's logits do not "
+              f"tie: the taken token is {gap:.4g} below the top (> {tol}; "
+              f"top-2 margin {margin:.4g})")
+        return t, gap, margin
+    return None
+
+
+def phase_serve_lm(torch):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+    from distlearn_tpu_torch import obs
+    from distlearn_tpu_torch.examples import lm as lm_example
+    from distlearn_tpu_torch.models.transformer import (greedy_generate,
+                                                        transformer_lm)
+    from distlearn_tpu_torch.obs import trace as obs_trace
+    from distlearn_tpu_torch.ops import flash_attention as fa
+    from distlearn_tpu_torch.serve import DecodeEngine, ServeClient
+    from distlearn_tpu_torch.utils.tree import tree_leaves
+
+    opt = lm_example.parse(LM_FLAGS)
+    heads = max(4, opt.dim // 64)
+    t0 = time.perf_counter()
+    params, cd = lm_example.build_model(opt)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"[serve] transformer_lm vocab {opt.vocab}, dim {opt.dim}, depth "
+        f"{opt.depth}, {heads} heads, max_len {opt.seqLen}: {n_params:,} "
+        f"float32 params from the seeded init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    models = {dt: transformer_lm(vocab=opt.vocab, dim=opt.dim,
+                                 depth=opt.depth, heads=heads,
+                                 max_len=opt.seqLen, compute_dtype=dt,
+                                 attn_impl="xla")
+              for dt in (torch.float32, cd)}
+    rng = np.random.default_rng(10)
+    env = os.environ.get("DISTLEARN_TPU_ATTN")
+    try:
+        # (a) float32 compute, TF32 off: one 1024-token prompt; the
+        # reference takes the xla route, so B5a is on one side only
+        prompt = rng.integers(0, opt.vocab, LM_CHECK_PROMPT).astype(np.int32)
+        ref = greedy_generate(params, prompt[None], LM_CHECK_STEPS,
+                              attn_impl="xla")[0].tolist()
+        for impl in ("flash", "xla"):
+            os.environ["DISTLEARN_TPU_ATTN"] = impl
+            eng = DecodeEngine(params, num_slots=1, device="cuda")
+            slot, first = eng.admit(prompt, LM_CHECK_STEPS)
+            got = [first] + [eng.tick()[slot]
+                             for _ in range(LM_CHECK_STEPS - 1)]
+            eng.finish(slot)
+            del eng
+            tie = compare_stream(torch, models[torch.float32], params,
+                                 prompt, got, ref, TIE_TOL["float32"])
+            how = "equal" if tie is None else (
+                f"equal up to a near-tie at token {tie[0]} (gap {tie[1]:.3g},"
+                f" top-2 margin {tie[2]:.3g})")
+            log(f"[serve] (a) float32, engine on {impl}, greedy_generate on "
+                f"xla: {how} over {LM_CHECK_STEPS} tokens of a "
+                f"{LM_CHECK_PROMPT}-token prompt")
+
+        # (b) bfloat16 compute, the server on loopback
+        os.environ["DISTLEARN_TPU_ATTN"] = "flash"
+        lens = rng.integers(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1,
+                            SERVE_REQUESTS)
+        prompts = [rng.integers(0, opt.vocab, n).astype(np.int32)
+                   for n in lens]
+        srv = lm_example.start_server(opt, params, cd,
+                                      prefill_chunk=SERVE_PREFILL_CHUNK)
+        engine = srv.engine
+        buckets, chunks = [], []
+        real_prefill, real_chunk = engine._prefill, engine._chunk
+        engine._prefill = lambda btrow, tokens, plen: (
+            buckets.append(tokens.shape[1]) or real_prefill(btrow, tokens,
+                                                            plen))
+        engine._chunk = lambda btrow, tokens, p0, clen: (
+            chunks.append(clen) or real_chunk(btrow, tokens, p0, clen))
+        results, errs = {}, []
+
+        def client(i):
+            try:
+                with ServeClient(srv.host, srv.port) as c:
+                    for j in range(i, SERVE_REQUESTS, SERVE_THREADS):
+                        results[j] = c.generate(prompts[j], SERVE_MAX_NEW,
+                                                rid=f"r{j}", timeout=300)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errs.append(e)
+
+        obs_trace.set_ring_size(1 << 16)
+        obs_trace.clear()
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(ROLE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.flash_attention.launches
+        srv.stop()
+        engine._prefill, engine._chunk = real_prefill, real_chunk
+        check(not errs, f"a serving client failed: {errs[:1]!r}")
+        check(len(results) == SERVE_REQUESTS and all(
+            r["reason"] == "complete" for r in results.values()),
+            f"{len(results)} of {SERVE_REQUESTS} requests completed")
+        full = sum(b >= 128 for b in buckets)
+        check(launches == opt.depth * full and full >= 1,
+              f"B5a launched {launches} times; the run made {full} "
+              f"full-prompt prefills at buckets >= 128 (buckets {buckets}), "
+              f"expected {opt.depth} launches each")
+        check(len(chunks) > 0, "no request went through the chunk pass")
+        spans = {}
+        for rec in obs.spans():
+            spans.setdefault(rec["name"], []).append(rec["dur"] * 1e3)
+        ttft, tpot = p50(spans.get("serve.ttft", [])), \
+            p50(spans.get("serve.tpot", []))
+        tokens = sum(len(r["tokens"]) for r in results.values())
+
+        matched, ties = 0, []
+        for j in range(SERVE_REQUESTS):
+            ref = greedy_generate(params, prompts[j][None], SERVE_MAX_NEW,
+                                  compute_dtype=cd,
+                                  attn_impl="xla")[0].tolist()
+            tie = compare_stream(torch, models[cd], params, prompts[j],
+                                 results[j]["tokens"], ref,
+                                 TIE_TOL["bfloat16"])
+            if tie is None:
+                matched += 1
+            else:
+                ties.append((j, int(lens[j])) + tie)
+
+        # one full prefill and one 4-slot tick, each timed on the host
+        # clock and then profiled: device time, kernels, B5a's share
+        def measure(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            kernels = [e for e in evs if not e.key.startswith("Mem")]
+            return {"wall_ms": wall,
+                    "device_ms": sum(e.self_device_time_total
+                                     for e in evs) / 1e3,
+                    "kernels": sum(e.count for e in kernels),
+                    "copies": sum(e.count for e in evs) - sum(
+                        e.count for e in kernels),
+                    "flash_ms": sum(e.self_device_time_total for e in evs
+                                    if "flash_fwd" in e.key) / 1e3}
+
+        def prefill_once():
+            job = engine.begin(rng.integers(0, opt.vocab, PROFILE_PROMPT)
+                               .astype(np.int32), 1)
+            engine.prefill_step(job)
+            engine.finish(job.slot)
+
+        prefill = measure(prefill_once)
+        slots = [engine.admit(rng.integers(0, opt.vocab, PROFILE_PROMPT // 4)
+                              .astype(np.int32), 8)[0]
+                 for _ in range(engine.cache.num_slots)]
+        engine.tick()
+        tick = measure(engine.tick)
+        for slot in slots:
+            engine.finish(slot)
+    finally:
+        if env is None:
+            os.environ.pop("DISTLEARN_TPU_ATTN", None)
+        else:
+            os.environ["DISTLEARN_TPU_ATTN"] = env
+    share = prefill["flash_ms"] / prefill["device_ms"] \
+        if prefill["device_ms"] else float("nan")
+    log(f"[serve] (b) bfloat16, {SERVE_REQUESTS} requests from "
+        f"{SERVE_THREADS} threads, prompts {sorted(int(n) for n in lens)}, "
+        f"{SERVE_MAX_NEW} new tokens each: all complete; {len(buckets)} "
+        f"full-prompt prefills (buckets {buckets}), {len(chunks)} chunk "
+        f"passes; B5a launches {launches} = {opt.depth} x {full}")
+    log(f"[serve] streams against isolated greedy_generate (bfloat16, "
+        f"xla route): "
+        f"{matched} of {SERVE_REQUESTS} equal"
+        + ("" if not ties else "; near-ties (request, prompt len, token, "
+           f"gap, top-2 margin): {ties}"))
+    log("[serve] engine passes during the run (p50 ms, count): " + ", ".join(
+        f"{k[6:]} {p50(spans.get(k, [])):.2f} ({len(spans.get(k, []))})"
+        for k in ("serve.prefill", "serve.prefill_chunk", "serve.tick",
+                  "serve.verify")))
+    for what, m in ((f"one {PROFILE_PROMPT}-token prefill (bucket "
+                     f"{engine.bucket_for(PROFILE_PROMPT)})", prefill),
+                    (f"one tick of {engine.cache.num_slots} slots", tick)):
+        log(f"[serve] {what}: {m['wall_ms']:.3f} ms on the host clock, "
+            f"{m['device_ms']:.3f} ms of device time (idle "
+            f"{1 - m['device_ms'] / m['wall_ms']:.1%}) in {m['kernels']} "
+            f"kernels and {m['copies']} copies; B5a {m['flash_ms']:.3f} ms")
+    log(f"[serve] TTFT p50 {ttft:.2f} ms, TPOT p50 {tpot:.2f} ms, {tokens} "
+        f"tokens in {wall:.2f} s = {tokens / wall:.1f} tokens/s; B5a "
+        f"{share:.1%} of a full prefill's device time")
+    return {"launches": launches, "ttft_ms": ttft, "tpot_ms": tpot,
+            "tokens_per_s": tokens / wall, "flash_share": share}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -933,6 +1295,8 @@ def main() -> int:
             dist.destroy_process_group()
         phase_async_trajectory(torch)
         async_run = phase_async_train(torch)
+        kernel_rows["flash_attention"] = phase_flash(torch, card)
+        served = phase_serve_lm(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -954,10 +1318,17 @@ def main() -> int:
          "replaces": "distlearn_tpu/ops/wire_kernels.py:335",
          "launches": async_run["launches"]["dequant_add"],
          **kernel_rows["dequant_add"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758"
+                     " via distlearn_tpu/parallel/sequence.py:420",
+         "launches": served["launches"], **kernel_rows["flash_attention"]},
     ]
     log(f"[report] total {time.perf_counter() - t_start:.1f} s; "
         f"sgd {sgd['steps_per_s']:.2f} steps/s at batch {SGD_BATCH}; "
-        f"AsyncEA {async_run['syncs_per_s']:.2f} syncs/s")
+        f"AsyncEA {async_run['syncs_per_s']:.2f} syncs/s; served LM TTFT p50 "
+        f"{served['ttft_ms']:.2f} ms, TPOT p50 {served['tpot_ms']:.2f} ms, "
+        f"{served['tokens_per_s']:.1f} tokens/s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

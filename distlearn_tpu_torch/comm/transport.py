@@ -1,6 +1,5 @@
-"""Host-side TCP transport — a copy of ``distlearn_tpu/comm/transport.py``
-(without the serving frames, which wait for the serving slice), the
-torch-ipc socket layer rebuilt
+"""Host-side TCP transport — a copy of ``distlearn_tpu/comm/transport.py``,
+the torch-ipc socket layer rebuilt
 (reference consumers: ipc.server/client/recvAny — lua/AsyncEA.lua:87-220,
 examples/EASGD_server.lua:67-77).
 
@@ -13,8 +12,12 @@ Wire protocol (shared with the native C++ backend in src/comm/distcomm.cpp):
     kind 'P': payload is hlen:u32le | manifest[hlen] | packed leaf bytes —
               a whole tensor LIST in one frame (manifest schema and the
               raw/fp16/int8 leaf codecs: distlearn_tpu_torch.comm.wire)
+    kind 'G': payload is UTF-8 JSON — a GENERATE request (prompt in):
+              {"id", "prompt": [ints], "max_new", ...} (docs/SERVING.md)
+    kind 'R': payload is UTF-8 JSON — one token-stream RESPONSE chunk
+              (tokens out): {"id", "tokens": [ints], "done", ...}
 
-JSON frames ('J' admission announces) MAY carry an
+JSON frames ('J' admission announces, 'G' requests) MAY carry an
 optional "tc" field — the cross-process trace context {"t": trace-id
 hex, "s": parent span-id hex, "f": 0|1} (obs/trace.py, docs/
 OBSERVABILITY.md).  The field only appears when DISTLEARN_TRACE_PROP is
@@ -55,6 +58,10 @@ _THDR = struct.Struct("<I")   # tensor header length
 _IOV_MAX = 512
 
 _CONN_IDS = itertools.count()
+
+#: recv_serve_nowait frame-size cap — serve payloads are small JSON, so
+#: anything bigger is a desynced or hostile peer.
+SERVE_MAX_FRAME = 1 << 20
 
 
 def _drops():
@@ -134,6 +141,8 @@ class Conn:
         # fault-injection layer (comm/faults.py) flips this so its socket
         # wrapper actually sees every byte.
         self.force_py_io = False
+        self._rx = bytearray()        # recv_serve_nowait partial-frame buffer
+        self._rx_eof = False
         # Telemetry handles resolve once per connection (obs.NULL when the
         # kill switch is off, so the hot path stays a no-op method call).
         # Counters mirror bytes_sent/bytes_received exactly: both are
@@ -155,6 +164,7 @@ class Conn:
             labels=("kind",))
         self._h_ctrl = lat.labels(kind="control")
         self._h_tensor = lat.labels(kind="tensor")
+        self._h_serve = lat.labels(kind="serve")
 
     def _pace(self, nbytes: int, t0: float):
         if self.throttle_bps:
@@ -314,6 +324,99 @@ class Conn:
         if self._obs:
             self._h_ctrl.observe(time.perf_counter() - t0)
         return json.loads(payload)
+
+    # -- serving frames (kinds 'G'/'R', distlearn_tpu_torch.serve) ----------------
+    def send_gen(self, msg: Any):
+        """Send one generate REQUEST (kind ``'G'``): prompt in.  Payload
+        is JSON like a ``'J'`` frame; the distinct kind lets a serving
+        endpoint reject control traffic (and vice versa) without parsing
+        — a training client dialing a serve port desyncs loudly."""
+        self._send_frame(ord("G"), json.dumps(msg).encode())
+
+    def send_stream(self, msg: Any):
+        """Send one token-stream RESPONSE chunk (kind ``'R'``): tokens
+        out.  One frame per tick keeps time-to-first-token at one
+        decode tick, not one full generation."""
+        self._send_frame(ord("R"), json.dumps(msg).encode())
+
+    def recv_serve(self, deadline: float | None = None) -> tuple[str, Any]:
+        """Receive one serving-protocol frame: returns ``(kind, msg)``
+        with ``kind`` in ``'G'``/``'R'``/``'J'`` (``'J'`` stays legal so
+        control pings — health probes, drain notices — share the
+        connection).  Tensor frames raise :class:`ProtocolError`."""
+        t0 = time.perf_counter() if self._obs else 0.0
+        kind, length = self._recv_frame_header(deadline)
+        payload = bytes(self._recv_exact(length, mid_frame=True,
+                                         deadline=deadline))
+        if kind not in (ord("G"), ord("R"), ord("J")):
+            raise ProtocolError(
+                f"expected serve frame (G/R/J), got kind {chr(kind)!r}")
+        if self._obs:
+            self._h_serve.observe(time.perf_counter() - t0)
+        return chr(kind), json.loads(payload)
+
+    def rx_pending(self) -> int:
+        """Bytes of a partial serve frame buffered by
+        :meth:`recv_serve_nowait` — nonzero means the peer has a frame in
+        flight, so a server loop can time out tricklers without ever
+        blocking on them."""
+        return len(self._rx)
+
+    def recv_serve_nowait(self) -> list[tuple[str, Any]]:
+        """Drain whatever bytes the socket holds RIGHT NOW — never
+        blocking — reassemble them, and return every COMPLETE serve
+        frame as ``(kind, msg)`` pairs (possibly none).  A partial frame
+        stays buffered on the connection until the peer's next bytes
+        arrive.
+
+        The single-threaded-server counterpart of :meth:`recv_serve`:
+        select only proves SOME bytes are readable, and a blocking
+        whole-frame read there lets one half-sent frame stall every
+        other in-flight request (head-of-line blocking).  Raises
+        :class:`PeerClosed` on EOF at a frame boundary,
+        :class:`ConnectionResetError` on EOF mid-frame, and
+        :class:`ProtocolError` on a non-serve kind or a frame larger
+        than :data:`SERVE_MAX_FRAME` (buffering an attacker-announced
+        length would hand the peer a memory lever)."""
+        got = 0
+        self.sock.setblocking(False)
+        try:
+            while True:
+                try:
+                    chunk = self.sock.recv(1 << 16)
+                except (BlockingIOError, InterruptedError):
+                    break
+                if not chunk:
+                    self._rx_eof = True
+                    break
+                self._rx += chunk
+                got += len(chunk)
+        finally:
+            try:
+                self.sock.setblocking(True)
+            except OSError:
+                pass
+        if got:
+            self.bytes_received += got
+            self._m_recv.inc(got)
+        frames: list[tuple[str, Any]] = []
+        while len(self._rx) >= _HDR.size:
+            kind, length = _HDR.unpack_from(self._rx)
+            if kind not in (ord("G"), ord("R"), ord("J")):
+                raise ProtocolError(
+                    f"expected serve frame (G/R/J), got kind {chr(kind)!r}")
+            if length > SERVE_MAX_FRAME:
+                raise ProtocolError(f"serve frame too large: {length} bytes")
+            if len(self._rx) < _HDR.size + length:
+                break
+            payload = bytes(self._rx[_HDR.size:_HDR.size + length])
+            del self._rx[:_HDR.size + length]
+            frames.append((chr(kind), json.loads(payload)))
+        if self._rx_eof and not frames:
+            if self._rx:
+                raise ConnectionResetError("peer closed connection mid-frame")
+            raise PeerClosed("peer closed connection")
+        return frames
 
     # -- tensors ------------------------------------------------------------
     def send_tensor(self, arr: np.ndarray):

@@ -2,9 +2,10 @@
 
 The JAX package stores conv kernels HWIO and dense weights ``[in, out]``;
 the port stores them OIHW and ``[out, in]``.  Everything else (biases,
-batchnorm scale/bias and running statistics) keeps its shape.  The JAX side
-is nested dicts of numpy arrays (``jax.device_get`` of its pytrees), so this
-module needs no JAX.
+batchnorm scale/bias and running statistics) keeps its shape.  The
+transformer LM keeps the JAX layouts unchanged (:func:`lm_from_jax`,
+:func:`lm_to_jax`).  The JAX side is nested dicts of numpy arrays
+(``jax.device_get`` of its pytrees), so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -49,3 +50,35 @@ def to_jax(tree):
     arrays) to the JAX package's layout as nested dicts of numpy arrays —
     the inverse of :func:`from_jax`."""
     return _walk(tree, _leaf_to_jax)
+
+
+def _lm_leaf(a, device, dtype):
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.array(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_from_jax(params_np, device="cpu", dtype=None):
+    """A JAX transformer-LM tree (nested dicts of numpy arrays, per-block or
+    scanned layout) to the port's tensors on ``device``.  The port keeps the
+    JAX package's einsum layouts for the LM (``wq/wk/wv [E,H,D]``,
+    ``wo [H,D,E]``, ``w1 [E,F]``, ``w2 [F,E]``, ``embed [V,E]``,
+    ``pos [max_len,E]``), so every leaf keeps its shape: the convnet's
+    ``w`` transposes never apply here.  ``dtype`` casts every leaf (None
+    keeps each leaf's own)."""
+    return _walk(params_np, lambda _k, a: _lm_leaf(a, device, dtype))
+
+
+def lm_to_jax(tree):
+    """The port's LM tree to nested dicts of numpy arrays in the JAX
+    package's layout (the same shapes) — the inverse of
+    :func:`lm_from_jax`.  bfloat16 leaves come back as float32, which
+    numpy can hold."""
+    def leaf(_k, t):
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            return np.ascontiguousarray(t.numpy())
+        return np.ascontiguousarray(np.asarray(t))
+    return _walk(tree, leaf)

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "distlearn_tpu_torch_kernels"
-SOURCES = ("fused_update.cu", "wire_kernels.cu")
+SOURCES = ("fused_update.cu", "wire_kernels.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

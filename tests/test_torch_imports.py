@@ -39,9 +39,18 @@ def test_port_sources_found():
                 "obs/core.py", "obs/trace.py", "comm/__init__.py",
                 "comm/errors.py", "comm/wire.py", "comm/native.py",
                 "comm/transport.py", "ops/wire_kernels.py",
-                "parallel/async_ea.py", "examples/easgd.py"):
+                "parallel/async_ea.py", "examples/easgd.py",
+                "models/transformer.py", "parallel/sequence.py",
+                "ops/flash_attention.py", "obs/export.py",
+                "serve/__init__.py", "serve/kv_cache.py",
+                "serve/speculate.py", "serve/prefix_cache.py",
+                "serve/engine.py", "serve/scheduler.py",
+                "serve/client.py", "serve/server.py",
+                "utils/checkpoint.py", "examples/lm.py",
+                "examples/lm_client.py"):
         assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
+    assert (ROOT / "distlearn_tpu_torch/ops/csrc/flash_attention.cu").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -74,3 +83,20 @@ def test_entry_points_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_mesh(store=dist.HashStore())
     assert not dist.is_initialized()
+
+
+def test_serving_entry_points_raise_without_gpu(no_gpu):
+    from distlearn_tpu_torch.examples import lm
+    from distlearn_tpu_torch.models.transformer import transformer_lm
+    from distlearn_tpu_torch.serve import DecodeEngine
+    model = transformer_lm(vocab=16, dim=16, depth=1, heads=2, max_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    params, _ = model.init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeEngine(params)
+    assert DecodeEngine(params, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.main(["--steps", "0", "--serve", "1", "--dim", "16"])
+    with pytest.raises(SystemExit, match="ROADMAP A11"):
+        lm.main(["--steps", "3"])
