@@ -61,7 +61,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``greedy_generate`` stream on the xla route, B5a launched 8 times per full-prompt
    prefill at a bucket of 128 or more, and TTFT, TPOT, tokens/s and B5a's
    share of a prefill's device time.
-11. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+11. flash backward — kernel B5a with its residuals (m, l), B5c (dQ, with
+   di in its prologue) and B5b (dK, dV) at the LM training shape (B=8,
+   H=16, D=64, L=1024) and at B=1, H=16, D=64, L=1024; B=2, H=4, D=32,
+   L=512; B=4, H=8, D=128, L=1024; causal, float32 and bfloat16: each
+   kernel against its plain twin, dQ/dK/dV against autograd of the xla
+   route, the backward run twice bit for bit; median times (L2 flushed)
+   beside the twins, the bound, and the backward of
+   ``F.scaled_dot_product_attention(is_causal=True)`` (timed as the
+   library yardstick only) against B5c + B5b together.
+12. train LM — the full-width LM of ``bench.py:1690-1713`` (vocab 32768,
+   dim 1024, depth 8, 16 heads, max_len 1024, bfloat16 compute, float32
+   params, batch 8 of uniform tokens, lr 1e-2) on one NCCL rank with
+   ``attn_impl="flash"``: (a) 20 steps of ``build_lm_step``, the loss
+   finite and falling, B5a, B5b and B5c launched 8 times a step; (b) one
+   step on the flash route against the xla route; (c) ``remat="full"``
+   and ``"mlp"`` against none, with their launch counts (B5a 16 a step
+   under full remat); (d) ``build_lm_mixed_step``, ``params ==
+   master.to(bfloat16)`` bit for bit; (e) steps/s, tokens/s and peak
+   memory per mode, one profiled step (device busy, B5a/B5b/B5c shares)
+   and MFU against the bfloat16 dense peak (the run fails above 1).
+13. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -149,6 +169,36 @@ PROFILE_PROMPT = 1000     # one full prefill profiled for B5a's share
 # rounding difference, so 1e-3.  bfloat16: 4 ulps of a logit of magnitude
 # 2 to 4 (one ulp there is 2^-6).
 TIE_TOL = {"float32": 1e-3, "bfloat16": 0.0625}
+
+# Phase 11: the flash backward at (B, H, D, L); FLASH_TRAIN is the LM
+# training shape of phase 12, the one the kernels line reports (bfloat16).
+FLASH_BWD_SHAPES = ((8, 16, 64, 1024), (1, 16, 64, 1024), (2, 4, 32, 512),
+                    (4, 8, 128, 1024))
+FLASH_TRAIN = (8, 16, 64, 1024)
+# float32 (TF32 off) against autograd of the xla route: the reference's
+# gradient tolerance (tests/test_sequence.py:61-62).  Against the twins,
+# which take the kernels' own o, m, l and make the same roundings, 10x
+# tighter: the two differ only in the order of float32 sums (FMA
+# contraction and 64-term tile products against cuBLAS's), which the CPU
+# emulation and the Pallas comparison put near 1e-6 of gradients of order
+# 1-10.  bfloat16: rtol = atol = 2e-2 (tests/test_sequence.py:161-162),
+# never looser.
+FLASH_BWD_TOL = {"float32": {"twin": (2e-4, 2e-5), "xla": (2e-3, 2e-4)},
+                 "bfloat16": {"twin": (2e-2, 2e-2), "xla": (2e-2, 2e-2)}}
+
+# Phase 12: the LM training configuration of bench.py:1690-1713.
+LM_TRAIN = dict(vocab=32768, dim=1024, depth=8, heads=16, max_len=1024)
+LM_TRAIN_BATCH, LM_TRAIN_LR, LM_TRAIN_STEPS = 8, 1e-2, 20
+LM_TIMED_STEPS = 5        # per mode in (e), after 2 untimed steps
+# (b) flash against xla in bfloat16 compute: the loss is a float32 mean of
+# 8184 NLLs of bfloat16 logits whose roundings differ between the routes
+# and average down, so rtol 2e-3 (half a bfloat16 ulp); each leaf's update
+# ``p1 - p0 = -lr g`` within 5e-2 of the xla route's in norm (bfloat16
+# gradients agree to about 1e-2; the leaf's norm keeps small elements from
+# deciding).  (c) remat recomputes with the same deterministic kernels:
+# JAX's remat tolerance (tests/test_transformer.py:107-112), rtol 1e-5 and
+# atol 1e-7 on params, 1e-6 on the loss.
+LM_ROUTE_LOSS_RTOL, LM_ROUTE_UPDATE_TOL = 2e-3, 5e-2
 
 
 class SmokeFailure(Exception):
@@ -951,17 +1001,23 @@ def phase_async_train(torch):
 # Phase 9: kernel B5a against its plain twin and the xla route
 # ---------------------------------------------------------------------------
 
+def attn_bound(torch, nbytes, flops, dtype, rate):
+    """(bound ms, bound_by): bytes over the HBM rate against operations over
+    the peak for the dtype (CUDA cores for float32, tensor cores for
+    bfloat16)."""
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    by_bytes, by_ops = nbytes / rate * 1e3, flops / peak * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
 def flash_bound(torch, B, H, D, L, dtype, rate):
-    """(bound ms, bound_by, bytes, flops): q, k, v read once and o written
-    once over the HBM rate; the causal products 2*B*H*L*L*D over the peak
-    for the dtype (CUDA cores for float32, tensor cores for bfloat16)."""
+    """(bound ms, bound_by, bytes, flops) of B5a without residuals: q, k, v
+    read once and o written once; the causal products 2*B*H*L*L*D."""
     elt = 4 if dtype == torch.float32 else 2
     nbytes = 4 * B * L * H * D * elt
     flops = 2 * B * H * L * L * D
-    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-    by_bytes, by_ops = nbytes / rate * 1e3, flops / peak * 1e3
-    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops
-            else "operations", nbytes, flops)
+    return (*attn_bound(torch, nbytes, flops, dtype, rate), nbytes, flops)
 
 
 def phase_flash(torch, card):
@@ -1256,6 +1312,391 @@ def phase_serve_lm(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: kernels B5a (with residuals), B5b and B5c
+# ---------------------------------------------------------------------------
+
+def flash_work(B, H, D, L, elt):
+    """Compulsory bytes and flops of B5a (with m, l), B5c (with di) and B5b
+    at one causal shape: N = B*H*L*(L+1)/2 (query, key) pairs; each
+    [B, L, H, D] tensor read or written once, m, l and di 4 bytes a row."""
+    pairs = B * H * L * (L + 1) // 2
+    t, st = B * L * H * D * elt, B * H * L * 4
+    return {"fwd": (4 * t + 2 * st, 4 * D * pairs),
+            "dq": (6 * t + 3 * st, 6 * D * pairs + 2 * B * H * L * D),
+            "dkv": (6 * t + 3 * st, 8 * D * pairs)}
+
+
+def within(torch, got, want, rtol, atol) -> tuple[bool, float]:
+    ok = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    return ok, max_abs(torch, got, want)
+
+
+def phase_flash_backward(torch, card):
+    import torch.nn.functional as F
+    from distlearn_tpu_torch.ops import flash_attention as fa
+    from distlearn_tpu_torch.parallel.sequence import local_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rate, part = hbm_rate(card)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for B, H, D, L in FLASH_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            name = f"B={B} H={H} D={D} L={L} {dname}"
+            q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(4))
+            o, m, l = fa.flash_attention_fwd(q, k, v)
+            dq, di = fa.flash_attention_dq(q, k, v, o, do, m, l)
+            dk, dv = fa.flash_attention_dkv(q, k, v, do, m, l, di)
+            torch.cuda.synchronize()
+            # bit for bit from run to run: no atomics, one owner per tile
+            dq2, di2 = fa.flash_attention_dq(q, k, v, o, do, m, l)
+            dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, m, l, di2)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in
+                      ((dq, dq2), (di, di2), (dk, dk2), (dv, dv2))),
+                  f"flash backward {name}: a second run differs")
+            for t, what in ((o, "o"), (m, "m"), (l, "l"), (dq, "dq"),
+                            (dk, "dk"), (dv, "dv")):
+                check(bool(torch.isfinite(t).all()),
+                      f"flash {name}: non-finite {what}")
+            # the twins on the kernels' own residuals
+            po, pm, pl = fa.flash_attention_fwd_plain(q, k, v)
+            pdi = fa.flash_attention_di_plain(o, do)
+            pdq = fa.flash_attention_dq_plain(q, k, v, do, m, l, pdi)
+            pdk, pdv = fa.flash_attention_dkv_plain(q, k, v, do, m, l, pdi)
+            # autograd of the xla route
+            qx, kx, vx = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            xo = local_attention(qx, kx, vx, causal=True, impl="xla")
+            xdq, xdk, xdv = torch.autograd.grad(xo, (qx, kx, vx), do)
+            del xo, qx, kx, vx
+            tol = FLASH_BWD_TOL[dname]
+            errs = {}
+            for what, got, twin, xla in (("dq", dq, pdq, xdq),
+                                         ("dk", dk, pdk, xdk),
+                                         ("dv", dv, pdv, xdv)):
+                ok_t, e_t = within(torch, got, twin, *tol["twin"])
+                ok_x, e_x = within(torch, got, xla, *tol["xla"])
+                check(ok_t, f"flash {name}: {what} outside rtol, atol = "
+                      f"{tol['twin']} of its twin (max abs {e_t:.3g})")
+                check(ok_x, f"flash {name}: {what} outside rtol, atol = "
+                      f"{tol['xla']} of the xla route's gradient (max abs "
+                      f"{e_x:.3g})")
+                errs[what] = (e_t, e_x)
+            ok_o, e_o = within(torch, o, po, *(
+                (FLASH_F32_TOL, FLASH_F32_TOL) if dtype == torch.float32
+                else (FLASH_BF16_TOL, FLASH_BF16_TOL)))
+            e_m = max_abs(torch, m, pm)
+            e_l = float(((l - pl).abs() / pl).max())
+            e_di = max_abs(torch, di, pdi)
+            check(ok_o and e_m <= 1e-5 and e_l <= 1e-5 and e_di <= 1e-3 *
+                  max(1.0, float(pdi.abs().max())),
+                  f"flash {name}: forward residuals off their twins (o "
+                  f"{e_o:.3g}, m {e_m:.3g}, l {e_l:.3g} relative, di "
+                  f"{e_di:.3g})")
+            del pdq, pdk, pdv, xdq, xdk, xdv, dq2, dk2, dv2, di2
+
+            work = flash_work(B, H, D, L, 4 if dtype == torch.float32 else 2)
+            main = (B, H, D, L) == FLASH_TRAIN
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2)
+            so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            timed = {
+                "fwd": (lambda: fa.flash_attention_fwd(q, k, v),
+                        lambda: fa.flash_attention_fwd_plain(q, k, v)),
+                "dq": (lambda: fa.flash_attention_dq(q, k, v, o, do, m, l),
+                       lambda: fa.flash_attention_dq_plain(
+                           q, k, v, do, m, l,
+                           fa.flash_attention_di_plain(o, do))),
+                "dkv": (lambda: fa.flash_attention_dkv(q, k, v, do, m, l,
+                                                       di),
+                        lambda: fa.flash_attention_dkv_plain(
+                            q, k, v, do, m, l, di)),
+            }
+            line = []
+            for kern, (fn, plain) in timed.items():
+                nbytes, flops = work[kern]
+                bound, bound_by = attn_bound(torch, nbytes, flops, dtype,
+                                             rate)
+                ms = time_ms(torch, fn, flush)
+                row = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+                       "plain_ms": time_ms(torch, plain, flush) if main
+                       else None}
+                rows[(B, H, D, L, dname, kern)] = row
+                line.append(f"{kern} {ms:.4f} ms (bound {bound:.4f}, "
+                            f"{bound_by}; {bound / ms:.1%})")
+            sdpa_ms = time_ms(torch, lambda: torch.autograd.grad(
+                so, (qt, kt, vt), dot, retain_graph=True), flush)
+            with torch.no_grad():
+                rows[(B, H, D, L, dname, "fwd")]["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), flush)
+            for kern in ("dq", "dkv"):
+                rows[(B, H, D, L, dname, kern)]["library_ms"] = sdpa_ms
+            bwd_ms = rows[(B, H, D, L, dname, "dq")]["ms"] + \
+                rows[(B, H, D, L, dname, "dkv")]["ms"]
+            log(f"[flash-bwd] {name}: " + ", ".join(line)
+                + f" | B5c + B5b {bwd_ms:.4f} ms against sdpa backward "
+                f"{sdpa_ms:.4f} ms ({bwd_ms / sdpa_ms:.1f}x), sdpa forward "
+                f"{rows[(B, H, D, L, dname, 'fwd')]['library_ms']:.4f} ms"
+                + ("" if not main else " | plain twins: " + ", ".join(
+                    f"{kk} {rows[(B, H, D, L, dname, kk)]['plain_ms']:.3f} "
+                    "ms" for kk in timed))
+                + " | max abs err (twin, xla): " + ", ".join(
+                    f"{kk} {a:.3g}, {b:.3g}" for kk, (a, b) in errs.items()))
+            for kern, what in (("dq", "dq"), ("dkv", "dk")):
+                rows[(B, H, D, L, dname, kern)]["max_abs_err"] = \
+                    errs[what][0] if kern == "dq" else max(errs["dk"][0],
+                                                           errs["dv"][0])
+            rows[(B, H, D, L, dname, "fwd")]["max_abs_err"] = e_o
+            del so, qt, kt, vt, q, k, v, do, o, m, l, dq, di, dk, dv
+    del flush
+    torch.cuda.empty_cache()
+    log(f"[flash-bwd] every shape and dtype: dQ, dK, dV within "
+        f"{FLASH_BWD_TOL['float32']['twin']} (float32) of the twins and "
+        f"{FLASH_BWD_TOL['float32']['xla']} of the xla route, bfloat16 "
+        f"within rtol = atol = {FLASH_BF16_TOL}; a second backward equal bit "
+        "for bit; bounds at "
+        f"{rate / 1e12:.2f} TB/s ({part}), {FP32_FLOPS / 1e12:.0f} TFLOP/s "
+        f"float32, {BF16_FLOPS / 1e12:.0f} TFLOP/s bfloat16")
+    B, H, D, L = FLASH_TRAIN
+    return {kern: rows[(B, H, D, L, "bfloat16", kern)]
+            for kern in ("fwd", "dq", "dkv")}
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: LM training at full width
+# ---------------------------------------------------------------------------
+
+def lm_train_flops(vocab, dim, depth, max_len, batch, mlp_ratio=4):
+    """Model FLOPs of one training step (forward and backward, no
+    recompute): per token and block 2*(4 E^2 + 2 E F) for the
+    projections and FFN and 2*E*(L+1) for causal attention, 2*E*V for the
+    tied logits; the backward twice the forward."""
+    E, F, L = dim, dim * mlp_ratio, max_len
+    per_token = depth * (2 * (4 * E * E + 2 * E * F) + 2 * E * (L + 1)) \
+        + 2 * E * vocab
+    return 3 * per_token * batch * L
+
+
+FLASH_KERNELS = (("B5a", "flash_fwd"), ("B5b", "flash_bwd_dkv"),
+                 ("B5c", "flash_bwd_dq"))
+
+
+def flash_counts(fa):
+    return (fa.flash_attention.launches, fa.flash_attention_dkv.launches,
+            fa.flash_attention_dq.launches)
+
+
+def reset_flash_counts(fa):
+    fa.flash_attention.launches = 0
+    fa.flash_attention_dkv.launches = 0
+    fa.flash_attention_dq.launches = 0
+
+
+def phase_train_lm(torch, tree):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+    from distlearn_tpu_torch.models.transformer import transformer_lm
+    from distlearn_tpu_torch.ops import flash_attention as fa
+    from distlearn_tpu_torch.train import lm as tlm
+    from distlearn_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dict(LM_TRAIN, compute_dtype=torch.bfloat16)
+    B, L = LM_TRAIN_BATCH, LM_TRAIN["max_len"]
+    depth = LM_TRAIN["depth"]
+    models = {(impl, remat): transformer_lm(attn_impl=impl, remat=remat,
+                                            **cfg)
+              for impl, remat in (("flash", False), ("xla", False),
+                                  ("flash", "full"), ("flash", "mlp"))}
+    t0 = time.perf_counter()
+    params0, _ = models[("flash", False)].init(0, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params0))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, LM_TRAIN["vocab"], (B, L)).astype(np.int32)).cuda()
+    log(f"[train] transformer_lm {LM_TRAIN}, bfloat16 compute: {n_params:,} "
+        f"float32 params from the seeded init in "
+        f"{time.perf_counter() - t0:.1f} s; batch {B} x {L} uniform tokens, "
+        f"lr {LM_TRAIN_LR}, one NCCL rank")
+
+    def steps(step, state, n, timed=False):
+        """n steps; returns the state, the float losses and (timed) the
+        host seconds of the last n-2 steps, synchronised."""
+        losses = []
+        for i in range(n):
+            if timed and i == 2:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            state, loss = step(state, tokens)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t) / (n - 2) if timed else None
+        return state, [float(x) for x in losses], secs
+
+    def update_err(p1, ref1):
+        """Largest per-leaf norm of the update's difference from the
+        reference update, over the reference update's norm."""
+        worst = 0.0
+        for a, b, z in zip(tree_leaves(p1), tree_leaves(ref1),
+                           tree_leaves(params0)):
+            du = (a.double() - z.double()) - (b.double() - z.double())
+            ref = (b.double() - z.double()).norm()
+            worst = max(worst, float(du.norm() / ref) if ref > 0 else
+                        float(du.norm()))
+        return worst
+
+    def max_diff(p1, ref1):
+        return max(max_abs(torch, a, b) for a, b in
+                   zip(tree_leaves(p1), tree_leaves(ref1)))
+
+    per_mode = {}
+
+    # (a) the main path: 20 steps of build_lm_step on the flash route
+    step = tlm.build_lm_step(models[("flash", False)], tree,
+                             lr=LM_TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts(fa)
+    t = time.perf_counter()
+    params, losses, _ = steps(step, params0, LM_TRAIN_STEPS)
+    wall = time.perf_counter() - t
+    launches = flash_counts(fa)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"the LM loss did not fall: {losses}")
+    check(launches == (depth * LM_TRAIN_STEPS,) * 3,
+          f"B5a/B5b/B5c launched {launches} times in {LM_TRAIN_STEPS} "
+          f"steps, expected {depth} each a step")
+    log(f"[train] (a) {LM_TRAIN_STEPS} steps: loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f} ({' '.join(f'{x:.4f}' for x in losses)}); "
+        f"launches B5a {launches[0]}, B5b {launches[1]}, B5c {launches[2]} "
+        f"= {depth} each a step; {wall:.2f} s with the first step")
+    del params
+
+    # (b) one step on the flash route against the xla route
+    one = {}
+    for impl in ("flash", "xla"):
+        st = tlm.build_lm_step(models[(impl, False)], tree,
+                               lr=LM_TRAIN_LR)
+        p1, loss = st(params0, tokens)
+        one[impl] = (p1, float(loss))
+        torch.cuda.synchronize()
+    dl = abs(one["flash"][1] - one["xla"][1])
+    du = update_err(one["flash"][0], one["xla"][0])
+    log(f"[train] (b) one step, flash against xla: loss {one['flash'][1]:.6f}"
+        f" against {one['xla'][1]:.6f} (|diff| {dl:.3g}, rtol "
+        f"{LM_ROUTE_LOSS_RTOL}); worst leaf update off by {du:.3g} of its "
+        f"norm (tolerance {LM_ROUTE_UPDATE_TOL})")
+    check(dl <= LM_ROUTE_LOSS_RTOL * abs(one["xla"][1]),
+          "flash and xla routes' losses differ")
+    check(du <= LM_ROUTE_UPDATE_TOL, "flash and xla routes' updates differ")
+    del one["xla"]
+    torch.cuda.empty_cache()
+
+    # (c) remat full and mlp against none, with their launch counts
+    for remat, b5a in (("full", 2 * depth), ("mlp", depth)):
+        st = tlm.build_lm_step(models[("flash", remat)], tree,
+                               lr=LM_TRAIN_LR)
+        torch.cuda.synchronize()
+        reset_flash_counts(fa)
+        p1, loss = st(params0, tokens)
+        torch.cuda.synchronize()
+        got = flash_counts(fa)
+        check(got == (b5a, depth, depth),
+              f"remat {remat}: launches B5a/B5b/B5c {got}, expected "
+              f"{(b5a, depth, depth)} in one step")
+        dl = abs(float(loss) - one["flash"][1])
+        ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-7) for a, b in
+                 zip(tree_leaves(p1), tree_leaves(one["flash"][0])))
+        log(f"[train] (c) remat {remat}: loss |diff| {dl:.3g}, params max "
+            f"diff {max_diff(p1, one['flash'][0]):.3g} against no remat; "
+            f"launches B5a {got[0]}, B5b {got[1]}, B5c {got[2]}")
+        check(dl <= 1e-6 * abs(one["flash"][1]) and ok,
+              f"remat {remat} changes the step")
+        del p1
+    del one
+
+    # (d) the mixed step: bfloat16 working params, float32 masters
+    mixed = tlm.build_lm_mixed_step(models[("flash", False)], tree,
+                                    lr=LM_TRAIN_LR)
+    mst = tlm.init_lm_mixed_state(params0)
+    mlosses = []
+    for _ in range(10):
+        mst, loss = mixed(mst, tokens)
+        mlosses.append(float(loss))
+        check(all(torch.equal(p, m.to(torch.bfloat16)) for p, m in
+                  zip(tree_leaves(mst.params), tree_leaves(mst.master))),
+              "mixed step: params != master.to(bfloat16)")
+    check(all(math.isfinite(x) for x in mlosses) and mlosses[-1] < mlosses[0],
+          f"mixed step: the loss did not fall: {mlosses}")
+    log(f"[train] (d) mixed step, 10 steps: loss {mlosses[0]:.5f} -> "
+        f"{mlosses[-1]:.5f}; params == master.to(bfloat16) bit for bit "
+        "after every step")
+    del mst
+    torch.cuda.empty_cache()
+
+    # (e) throughput and memory per mode, then one profiled step
+    flops = lm_train_flops(LM_TRAIN["vocab"], LM_TRAIN["dim"], depth, L, B)
+    modes = (("none", models[("flash", False)], tlm.build_lm_step, False),
+             ("full", models[("flash", "full")], tlm.build_lm_step, False),
+             ("mlp", models[("flash", "mlp")], tlm.build_lm_step, False),
+             ("mixed", models[("flash", False)], tlm.build_lm_mixed_step,
+              True))
+    for name, model, build, is_mixed in modes:
+        st = build(model, tree, lr=LM_TRAIN_LR)
+        state = tlm.init_lm_mixed_state(params0) if is_mixed else params0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, _, secs = steps(st, state, LM_TIMED_STEPS + 2, timed=True)
+        mfu = flops / secs / BF16_FLOPS
+        per_mode[name] = {"step_ms": secs * 1e3, "steps_per_s": 1 / secs,
+                          "tokens_per_s": B * L / secs, "mfu": mfu,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        check(mfu <= 1.0, f"MFU {mfu:.3f} > 1 in mode {name}: the timing "
+              "or the FLOP count is wrong")
+        del state
+    log(f"[train] (e) model FLOPs a step {flops / 1e12:.3f} TFLOP "
+        f"(analytic); per mode, the mean of {LM_TIMED_STEPS} steps after 2 "
+        "untimed: " + "; ".join(
+            f"{k} {v['step_ms']:.2f} ms = {v['steps_per_s']:.2f} steps/s, "
+            f"{v['tokens_per_s']:.0f} tokens/s, MFU {v['mfu']:.3f}, peak "
+            f"{v['peak_gb']:.2f} GB" for k, v in per_mode.items()))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        p1, _ = step(params0, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    del p1
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    check(busy > 0, "torch.profiler saw no device time in the LM step")
+    shares = {tag: sum(e.self_device_time_total for e in evs
+                       if key in e.key) / 1e3 for tag, key in FLASH_KERNELS}
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[train] (e) one profiled step: {wall_ms:.2f} ms wall (profiler "
+        f"on), device busy {busy:.2f} ms, idle {1 - busy / wall_ms:.1%}; "
+        + ", ".join(f"{tag} {ms:.2f} ms = {ms / busy:.1%}"
+                    for tag, ms in shares.items()))
+    for e in top:
+        log(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms  "
+            f"x{e.count:<4d} {e.key[:90]}")
+    return {"launches": {"flash_attention_dkv": launches[1],
+                         "flash_attention_dq": launches[2],
+                         "flash_attention_train": launches[0]},
+            "modes": per_mode, "busy_ms": busy, "wall_ms": wall_ms,
+            "shares": shares}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1297,6 +1738,13 @@ def main() -> int:
         async_run = phase_async_train(torch)
         kernel_rows["flash_attention"] = phase_flash(torch, card)
         served = phase_serve_lm(torch)
+        bwd_rows = phase_flash_backward(torch, card)
+        tree = init_mesh(0, 1, init_method=f"tcp://localhost:{free_port()}",
+                         device="cuda")
+        try:
+            trained = phase_train_lm(torch, tree)
+        finally:
+            dist.destroy_process_group()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -1323,12 +1771,26 @@ def main() -> int:
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758"
                      " via distlearn_tpu/parallel/sequence.py:420",
          "launches": served["launches"], **kernel_rows["flash_attention"]},
+        {"name": "flash_attention_dkv", "route": "cuda",
+         "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"
+                     " via distlearn_tpu/parallel/sequence.py:420",
+         "launches": trained["launches"]["flash_attention_dkv"],
+         **bwd_rows["dkv"]},
+        {"name": "flash_attention_dq", "route": "cuda",
+         "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
+         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"
+                     " via distlearn_tpu/parallel/sequence.py:420",
+         "launches": trained["launches"]["flash_attention_dq"],
+         **bwd_rows["dq"]},
     ]
     log(f"[report] total {time.perf_counter() - t_start:.1f} s; "
         f"sgd {sgd['steps_per_s']:.2f} steps/s at batch {SGD_BATCH}; "
         f"AsyncEA {async_run['syncs_per_s']:.2f} syncs/s; served LM TTFT p50 "
         f"{served['ttft_ms']:.2f} ms, TPOT p50 {served['tpot_ms']:.2f} ms, "
-        f"{served['tokens_per_s']:.1f} tokens/s")
+        f"{served['tokens_per_s']:.1f} tokens/s; LM training "
+        f"{trained['modes']['none']['steps_per_s']:.2f} steps/s, MFU "
+        f"{trained['modes']['none']['mfu']:.3f}")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -15,9 +15,11 @@ dtype; the weights are cast to it at each use, as the JAX package does.
 Attention scores, softmax and the attention's value sums accumulate in
 float32 where the JAX code asks for ``preferred_element_type=float32``.
 
-Sequence, tensor and expert parallelism (``seq_axis``, ``tp_axis``,
-``ep_axis``), rematerialisation and MoE blocks are LM training's, which
-waits for ROADMAP A11: asking for them raises ``NotImplementedError``.
+``remat`` recomputes activations in the backward pass
+(``torch.utils.checkpoint``); :func:`lm_loss` is the next-token objective
+that ``train/lm.py`` differentiates.  Sequence, tensor and expert
+parallelism (``seq_axis``, ``tp_axis``, ``ep_axis``) and MoE blocks wait
+for ROADMAP A11: asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from distlearn_tpu_torch.models.core import Model
 from distlearn_tpu_torch.parallel.sequence import local_attention
@@ -36,7 +39,8 @@ from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-_A11 = "is LM training's, which waits for ROADMAP A11"
+_A11 = "waits for ROADMAP A11 (tp, sequence, pipeline and expert " \
+    "parallelism of LM training)"
 
 
 def _not_ported(what: str, value) -> None:
@@ -116,8 +120,22 @@ def transformer_lm(vocab: int = 256, dim: int = 128, depth: int = 2,
     not JAX's: parity tests carry JAX's params across with
     :func:`distlearn_tpu_torch.models.convert.lm_from_jax`.
     ``scan_blocks=True`` stores the blocks stacked under ``"blocks"``, as
-    the JAX package's scanned layout; apply walks them in a loop."""
-    _not_ported("remat", remat)
+    the JAX package's scanned layout; apply walks them in a loop.
+
+    ``remat=True`` (= ``"full"``) checkpoints each block: its activations
+    are recomputed in the backward pass instead of saved (the flash
+    forward runs again there).  ``remat="mlp"`` checkpoints only the FFN
+    half, so the attention output and the flash kernel's softmax
+    statistics stay saved and the backward never reruns the attention
+    forward.  Both use ``torch.utils.checkpoint(use_reentrant=False)`` and
+    apply only where a gradient is being recorded."""
+    if isinstance(remat, str):
+        if remat not in ("full", "mlp"):
+            raise ValueError(f"remat must be False, True/'full', or 'mlp', "
+                             f"got {remat!r}")
+    else:
+        # any truthy non-string (True, 1, ...) means full remat, as in JAX
+        remat = "full" if remat else False
     _not_ported("moe_experts", moe_experts)
     head_dim = dim // heads
     hidden = dim * mlp_ratio
@@ -152,11 +170,24 @@ def transformer_lm(vocab: int = 256, dim: int = 128, depth: int = 2,
             return stack_block_params(params, depth), {}
         return params, {}
 
+    def block(blk, x):
+        if not (remat and torch.is_grad_enabled()):
+            return block_apply(blk, x, cd, attn_impl=attn_impl)
+        if remat == "mlp":
+            x = attn_apply(blk, x, cd, attn_impl=attn_impl)
+            return checkpoint(ffn_apply, blk, x, cd, use_reentrant=False)
+        return checkpoint(block_apply, blk, x, cd, attn_impl=attn_impl,
+                          use_reentrant=False)
+
     def apply(params, state, tokens, train=True, rng=None, seq_axis=None,
-              tp_axis=None, ep_axis=None):
+              tp_axis=None, ep_axis=None, seq_layout="contig"):
         _not_ported("seq_axis", seq_axis)
         _not_ported("tp_axis", tp_axis)
         _not_ported("ep_axis", ep_axis)
+        if seq_layout not in ("contig", "zigzag"):
+            raise ValueError(f"seq_layout must be 'contig' or 'zigzag', "
+                             f"got {seq_layout!r}")
+        _not_ported("seq_layout='zigzag'", seq_layout == "zigzag")
         embed = params["embed"]
         tokens = torch.as_tensor(tokens, device=embed.device).long()
         L = tokens.shape[1]
@@ -167,13 +198,30 @@ def transformer_lm(vocab: int = 256, dim: int = 128, depth: int = 2,
         else:
             blocks = [params[f"block{i}"] for i in range(depth)]
         for blk in blocks:
-            x = block_apply(blk, x, cd, attn_impl=attn_impl)
+            x = block(blk, x)
         x = _rmsnorm(params["out_norm"], x)
         logits = x @ embed.T.to(cd)
         return logits.to(dtype), state
 
     return Model(init=init, apply=apply, name="transformer_lm",
                  input_shape=(max_len,), num_classes=vocab)
+
+
+def lm_loss(model: Model, params: PyTree, tokens, seq_axis=None,
+            tp_axis=None, ep_axis=None,
+            seq_layout: str = "contig") -> torch.Tensor:
+    """Next-token cross-entropy of ``model`` on int tokens ``[B, L]``: the
+    float32 log-softmax of ``logits[:, :-1]``, the mean negative
+    log-likelihood of ``tokens[:, 1:]`` — the JAX package's ``lm_loss``
+    without a sequence axis (where its ``reduce`` changes nothing, and its
+    MoE balance term has nothing to add to a dense model).  The sequence
+    axis raises (ROADMAP A11)."""
+    _not_ported("seq_axis", seq_axis)
+    logits, _ = model.apply(params, {}, tokens, train=True, tp_axis=tp_axis,
+                            ep_axis=ep_axis, seq_layout=seq_layout)
+    targets = torch.as_tensor(tokens, device=logits.device).long()[:, 1:]
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    return -lp.gather(-1, targets[..., None])[..., 0].mean()
 
 
 def decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

@@ -11,10 +11,12 @@ sums accumulate in float32 (the JAX code's
 input dtype before the value product, as there.
 
 The ``flash`` impl is kernel B5a (:mod:`distlearn_tpu_torch.ops.
-flash_attention`): on a CUDA tensor it launches the hand-written kernel,
-on a CPU tensor it runs the kernel's plain twin — the one deliberate
-difference from the JAX package, which raises off the TPU.  Ring,
-all-to-all and zigzag attention wait for ROADMAP A11.
+flash_attention`), differentiable through its backward kernels B5b and B5c
+(the xla and chunked impls differentiate through PyTorch's autograd): on a
+CUDA tensor it launches the hand-written kernels, on a CPU tensor it runs
+their plain twins — the one deliberate difference from the JAX package,
+which raises off the TPU.  Ring, all-to-all and zigzag attention wait for
+ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -98,8 +100,9 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-device attention over ``[B, L, H, D]``.  ``impl``: ``"xla"``
     (full ``[B, H, L, L]`` scores), ``"flash"`` (kernel B5a) or
     ``"chunked"`` (:func:`chunked_causal_attention`; xla for non-causal or
-    short/ragged L).  Default resolution: the ``flash`` arg, then
-    ``DISTLEARN_TPU_ATTN``, then ``DISTLEARN_TPU_FLASH``, then xla.
+    short/ragged L); the gradient flows through all three.  Default
+    resolution: the ``flash`` arg, then ``DISTLEARN_TPU_ATTN``, then
+    ``DISTLEARN_TPU_FLASH``, then xla.
 
     Flash engages where the JAX package's does, at ``L >= 128`` and
     ``L % 128 == 0``; elsewhere an explicit request raises and an env

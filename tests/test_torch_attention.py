@@ -1,9 +1,11 @@
 """The port's single-device attention against the JAX package's, on the CPU
 at L = 256: ``local_attention`` with impl xla, chunked and flash (on the
 CPU the flash impl runs kernel B5a's plain twin) against JAX's
-``impl="xla"``/``"chunked"``.  The Pallas flash kernel does not run off the
-TPU (``tests/test_sequence.py`` skips it), so JAX's xla path is its
-oracle.  Also the shared impl resolution (``DISTLEARN_TPU_ATTN``,
+``impl="xla"``/``"chunked"``: off the TPU the JAX package's flash impl
+falls back to its xla path, so that path is the oracle here
+(``tests/test_torch_flash_backward.py`` holds the twins against the
+Pallas kernels themselves, in TPU interpret mode).  Also the shared impl
+resolution (``DISTLEARN_TPU_ATTN``,
 ``DISTLEARN_TPU_FLASH``, ``DISTLEARN_TPU_CHUNK``), the explicit-flash error
 at ``L % 128 != 0``, the kernel route's error at a head dim it is not
 built for, and the plain twin against a float64 softmax.

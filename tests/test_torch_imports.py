@@ -15,7 +15,8 @@ import torch.distributed as dist  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "distlearn_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
+    [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
+     ROOT / "tests" / "torch_lm_dist_worker.py"]
 
 
 def _imported_modules(path: Path):
@@ -47,7 +48,8 @@ def test_port_sources_found():
                 "serve/engine.py", "serve/scheduler.py",
                 "serve/client.py", "serve/server.py",
                 "utils/checkpoint.py", "examples/lm.py",
-                "examples/lm_client.py"):
+                "examples/lm_client.py", "train/lm.py",
+                "utils/profiling.py"):
         assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "distlearn_tpu_torch/ops/csrc/flash_attention.cu").exists()
@@ -98,5 +100,37 @@ def test_serving_entry_points_raise_without_gpu(no_gpu):
     assert DecodeEngine(params, device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.main(["--steps", "0", "--serve", "1", "--dim", "16"])
-    with pytest.raises(SystemExit, match="ROADMAP A11"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.main(["--steps", "3"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.main(["--steps", "3", "--dp", "2"])
+    with pytest.raises(SystemExit, match="ROADMAP A11"):
+        lm.main(["--steps", "3", "--tp", "2"])
+
+
+def test_lm_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    """LM training and its profiler run on the card unless the CPU is asked
+    for: the LM state's init, the trace context, and the mesh the step
+    builders take."""
+    from distlearn_tpu_torch.models.transformer import transformer_lm
+    from distlearn_tpu_torch.parallel.mesh import MeshTree, init_mesh
+    from distlearn_tpu_torch.train import lm as train_lm
+    from distlearn_tpu_torch.utils.profiling import trace
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with trace(str(tmp_path / "cuda")):
+            pass
+    with trace(str(tmp_path / "cpu"), device="cpu"):
+        torch.ones(2).sum()
+    assert (tmp_path / "cpu" / "trace.json").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_mesh(store=dist.HashStore())
+    tree = init_mesh(store=dist.HashStore(), device="cpu")
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MeshTree()
+        model = transformer_lm(vocab=16, dim=16, depth=1, heads=2,
+                               max_len=16)
+        st = train_lm.init_lm_ea_state(model, tree, 0)
+        assert st.params["embed"].device.type == "cpu"
+    finally:
+        dist.destroy_process_group()

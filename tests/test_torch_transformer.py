@@ -168,8 +168,6 @@ def test_init_draws_the_jax_distributions():
 def test_unported_options_raise():
     _, jp = _jax_params()
     with pytest.raises(NotImplementedError, match="A11"):
-        tt.transformer_lm(remat=True)
-    with pytest.raises(NotImplementedError, match="A11"):
         tt.transformer_lm(moe_experts=2)
     model = tt.transformer_lm(vocab=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                               max_len=MAX_LEN)
