@@ -11,7 +11,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (nvidia-smi); float32 everywhere (TF32 off for convolutions and matmuls,
    cuDNN deterministic) for parity and timing alike.
 2. build   — compile every CUDA source of the port (one nvcc each, started
-   together) into the git-ignored build directory.
+   together) into the git-ignored build directory; per flash kernel,
+   ptxas's registers and spills (none allowed in the D=64 bfloat16 B5a and
+   B5b) and the HMMA count of its SASS (``cuobjdump -sass``): non-zero in
+   exactly the tensor-core kernels, the bfloat16 B5a and B5b.
 3. kernels — each kernel against its plain PyTorch version, bit for bit, at
    the full-width CIFAR-10 bucket and at a ragged length; median times over
    CUDA events (L2 flushed before each launch) beside the plain version, the
@@ -46,7 +49,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 9. flash   — kernel B5a (causal flash-attention forward) against its plain
    twin and the xla route at the serving shape (B=1, H=16, D=64) for L =
    128, 256, 1024, 2048, at B=4, H=8, D=128, L=1024 and at B=2, H=4, D=32,
-   L=512, float32 and bfloat16;
+   L=512, float32 and bfloat16; in bfloat16 also non-causal, L=64 and q
+   multiplied by 8 (FLASH_BF16_CASES, untimed);
    median times (L2 flushed) beside the plain twin,
    ``F.scaled_dot_product_attention(is_causal=True)`` (timed as the
    library yardstick only) and the bound.
@@ -60,7 +64,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    others decode (the chunk pass): every stream against its isolated
    ``greedy_generate`` stream on the xla route, B5a launched 8 times per full-prompt
    prefill at a bucket of 128 or more, and TTFT, TPOT, tokens/s and B5a's
-   share of a prefill's device time.
+   share of a prefill's device time; the profiled prefill names the
+   tensor-core B5a (``flash_fwd_mma``) and no other flash kernel.
 11. flash backward — kernel B5a with its residuals (m, l), B5c (dQ, with
    di in its prologue) and B5b (dK, dV) at the LM training shape (B=8,
    H=16, D=64, L=1024) and at B=1, H=16, D=64, L=1024; B=2, H=4, D=32,
@@ -69,7 +74,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    route, the backward run twice bit for bit; median times (L2 flushed)
    beside the twins, the bound, and the backward of
    ``F.scaled_dot_product_attention(is_causal=True)`` (timed as the
-   library yardstick only) against B5c + B5b together.
+   library yardstick only) against B5c + B5b together; the FLASH_BF16_CASES
+   checked the same way, untimed; a profiled float32 call names only the
+   CUDA-core kernels, a bfloat16 one the tensor-core B5a and B5b.
 12. train LM — the full-width LM of ``bench.py:1690-1713`` (vocab 32768,
    dim 1024, depth 8, 16 heads, max_len 1024, bfloat16 compute, float32
    params, batch 8 of uniform tokens, lr 1e-2) on one NCCL rank with
@@ -79,8 +86,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    and ``"mlp"`` against none, with their launch counts (B5a 16 a step
    under full remat); (d) ``build_lm_mixed_step``, ``params ==
    master.to(bfloat16)`` bit for bit; (e) steps/s, tokens/s and peak
-   memory per mode, one profiled step (device busy, B5a/B5b/B5c shares)
-   and MFU against the bfloat16 dense peak (the run fails above 1).
+   memory per mode, one profiled step (device busy, B5a/B5b/B5c shares,
+   B5a and B5b by their tensor-core kernels' names) and MFU against the
+   bfloat16 dense peak (the run fails above 1).
 13. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -90,6 +98,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -150,6 +159,25 @@ FLASH_F32_TOL = 1e-5
 # bfloat16: the reference's own flash tolerance, rtol = atol = 2e-2
 # (tests/test_sequence.py:161-162), never looser.
 FLASH_BF16_TOL = 2e-2
+
+# Phases 9 and 11, bfloat16 only, untimed, at the same tolerances: where
+# the tensor-core kernels can break.  (B, H, D, L, causal, q multiplier):
+# full (non-causal) attention; L = 64, one diagonal tile; q multiplied by 8
+# (scaled scores of standard deviation 8, up to about +-50), which works
+# the online rescale in the fragment layout, at D = 64 and D = 128.  With q
+# x 8 the gradients are held against the twins only: there the library's
+# own roundings (di from the bfloat16 o, then dP - di cancelling where P is
+# nearly one-hot) put even the twin up to ~0.3 off the xla route's dK
+# (measured on the CPU for both compute dtypes), so that distance is
+# logged beside the twin's own, not held.  And dK = dS^T Q: where the
+# kernel's S (summed in another order) rounds a bfloat16 dS the other way
+# than the twin's, dK moves by that ulp times |q|, which q x 8 scales, so
+# dK's absolute tolerance against its twin is 8 x 2e-2 there (rtol stays
+# 2e-2; measured 0.125 at D = 128 on the card).  The forward is held
+# against both at the unchanged tolerance.
+FLASH_BF16_CASES = ((2, 4, 64, 512, False, 1.0), (2, 4, 64, 64, True, 1.0),
+                    (1, 16, 64, 1024, True, 8.0),
+                    (4, 8, 128, 1024, True, 8.0))
 
 # Phase 10: the LM of bench.py:1705, served at 4 slots.
 LM_FLAGS = ["--steps", "0", "--serve", "4", "--vocab", "32768", "--dim",
@@ -298,6 +326,54 @@ def phase_device(torch):
     return name, smi_line
 
 
+def kernel_label(sym: str) -> str | None:
+    """``flash_fwd_mma<bf16, 64>`` from a flash kernel's mangled name."""
+    m = re.search(r"(flash_[a-z_]+?)I(f|13__nv_bfloat16)?Li(\d+)E", sym)
+    if m is None:
+        return None
+    name, t, d = m.groups()
+    dtype = "bf16" if name.endswith("_mma") or t == "13__nv_bfloat16" \
+        else "f32"
+    return f"{name}<{dtype}, {d}>"
+
+
+def ptxas_report(out: str) -> dict:
+    """{kernel label: {"regs": n, "spill": (stores, loads)}} from nvcc's
+    ``-Xptxas -v`` output."""
+    info, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^'\s]+)", line)
+        if m:
+            cur = kernel_label(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            info.setdefault(cur, {})["spill"] = tuple(map(int, m.groups()))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info.setdefault(cur, {})["regs"] = int(m.group(1))
+    return info
+
+
+def sass_hmma(lib: str) -> dict:
+    """{kernel label: HMMA instructions in its SASS} by ``cuobjdump``."""
+    from distlearn_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-500:]}")
+    counts = {}
+    for part in out.stdout.split("Function : ")[1:]:
+        label = kernel_label(part.split(None, 1)[0])
+        if label is not None:
+            counts[label] = sum("HMMA" in ln for ln in part.splitlines())
+    return counts
+
+
 def phase_build():
     from distlearn_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -309,6 +385,25 @@ def phase_build():
             if "ptxas" in line and ("registers" in line or "spill" in line
                                     or "Compiling" in line):
                 log(f"[build] {src}: {line.strip()}")
+    # the bfloat16 B5a and B5b run on tensor cores, the rest on CUDA cores
+    if "flash_attention.cu" in logs:
+        info = ptxas_report(logs["flash_attention.cu"])
+        log("[build] flash kernels (registers, spill stores/loads bytes): "
+            + ", ".join(f"{k} {v.get('regs')} regs, spill "
+                        f"{v.get('spill')}" for k, v in sorted(info.items())))
+        for label in ("flash_fwd_mma<bf16, 64>",
+                      "flash_bwd_dkv_mma<bf16, 64>"):
+            check(label in info and info[label].get("spill") == (0, 0),
+                  f"{label}: ptxas reports spills or no entry: "
+                  f"{info.get(label)}")
+    hmma = sass_hmma(str(_build.library_path("flash_attention.cu")))
+    log("[build] HMMA instructions per flash kernel (cuobjdump -sass): "
+        + ", ".join(f"{k} {n}" for k, n in sorted(hmma.items())))
+    check(len(hmma) == 18, f"expected 18 flash kernels, found {sorted(hmma)}")
+    for label, n in hmma.items():
+        check((n > 0) == ("_mma<" in label),
+              f"{label}: {n} HMMA instructions; only the bfloat16 B5a and "
+              "B5b kernels run on tensor cores")
 
 
 # ---------------------------------------------------------------------------
@@ -1020,6 +1115,41 @@ def flash_bound(torch, B, H, D, L, dtype, rate):
     return (*attn_bound(torch, nbytes, flops, dtype, rate), nbytes, flops)
 
 
+def flash_inputs(torch, gen, B, H, D, L, dtype, n, mult=1.0):
+    """``n`` standard normal ``[B, L, H, D]`` tensors on the card in
+    ``dtype``, the first (q) multiplied by ``mult`` before the cast."""
+    ts = [torch.randn((B, L, H, D), generator=gen, device="cuda")
+          for _ in range(n)]
+    ts[0] = ts[0] * mult
+    return [t.to(dtype) for t in ts]
+
+
+def case_name(B, H, D, L, dtype, causal=True, mult=1.0):
+    return (f"B={B} H={H} D={D} L={L} {str(dtype)[6:]}"
+            + ("" if causal else " full") + ("" if mult == 1 else
+                                             f" q x{mult:g}"))
+
+
+def check_forward(torch, name, out, plain, xla, dtype):
+    """B5a's output against its twin and the xla route; the two max abs
+    errors."""
+    check(bool(torch.isfinite(out).all()),
+          f"flash_attention {name}: non-finite output")
+    err_plain, err_xla = max_abs(torch, out, plain), max_abs(torch, out, xla)
+    if dtype == torch.float32:
+        check(err_plain <= FLASH_F32_TOL and err_xla <= FLASH_F32_TOL,
+              f"flash_attention {name}: max abs {err_plain} against "
+              f"the plain twin, {err_xla} against xla (> "
+              f"{FLASH_F32_TOL})")
+    else:
+        for ref, what in ((plain, "plain twin"), (xla, "xla route")):
+            check(torch.allclose(out.float(), ref.float(),
+                                 rtol=FLASH_BF16_TOL, atol=FLASH_BF16_TOL),
+                  f"flash_attention {name}: outside rtol = atol = "
+                  f"{FLASH_BF16_TOL} of the {what}")
+    return err_plain, err_xla
+
+
 def phase_flash(torch, card):
     import torch.nn.functional as F
     from distlearn_tpu_torch.ops import flash_attention as fa
@@ -1031,29 +1161,14 @@ def phase_flash(torch, card):
     main_row = None
     for B, H, D, L in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn((B, L, H, D), generator=gen, device=dev)
-                       .to(dtype) for _ in range(3))
+            q, k, v = flash_inputs(torch, gen, B, H, D, L, dtype, 3)
             out = fa.flash_attention(q, k, v, causal=True)
             torch.cuda.synchronize()
             plain = fa.flash_attention_plain(q, k, v, True)
             xla = local_attention(q, k, v, causal=True, impl="xla")
-            name = f"B={B} H={H} D={D} L={L} {str(dtype)[6:]}"
-            check(bool(torch.isfinite(out).all()),
-                  f"flash_attention {name}: non-finite output")
-            err_plain, err_xla = max_abs(torch, out, plain), \
-                max_abs(torch, out, xla)
-            if dtype == torch.float32:
-                check(err_plain <= FLASH_F32_TOL and err_xla <= FLASH_F32_TOL,
-                      f"flash_attention {name}: max abs {err_plain} against "
-                      f"the plain twin, {err_xla} against xla (> "
-                      f"{FLASH_F32_TOL})")
-            else:
-                for ref, what in ((plain, "plain twin"), (xla, "xla route")):
-                    check(torch.allclose(out.float(), ref.float(),
-                                         rtol=FLASH_BF16_TOL,
-                                         atol=FLASH_BF16_TOL),
-                          f"flash_attention {name}: outside rtol = atol = "
-                          f"{FLASH_BF16_TOL} of the {what}")
+            name = case_name(B, H, D, L, dtype)
+            err_plain, err_xla = check_forward(torch, name, out, plain, xla,
+                                               dtype)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             bound, bound_by, nbytes, flops = flash_bound(torch, B, H, D, L,
                                                          dtype, rate)
@@ -1077,6 +1192,18 @@ def phase_flash(torch, card):
             if (B, H, D, L) == FLASH_MAIN and dtype == torch.bfloat16:
                 main_row = row
     del flush
+    for B, H, D, L, causal, mult in FLASH_BF16_CASES:
+        q, k, v = flash_inputs(torch, gen, B, H, D, L, torch.bfloat16, 3,
+                               mult)
+        out = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        name = case_name(B, H, D, L, torch.bfloat16, causal, mult)
+        errs = check_forward(torch, name, out,
+                             fa.flash_attention_plain(q, k, v, causal),
+                             local_attention(q, k, v, causal=causal,
+                                             impl="xla"), torch.bfloat16)
+        log(f"[flash] {name}: max abs err {errs[0]:.3g} (plain), "
+            f"{errs[1]:.3g} (xla)")
     log(f"[flash] float32 within {FLASH_F32_TOL} of the plain twin and the "
         f"xla route, bfloat16 within rtol = atol = {FLASH_BF16_TOL}, all "
         "outputs finite")
@@ -1260,7 +1387,8 @@ def phase_serve_lm(torch):
                     "copies": sum(e.count for e in evs) - sum(
                         e.count for e in kernels),
                     "flash_ms": sum(e.self_device_time_total for e in evs
-                                    if "flash_fwd" in e.key) / 1e3}
+                                    if "flash_fwd" in e.key) / 1e3,
+                    "routes": flash_routes(e.key for e in evs)}
 
         def prefill_once():
             job = engine.begin(rng.integers(0, opt.vocab, PROFILE_PROMPT)
@@ -1281,6 +1409,9 @@ def phase_serve_lm(torch):
             os.environ.pop("DISTLEARN_TPU_ATTN", None)
         else:
             os.environ["DISTLEARN_TPU_ATTN"] = env
+    check(prefill["routes"] == {"B5a": {"mma"}},
+          f"the bfloat16 prefill ran flash kernels {prefill['routes']}, "
+          "expected B5a on tensor cores only")
     share = prefill["flash_ms"] / prefill["device_ms"] \
         if prefill["device_ms"] else float("nan")
     log(f"[serve] (b) bfloat16, {SERVE_REQUESTS} requests from "
@@ -1303,7 +1434,8 @@ def phase_serve_lm(torch):
         log(f"[serve] {what}: {m['wall_ms']:.3f} ms on the host clock, "
             f"{m['device_ms']:.3f} ms of device time (idle "
             f"{1 - m['device_ms'] / m['wall_ms']:.1%}) in {m['kernels']} "
-            f"kernels and {m['copies']} copies; B5a {m['flash_ms']:.3f} ms")
+            f"kernels and {m['copies']} copies; B5a {m['flash_ms']:.3f} ms"
+            + (" (flash_fwd_mma: tensor cores)" if m["routes"] else ""))
     log(f"[serve] TTFT p50 {ttft:.2f} ms, TPOT p50 {tpot:.2f} ms, {tokens} "
         f"tokens in {wall:.2f} s = {tokens / wall:.1f} tokens/s; B5a "
         f"{share:.1%} of a full prefill's device time")
@@ -1331,73 +1463,107 @@ def within(torch, got, want, rtol, atol) -> tuple[bool, float]:
     return ok, max_abs(torch, got, want)
 
 
+def check_backward(torch, name, q, k, v, do, causal=True, mult=1.0):
+    """B5a with residuals, B5c and B5b on one case: each against its twin
+    (on the kernels' own residuals) and the xla route's autograd, the
+    backward repeated bit for bit.  Returns ``(o, m, l, di)``, the max abs
+    errors ``{"dq": (twin, xla, twin's own from xla), ...}`` and B5a's
+    against its twin.  With q scaled by ``mult`` != 1 (FLASH_BF16_CASES)
+    the gradients' distance from the xla route is measured, not held, and
+    two absolute tolerances scale with ``mult``: m's (its float32 rounding
+    scales with the scores) and dK's against its twin (see there)."""
+    from distlearn_tpu_torch.ops import flash_attention as fa
+    from distlearn_tpu_torch.parallel.sequence import local_attention
+    dtype = q.dtype
+    o, m, l = fa.flash_attention_fwd(q, k, v, causal)
+    dq, di = fa.flash_attention_dq(q, k, v, o, do, m, l, causal)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, m, l, di, causal)
+    torch.cuda.synchronize()
+    # bit for bit from run to run: no atomics, one owner per tile
+    dq2, di2 = fa.flash_attention_dq(q, k, v, o, do, m, l, causal)
+    dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, m, l, di2, causal)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in
+              ((dq, dq2), (di, di2), (dk, dk2), (dv, dv2))),
+          f"flash backward {name}: a second run differs")
+    for t, what in ((o, "o"), (m, "m"), (l, "l"), (dq, "dq"),
+                    (dk, "dk"), (dv, "dv")):
+        check(bool(torch.isfinite(t).all()),
+              f"flash {name}: non-finite {what}")
+    # the twins on the kernels' own residuals
+    po, pm, pl = fa.flash_attention_fwd_plain(q, k, v, causal)
+    pdi = fa.flash_attention_di_plain(o, do)
+    pdq = fa.flash_attention_dq_plain(q, k, v, do, m, l, pdi, causal)
+    pdk, pdv = fa.flash_attention_dkv_plain(q, k, v, do, m, l, pdi, causal)
+    # autograd of the xla route
+    qx, kx, vx = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    xo = local_attention(qx, kx, vx, causal=causal, impl="xla")
+    xdq, xdk, xdv = torch.autograd.grad(xo, (qx, kx, vx), do)
+    del xo, qx, kx, vx
+    tol = FLASH_BWD_TOL[str(dtype)[6:]]
+    errs = {}
+    for what, got, twin, xla in (("dq", dq, pdq, xdq), ("dk", dk, pdk, xdk),
+                                 ("dv", dv, pdv, xdv)):
+        rtol, atol = tol["twin"]
+        ok_t, e_t = within(torch, got, twin, rtol,
+                           atol * (mult if what == "dk" else 1))
+        ok_x, e_x = within(torch, got, xla, *tol["xla"])
+        check(ok_t, f"flash {name}: {what} outside rtol {rtol}, atol "
+              f"{atol}{f' x {mult:g}' if what == 'dk' and mult != 1 else ''}"
+              f" of its twin (max abs {e_t:.3g})")
+        check(ok_x or mult != 1, f"flash {name}: {what} outside rtol, "
+              f"atol = {tol['xla']} of the xla route's gradient (max abs "
+              f"{e_x:.3g})")
+        errs[what] = (e_t, e_x, max_abs(torch, twin, xla))
+    ok_o, e_o = within(torch, o, po, *(
+        (FLASH_F32_TOL, FLASH_F32_TOL) if dtype == torch.float32
+        else (FLASH_BF16_TOL, FLASH_BF16_TOL)))
+    e_m = max_abs(torch, m, pm)
+    e_l = float(((l - pl).abs() / pl).max())
+    e_di = max_abs(torch, di, pdi)
+    check(ok_o and e_m <= 1e-5 * mult and e_l <= 1e-5 and e_di <= 1e-3 *
+          max(1.0, float(pdi.abs().max())),
+          f"flash {name}: forward residuals off their twins (o "
+          f"{e_o:.3g}, m {e_m:.3g}, l {e_l:.3g} relative, di "
+          f"{e_di:.3g})")
+    return (o, m, l, di), errs, e_o
+
+
 def phase_flash_backward(torch, card):
     import torch.nn.functional as F
     from distlearn_tpu_torch.ops import flash_attention as fa
-    from distlearn_tpu_torch.parallel.sequence import local_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     rate, part = hbm_rate(card)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    # which kernels a call runs, by name in a profile of five forwards and
+    # backwards per dtype at the training shape, taken first: after the
+    # timing loops below the profiler was seen to drop a session's first
+    # device events (one after one shape, all of one call after all)
+    route_gen = torch.Generator(device=dev).manual_seed(12)
+    for dtype, want in ((torch.float32, {"B5a": {"core"}, "B5b": {"core"},
+                                         "B5c": {"core"}}),
+                        (torch.bfloat16, FLASH_BF16_ROUTES)):
+        q, k, v, do = flash_inputs(torch, route_gen, *FLASH_TRAIN, dtype, 4)
+        keys = profiled_keys(torch, lambda: [fa.flash_attention_bwd(
+            q, k, v, *fa.flash_attention_fwd(q, k, v), do)
+            for _ in range(5)])
+        routes = flash_routes(keys)
+        log(f"[flash-bwd] {str(dtype)[6:]} call at the training shape ran: "
+            + ", ".join(f"{t} {'/'.join(sorted(r))}"
+                        for t, r in sorted(routes.items())))
+        check(routes == want, f"{dtype} flash call ran {routes}, expected "
+              f"{want} (mma: tensor cores, core: CUDA cores); device "
+              f"events {[key[:60] for key in keys]}")
+    del q, k, v, do
     rows = {}
     for B, H, D, L in FLASH_BWD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype)[6:]
-            name = f"B={B} H={H} D={D} L={L} {dname}"
-            q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
-                                       device=dev).to(dtype)
-                           for _ in range(4))
-            o, m, l = fa.flash_attention_fwd(q, k, v)
-            dq, di = fa.flash_attention_dq(q, k, v, o, do, m, l)
-            dk, dv = fa.flash_attention_dkv(q, k, v, do, m, l, di)
-            torch.cuda.synchronize()
-            # bit for bit from run to run: no atomics, one owner per tile
-            dq2, di2 = fa.flash_attention_dq(q, k, v, o, do, m, l)
-            dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, m, l, di2)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in
-                      ((dq, dq2), (di, di2), (dk, dk2), (dv, dv2))),
-                  f"flash backward {name}: a second run differs")
-            for t, what in ((o, "o"), (m, "m"), (l, "l"), (dq, "dq"),
-                            (dk, "dk"), (dv, "dv")):
-                check(bool(torch.isfinite(t).all()),
-                      f"flash {name}: non-finite {what}")
-            # the twins on the kernels' own residuals
-            po, pm, pl = fa.flash_attention_fwd_plain(q, k, v)
-            pdi = fa.flash_attention_di_plain(o, do)
-            pdq = fa.flash_attention_dq_plain(q, k, v, do, m, l, pdi)
-            pdk, pdv = fa.flash_attention_dkv_plain(q, k, v, do, m, l, pdi)
-            # autograd of the xla route
-            qx, kx, vx = (t.detach().clone().requires_grad_()
-                          for t in (q, k, v))
-            xo = local_attention(qx, kx, vx, causal=True, impl="xla")
-            xdq, xdk, xdv = torch.autograd.grad(xo, (qx, kx, vx), do)
-            del xo, qx, kx, vx
-            tol = FLASH_BWD_TOL[dname]
-            errs = {}
-            for what, got, twin, xla in (("dq", dq, pdq, xdq),
-                                         ("dk", dk, pdk, xdk),
-                                         ("dv", dv, pdv, xdv)):
-                ok_t, e_t = within(torch, got, twin, *tol["twin"])
-                ok_x, e_x = within(torch, got, xla, *tol["xla"])
-                check(ok_t, f"flash {name}: {what} outside rtol, atol = "
-                      f"{tol['twin']} of its twin (max abs {e_t:.3g})")
-                check(ok_x, f"flash {name}: {what} outside rtol, atol = "
-                      f"{tol['xla']} of the xla route's gradient (max abs "
-                      f"{e_x:.3g})")
-                errs[what] = (e_t, e_x)
-            ok_o, e_o = within(torch, o, po, *(
-                (FLASH_F32_TOL, FLASH_F32_TOL) if dtype == torch.float32
-                else (FLASH_BF16_TOL, FLASH_BF16_TOL)))
-            e_m = max_abs(torch, m, pm)
-            e_l = float(((l - pl).abs() / pl).max())
-            e_di = max_abs(torch, di, pdi)
-            check(ok_o and e_m <= 1e-5 and e_l <= 1e-5 and e_di <= 1e-3 *
-                  max(1.0, float(pdi.abs().max())),
-                  f"flash {name}: forward residuals off their twins (o "
-                  f"{e_o:.3g}, m {e_m:.3g}, l {e_l:.3g} relative, di "
-                  f"{e_di:.3g})")
-            del pdq, pdk, pdv, xdq, xdk, xdv, dq2, dk2, dv2, di2
+            name = case_name(B, H, D, L, dtype)
+            q, k, v, do = flash_inputs(torch, gen, B, H, D, L, dtype, 4)
+            (o, m, l, di), errs, e_o = check_backward(torch, name, q, k, v,
+                                                      do)
 
             work = flash_work(B, H, D, L, 4 if dtype == torch.float32 else 2)
             main = (B, H, D, L) == FLASH_TRAIN
@@ -1447,14 +1613,26 @@ def phase_flash_backward(torch, card):
                     f"{kk} {rows[(B, H, D, L, dname, kk)]['plain_ms']:.3f} "
                     "ms" for kk in timed))
                 + " | max abs err (twin, xla): " + ", ".join(
-                    f"{kk} {a:.3g}, {b:.3g}" for kk, (a, b) in errs.items()))
+                    f"{kk} {e[0]:.3g}, {e[1]:.3g}" for kk, e in errs.items()))
             for kern, what in (("dq", "dq"), ("dkv", "dk")):
                 rows[(B, H, D, L, dname, kern)]["max_abs_err"] = \
                     errs[what][0] if kern == "dq" else max(errs["dk"][0],
                                                            errs["dv"][0])
             rows[(B, H, D, L, dname, "fwd")]["max_abs_err"] = e_o
-            del so, qt, kt, vt, q, k, v, do, o, m, l, dq, di, dk, dv
+            del so, qt, kt, vt, q, k, v, do, o, m, l, di
     del flush
+    for B, H, D, L, causal, mult in FLASH_BF16_CASES:
+        name = case_name(B, H, D, L, torch.bfloat16, causal, mult)
+        q, k, v, do = flash_inputs(torch, gen, B, H, D, L, torch.bfloat16, 4,
+                                   mult)
+        _, errs, e_o = check_backward(torch, name, q, k, v, do, causal,
+                                      mult)
+        log(f"[flash-bwd] {name}: max abs err (twin, xla; the twin's own "
+            "from xla): " + ", ".join(
+                f"{kk} {a:.3g}, {b:.3g}; {c:.3g}"
+                for kk, (a, b, c) in errs.items())
+            + f"; o {e_o:.3g} (twin)"
+            + ("" if mult == 1 else "; xla distance measured, not held"))
     torch.cuda.empty_cache()
     log(f"[flash-bwd] every shape and dtype: dQ, dK, dV within "
         f"{FLASH_BWD_TOL['float32']['twin']} (float32) of the twins and "
@@ -1485,6 +1663,36 @@ def lm_train_flops(vocab, dim, depth, max_len, batch, mlp_ratio=4):
 
 FLASH_KERNELS = (("B5a", "flash_fwd"), ("B5b", "flash_bwd_dkv"),
                  ("B5c", "flash_bwd_dq"))
+# the kernels a bfloat16 call runs: B5a and B5b on tensor cores (mma), B5c
+# on CUDA cores (core)
+FLASH_BF16_ROUTES = {"B5a": {"mma"}, "B5b": {"mma"}, "B5c": {"core"}}
+
+
+def flash_routes(keys) -> dict:
+    """{"B5a": {"mma"}, ...}: the flash kernels that profiler ``keys`` name,
+    each with the routes seen, "mma" (``*_mma``: tensor cores) or "core"
+    (CUDA cores)."""
+    routes = {}
+    for key in keys:
+        for tag, sub in FLASH_KERNELS:
+            if sub in key:
+                routes.setdefault(tag, set()).add(
+                    "mma" if f"{sub}_mma" in key else "core")
+    return routes
+
+
+def profiled_keys(torch, fn) -> list[str]:
+    """Names of the device events of one profiled, synchronised ``fn()``
+    (CPU and CUDA activities, as phase 12's profile)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
 
 
 def flash_counts(fa):
@@ -1681,11 +1889,17 @@ def phase_train_lm(torch, tree):
     check(busy > 0, "torch.profiler saw no device time in the LM step")
     shares = {tag: sum(e.self_device_time_total for e in evs
                        if key in e.key) / 1e3 for tag, key in FLASH_KERNELS}
+    routes = flash_routes(e.key for e in evs)
+    check(routes == FLASH_BF16_ROUTES,
+          f"the bfloat16 LM step ran flash kernels {routes}, expected "
+          f"{FLASH_BF16_ROUTES} (mma: tensor cores, core: CUDA cores)")
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
     log(f"[train] (e) one profiled step: {wall_ms:.2f} ms wall (profiler "
         f"on), device busy {busy:.2f} ms, idle {1 - busy / wall_ms:.1%}; "
         + ", ".join(f"{tag} {ms:.2f} ms = {ms / busy:.1%}"
-                    for tag, ms in shares.items()))
+                    for tag, ms in shares.items())
+        + "; B5a and B5b on tensor cores (flash_fwd_mma, flash_bwd_dkv_mma),"
+        " B5c on CUDA cores")
     for e in top:
         log(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms  "
             f"x{e.count:<4d} {e.key[:90]}")

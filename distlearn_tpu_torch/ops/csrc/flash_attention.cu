@@ -43,38 +43,72 @@
 // without the mask), B5a does 4*D*N flops (two products), B5b 8*D*N (four:
 // S, dO V^T, P^T dO, dS^T Q) and B5c 6*D*N (three: S, dO V^T, dS K) plus
 // 2*B*H*L*D for di.  At the training shape (B=8, H=16, D=64, L=1024, N =
-// 67.2M, bfloat16) that is 17.2, 34.4 and 25.8 GFLOP against 68, 102 and
-// 86 MB of compulsory traffic: every kernel sits near the ridge of the
-// card's bfloat16 tensor-core rate and its HBM rate, and in float32 the
-// CUDA cores bound them (0.26, 0.51, 0.39 ms at 67 TFLOP/s).
+// 67.2M) that is 17.2, 34.4 and 25.8 GFLOP against 68, 102 and 102 MB of
+// compulsory traffic (bfloat16 tensors, float32 m, l, di).  On the card's
+// bfloat16 tensor cores (989 TFLOP/s) and HBM (3.35 TB/s) the bounds are
+// 0.0203 ms (B5a, bytes), 0.0348 ms (B5b, operations) and 0.0305 ms (B5c,
+// bytes): every kernel sits near the ridge, so in bfloat16 only the tensor
+// cores can approach its bound.  In float32 the CUDA cores bound them
+// (0.26, 0.51, 0.39 ms at 67 TFLOP/s).
 //
-// Design (first version: simple and right; mma.sync, wgmma, TMA and warp
-// specialisation are later work).  Every block has 256 threads and owns one
-// 64-row output tile of one (batch, head): a query tile for B5a and B5c, a
-// key tile for B5b, as the TPU kernels' grids own theirs, so no two blocks
-// write one element, there are no floating-point atomics, and every
-// gradient is the same bit for bit from run to run.  A block walks the
-// other operand's 64-row tiles itself (the loop that replaces the TPU's
-// sequential grid axis): B5a and B5c the key tiles up to the diagonal, B5b
-// the query tiles from the diagonal to the end (the causal skip, at tile
-// level).  Tiles are staged in shared memory as float32.  For a 64x64 score
-// tile, thread t owns rows 4*(t/16) .. +3 and columns t%16 + 16*c: the 16
-// threads of one row group are one half warp, so row max and row sum reduce
-// by shuffles.  For a 64xD output tile the same thread owns rows
-// 4*(t/16) .. +3 and columns t%16 + 16*e.  Head dims 32, 64 and 128 are
-// built: those of the repo's LM configurations (dim // heads).  Products
-// are float32 FMAs on the CUDA cores.  Tiles read down a column are padded
-// by one float so that a half warp's reads hit 16 distinct banks.
+// Which kernel runs where:
+//
+//   bfloat16 B5a  flash_fwd_mma      tensor cores (mma.sync m16n8k16)
+//   bfloat16 B5b  flash_bwd_dkv_mma  tensor cores (mma.sync m16n8k16)
+//   bfloat16 B5c  flash_bwd_dq       CUDA cores (the next redesign)
+//   float32 B5a, B5b, B5c            CUDA cores: on tensor cores float32
+//                                    means TF32 (10-bit mantissas), which
+//                                    the float32 tolerances do not allow
+//
+// Ownership (every kernel).  Each block owns one 64-row output tile of one
+// (batch, head): a query tile for B5a and B5c, a key tile for B5b, as the
+// TPU kernels' grids own theirs, so no two blocks write one element, there
+// are no floating-point atomics, and every gradient is the same bit for bit
+// from run to run.  A block walks the other operand's 64-row tiles itself
+// (the loop that replaces the TPU's sequential grid axis): B5a and B5c the
+// key tiles up to the diagonal, longest rows first, B5b the query tiles
+// from the diagonal to the end (the causal skip, at tile level).  Head dims
+// 32, 64 and 128 are built: those of the repo's LM configurations.
+//
+// The tensor-core kernels (bfloat16 B5a, B5b): 128 threads, 4 warps of 16
+// rows of the block's tile.  Tiles stay bfloat16 in shared memory, rows
+// padded by 16 bytes so that the 8 rows an ldmatrix reads fall in 8
+// distinct bank groups, and arrive by cp.async into a ring of two buffers:
+// the next tile's copy is in flight while the current one is multiplied,
+// with one __syncthreads a tile.  Products are mma.sync m16n8k16 with
+// float32 accumulators in registers.
+//   B5a: the warp's Q rows are A fragments, loaded once by ldmatrix; S = Q
+//   K^T (K by ldmatrix) lands in a 16x64 float32 slab of registers, where
+//   the online softmax runs (row max and sum over the 4 lanes of a quad by
+//   two shuffles; the causal mask is -inf in registers on the diagonal
+//   tile); P is rounded to bfloat16 and packed straight into the A
+//   fragments of P V (the m16n8 accumulator layout is the m16n8k16 A
+//   layout), with V read by ldmatrix.trans: P never touches shared memory.
+//   B5b: the transposed formulation.  The warp's 16 key rows of K and V are
+//   the A operands (held in registers for D <= 64; re-read from shared
+//   memory by ldmatrix at D = 128, where registers would not hold them
+//   beside the two 16x128 accumulators); per query tile S^T = K Q^T and
+//   dP^T = V dO^T are 16x64 slabs in registers, P^T and dS^T are formed
+//   there and packed into the A fragments of dV += P^T dO and dK += dS^T Q
+//   (dO and Q by ldmatrix.trans).  Only Q, dO and the query rows' m, 1/l
+//   and di pass through shared memory.
+// The CUDA-core kernels (float32 B5a, B5b; B5c in both dtypes; simple and
+// right): 256 threads; tiles staged in shared memory as float32; for a
+// 64x64 score tile thread t owns rows 4*(t/16) .. +3 and columns t%16 +
+// 16*c, so row max and row sum reduce over a half warp by shuffles; P and
+// dS pass through shared memory; products are float32 FMAs.  Tiles read
+// down a column are padded by one float so that a half warp's reads hit 16
+// distinct banks.
 //
 // Masking: masked scores are -inf in the forward and P = 0 in the backward
 // (the Pallas kernels add -0.7*FLT_MAX): every row sees key column 0, so the
 // row max is finite and exp of a masked score is exactly 0 either way.
 //
 // Rounding: expf and the divisions are the accurate ones (never built with
-// --use_fast_math); nvcc may contract sums of products into FMAs and sums
-// run in another order than the plain PyTorch versions'
-// (ops/flash_attention.py), so each kernel is held to a tolerance against
-// them, not bit for bit.
+// --use_fast_math); nvcc may contract sums of products into FMAs, and sums
+// (the tensor cores' among them) run in another order than the plain
+// PyTorch versions' (ops/flash_attention.py), so each kernel is held to a
+// tolerance against them, not bit for bit.
 //
 // The entry points launch on the caller's stream and do not synchronise.
 
@@ -203,6 +237,180 @@ __device__ __forceinline__ void tile_products2(
 }
 
 // ---------------------------------------------------------------------------
+// Tensor-core building blocks (bfloat16): cp.async, ldmatrix, mma.sync
+// ---------------------------------------------------------------------------
+//
+// Fragments of mma.sync.m16n8k16 (bf16 in, float32 accumulate), for lane
+// l = 4*g + tq of a warp: the 16x16 A operand holds (row g, k 2tq .. +1),
+// (row g+8, k 2tq ..), (row g, k 8+2tq ..), (row g+8, k 8+2tq ..) in its
+// four registers; the 16x8 B operand (k 2tq .. +1, column g) and (k 8+2tq
+// .., column g); the 16x8 float32 accumulator (row g, columns 2tq, 2tq+1)
+// and (row g+8, the same columns).
+
+using bf16 = __nv_bfloat16;
+
+// 4 warps x 16 rows of the block's tile.  The kernels are declared with
+// __launch_bounds__(kMmaThreads, 1): without the minimum of one block an SM,
+// ptxas held the D = 64 forward to 128 registers and spilled.
+constexpr int kMmaThreads = 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 64 rows x D bfloat16 from src (row stride in elements) into shared
+// memory rows of D + 8 elements, one 16-byte cp.async per chunk.
+template <int D>
+__device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src,
+                                                int64_t row_stride) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = 0; i < kBM * kChunks / kMmaThreads; ++i) {
+    const int idx = threadIdx.x + i * kMmaThreads;
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    cp_async16(dst + r * (D + 8) + c, src + r * row_stride + c);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a b
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two float32 rounded to bfloat16, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A operand of rows r0 .. +15, k0 .. +15 of a row-major tile (row
+// stride ld elements): lane l gives the address of row r0 + l%16 at column
+// k0 + 8*(l/16).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
+                                       int ld, int r0, int k0, int lane) {
+  ldsm_x4(a, tile + (r0 + (lane & 15)) * ld + k0 + ((lane >> 4) << 3));
+}
+
+// B operands of the two 8-column blocks n0 .. n0+15 over k0 .. +15, from a
+// tile stored [n][k] (k contiguous: K in S = Q K^T, Q and dO in S^T = K
+// Q^T and dP^T = V dO^T): b[0], b[1] for columns n0 .., b[2], b[3] for n0+8.
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* tile,
+                                          int ld, int n0, int k0, int lane) {
+  ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
+                 (((lane >> 3) & 1) << 3));
+}
+
+// The same from a tile stored [k][n] (n contiguous: V in P V, dO and Q in
+// P^T dO and dS^T Q), transposed by ldmatrix.trans.
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile,
+                                          int ld, int k0, int n0, int lane) {
+  ldsm_x4_trans(b, tile + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * ld +
+                       n0 + ((lane >> 4) << 3));
+}
+
+// The A operand for the 16 columns 16*kk .. +15 of a 16x64 float32 slab
+// held as eight m16n8 accumulators, rounded to bfloat16.
+__device__ __forceinline__ void slab_to_a(uint32_t (&a)[4],
+                                          const float (&x)[8][4], int kk) {
+  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+}
+
+// S += A B^T for a warp's 16 rows against the 64 rows of a tile stored
+// [n][k] with k over D: A from a (D/16 fragments).
+template <int D>
+__device__ __forceinline__ void slab_product(float (&s)[8][4],
+                                             const uint32_t (&a)[4],
+                                             const bf16* tile, int kk,
+                                             int lane) {
+#pragma unroll
+  for (int jp = 0; jp < 4; ++jp) {
+    uint32_t b[4];
+    load_b_nk(b, tile, D + 8, jp * 16, kk * 16, lane);
+    mma_bf16(s[2 * jp], a, b[0], b[1]);
+    mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+  }
+}
+
+// acc (16 x D) += A (16 x 16, k = 16*kk .. +15) times rows 16*kk .. +15 of
+// a tile stored [k][n] with n over D.
+template <int D>
+__device__ __forceinline__ void acc_product(float (&acc)[D / 8][4],
+                                            const uint32_t (&a)[4],
+                                            const bf16* tile, int kk,
+                                            int lane) {
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    uint32_t b[4];
+    load_b_kn(b, tile, D + 8, kk * 16, np * 16, lane);
+    mma_bf16(acc[2 * np], a, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// rows g (lo) and g + 8 (hi) of a 16 x D float32 accumulator, rounded to
+// bfloat16, into row pointers (column 8*n + 2*tq of each)
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* lo, bf16* hi,
+                                          const float (&acc)[D / 8][4],
+                                          int tq) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(lo + n * 8 + 2 * tq) =
+        pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(hi + n * 8 + 2 * tq) =
+        pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
 // B5a: forward
 // ---------------------------------------------------------------------------
 
@@ -322,6 +530,142 @@ __global__ void __launch_bounds__(kThreads)
       m_out[stat0 + a] = m[a];
       l_out[stat0 + a] = l[a];
     }
+  }
+}
+
+
+// The tensor-core forward (bfloat16).  Shared memory: the Q tile, then two
+// K and two V buffers, each 64 rows of D + 8 bfloat16.
+template <int D>
+constexpr int fwd_mma_smem_bytes() {
+  return 5 * kBM * (D + 8) * (int)sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ m_out, float* __restrict__ l_out, int L,
+                  Strides sq, Strides sk, Strides sv, Strides so, float scale,
+                  int causal) {
+  constexpr int kTile = kBM * (D + 8);
+  constexpr int kKS = D / 16;  // k steps over D
+  constexpr int kNO = D / 8;   // 8-column blocks of the output
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* ks = qs + kTile;      // [2][kBN][D + 8]
+  bf16* vs = ks + 2 * kTile;  // [2][kBN][D + 8]
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = tile * kBM;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row
+
+  const bf16* kbase = k + b * sk.b + h * sk.h;
+  const bf16* vbase = v + b * sv.b + h * sv.h;
+  copy_tile_async<D>(qs, q + b * sq.b + q0 * sq.l + h * sq.h, sq.l);
+  copy_tile_async<D>(ks, kbase, sk.l);
+  copy_tile_async<D>(vs, vbase, sv.l);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp: m, l and the 16 x D accumulator
+  uint32_t qf[kKS][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[kNO][4];
+#pragma unroll
+  for (int n = 0; n < kNO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int n_tiles = causal ? tile + 1 : L / kBN;  // kBM == kBN
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) load_a(qf[kk], qs, D + 8, wr, kk * 16,
+                                             lane);
+    }
+    if (t + 1 < n_tiles) {  // the next tile into the other buffer
+      const int64_t k1 = (int64_t)(t + 1) * kBN;
+      copy_tile_async<D>(ks + ((t + 1) & 1) * kTile, kbase + k1 * sk.l, sk.l);
+      copy_tile_async<D>(vs + ((t + 1) & 1) * kTile, vbase + k1 * sv.l, sv.l);
+    }
+    cp_async_commit();
+    const bf16* kt = ks + (t & 1) * kTile;
+    const bf16* vt = vs + (t & 1) * kTile;
+
+    // S = Q K^T: key block j holds keys 8j + 2tq, +1 of rows g, g + 8
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) slab_product<D>(s, qf[kk], kt, kk, lane);
+
+    const bool diag = causal && t == tile;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (diag && j * 8 + 2 * tq + (e & 1) > wr + g + (e >> 1) * 8)
+          x = -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = expf(m[r] - m_new);  // 0 on the first tile
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int n = 0; n < kNO; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += bf16(P) V, P straight from the accumulators
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pf[4];
+      slab_to_a(pf, s, kk);
+      acc_product<D>(acc, pf, vt, kk, lane);
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < kNO; ++n) {
+    acc[n][0] /= l[0];
+    acc[n][1] /= l[0];
+    acc[n][2] /= l[1];
+    acc[n][3] /= l[1];
+  }
+  const int row = q0 + wr + g;
+  bf16* out = o + b * so.b + (int64_t)row * so.l + h * so.h;
+  store_acc<D>(out, out + 8 * so.l, acc, tq);
+  if (m_out != nullptr && tq == 0) {
+    const int64_t stat = ((int64_t)b * gridDim.y + h) * L + row;
+    m_out[stat] = m[0];
+    l_out[stat] = l[0];
+    m_out[stat + 8] = m[1];
+    l_out[stat + 8] = l[1];
   }
 }
 
@@ -551,20 +895,203 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// The tensor-core dK/dV (bfloat16).  Shared memory: the K and V tiles, two
+// Q and two dO buffers (64 rows of D + 8 bfloat16 each), then two sets of
+// the query rows' m, 1/l and di (float32).
+template <int D>
+constexpr int dkv_mma_smem_bytes() {
+  return 6 * kBM * (D + 8) * (int)sizeof(bf16) +
+         2 * 3 * kBM * (int)sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ m_in,
+                      const float* __restrict__ l_in,
+                      const float* __restrict__ di_in, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int L, Strides sq, Strides sk,
+                      Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                      float scale, int causal) {
+  constexpr int kTile = kBM * (D + 8);
+  constexpr int kKS = D / 16;
+  constexpr int kNO = D / 8;
+  // K and V as A fragments in registers up to D = 64; at D = 128 they are
+  // re-read from shared memory (two 16 x 128 float32 accumulators, the two
+  // score slabs and them would not fit in 255 registers; ptxas still
+  // spills 68 bytes there)
+  constexpr bool kKVRegs = D <= 64;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc);
+  bf16* vs = ks + kTile;
+  bf16* qs = vs + kTile;         // [2][kBM][D + 8]
+  bf16* dos = qs + 2 * kTile;    // [2][kBM][D + 8]
+  float* stats = reinterpret_cast<float*>(dos + 2 * kTile);  // [2][3][kBM]
+
+  const int kt = blockIdx.x;  // key tile 0 walks the most query tiles
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * kBN;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first key row
+  const int64_t stat_bh = ((int64_t)b * gridDim.y + h) * L;
+  const bf16* qbase = q + b * sq.b + h * sq.h;
+  const bf16* dobase = dout + b * sdo.b + h * sdo.h;
+  const int j0 = causal ? kt : 0, n_q = L / kBM;  // kBM == kBN
+
+  copy_tile_async<D>(ks, k + b * sk.b + k0 * sk.l + h * sk.h, sk.l);
+  copy_tile_async<D>(vs, v + b * sv.b + k0 * sv.l + h * sv.h, sv.l);
+  copy_tile_async<D>(qs, qbase + (int64_t)j0 * kBM * sq.l, sq.l);
+  copy_tile_async<D>(dos, dobase + (int64_t)j0 * kBM * sdo.l, sdo.l);
+  cp_async_commit();
+  if (threadIdx.x < kBM) {  // the first query tile's m, 1/l, di
+    const int64_t i = stat_bh + j0 * kBM + threadIdx.x;
+    stats[threadIdx.x] = m_in[i];
+    stats[kBM + threadIdx.x] = 1.f / l_in[i];
+    stats[2 * kBM + threadIdx.x] = di_in[i];
+  }
+
+  // key rows g and g + 8 of the warp: dK and dV
+  uint32_t kf[kKVRegs ? kKS : 1][4], vf[kKVRegs ? kKS : 1][4];
+  float acc_dk[kNO][4], acc_dv[kNO][4];
+#pragma unroll
+  for (int n = 0; n < kNO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
+
+  for (int j = j0; j < n_q; ++j) {
+    const int buf = (j - j0) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    if constexpr (kKVRegs) {
+      if (j == j0) {
+#pragma unroll
+        for (int kk = 0; kk < kKS; ++kk) {
+          load_a(kf[kk], ks, D + 8, wr, kk * 16, lane);
+          load_a(vf[kk], vs, D + 8, wr, kk * 16, lane);
+        }
+      }
+    }
+    // the next tile into the other buffers; its statistics stay in flight
+    // in registers until this tile is done
+    const bool more = j + 1 < n_q;
+    float next_m = 0.f, next_l = 1.f, next_di = 0.f;
+    if (more) {
+      const int64_t r1 = (int64_t)(j + 1) * kBM;
+      copy_tile_async<D>(qs + (buf ^ 1) * kTile, qbase + r1 * sq.l, sq.l);
+      copy_tile_async<D>(dos + (buf ^ 1) * kTile, dobase + r1 * sdo.l,
+                         sdo.l);
+      if (threadIdx.x < kBM) {
+        next_m = m_in[stat_bh + r1 + threadIdx.x];
+        next_l = l_in[stat_bh + r1 + threadIdx.x];
+        next_di = di_in[stat_bh + r1 + threadIdx.x];
+      }
+    }
+    cp_async_commit();
+    const bf16* qt = qs + buf * kTile;
+    const bf16* dot = dos + buf * kTile;
+    const float* ms = stats + buf * 3 * kBM;
+    const float* ils = ms + kBM;
+    const float* dis = ils + kBM;
+
+    // S^T = K Q^T: rows the warp's keys g, g + 8; query block jn holds
+    // queries 8 jn + 2tq, +1
+    float p[8][4];
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[jn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      uint32_t a[4];
+      if constexpr (kKVRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = kf[kk][e];
+      } else {
+        load_a(a, ks, D + 8, wr, kk * 16, lane);
+      }
+      slab_product<D>(p, a, qt, kk, lane);
+    }
+    // P^T = exp(s * scale - m) * (1/l), 0 where key > query on the diagonal
+    const bool diag = causal && j == kt;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = jn * 8 + 2 * tq + (e & 1);
+        p[jn][e] = diag && wr + g + (e >> 1) * 8 > col
+                       ? 0.f
+                       : expf(__fmul_rn(p[jn][e], scale) - ms[col]) * ils[col];
+      }
+    // dV += bf16(P^T) dO
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      slab_to_a(a, p, kk);
+      acc_product<D>(acc_dv, a, dot, kk, lane);
+    }
+    // dP^T = V dO^T, then dS^T = (dP^T - di) P^T scale in place
+    float ds[8][4];
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[jn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      uint32_t a[4];
+      if constexpr (kKVRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = vf[kk][e];
+      } else {
+        load_a(a, vs, D + 8, wr, kk * 16, lane);
+      }
+      slab_product<D>(ds, a, dot, kk, lane);
+    }
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = jn * 8 + 2 * tq + (e & 1);
+        ds[jn][e] = (ds[jn][e] - dis[col]) * p[jn][e] * scale;
+      }
+    // dK += bf16(dS^T) Q
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      slab_to_a(a, ds, kk);
+      acc_product<D>(acc_dk, a, qt, kk, lane);
+    }
+    if (more && threadIdx.x < kBM) {  // free since this tile's barrier
+      float* next = stats + (buf ^ 1) * 3 * kBM;
+      next[threadIdx.x] = next_m;
+      next[kBM + threadIdx.x] = 1.f / next_l;
+      next[2 * kBM + threadIdx.x] = next_di;
+    }
+  }
+
+  const int64_t row = k0 + wr + g;
+  bf16* out_k = dk + b * sdk.b + row * sdk.l + h * sdk.h;
+  bf16* out_v = dv + b * sdv.b + row * sdv.l + h * sdv.h;
+  store_acc<D>(out_k, out_k + 8 * sdk.l, acc_dk, tq);
+  store_acc<D>(out_v, out_v + 8 * sdv.l, acc_dv, tq);
+}
+
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
 // Sets the kernel's dynamic shared memory and launches it over
-// (L / 64, H, B) blocks; returns 1 (kernels launched) or -cudaError.
+// (L / 64, H, B) blocks of `threads`; returns 1 (kernels launched) or
+// -cudaError.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int smem_floats, int B, int L, int H,
+int launch(Kernel kernel, int smem, int threads, int B, int L, int H,
            cudaStream_t stream, Args... args) {
-  const int smem = smem_floats * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
-  kernel<<<dim3(L / kBM, H, B), kThreads, smem, stream>>>(args...);
+  kernel<<<dim3(L / kBM, H, B), threads, smem, stream>>>(args...);
   err = cudaGetLastError();
   return err == cudaSuccess ? 1 : -(int)err;
 }
@@ -573,23 +1100,33 @@ bool shape_ok(int B, int L, int H) {
   return B >= 1 && H >= 1 && L >= kBM && L % kBM == 0;
 }
 
+// every (batch, row, head) stride a multiple of 16 bytes: the tensor-core
+// kernels copy 16-byte chunks with cp.async
+template <typename... S>
+bool rows_16b(int elt_bytes, S... s) {
+  return ((s.b * elt_bytes % 16 == 0 && s.l * elt_bytes % 16 == 0 &&
+           s.h * elt_bytes % 16 == 0) &&
+          ...);
+}
+
 }  // namespace
 
-#define DL_FLASH_DISPATCH(BODY)                          \
-  if (dtype == 0 && D == 32) { BODY(float, 32) }         \
-  if (dtype == 0 && D == 64) { BODY(float, 64) }         \
-  if (dtype == 0 && D == 128) { BODY(float, 128) }       \
-  if (dtype == 1 && D == 32) { BODY(__nv_bfloat16, 32) } \
-  if (dtype == 1 && D == 64) { BODY(__nv_bfloat16, 64) } \
-  if (dtype == 1 && D == 128) { BODY(__nv_bfloat16, 128) }
+// BODY(T, DIM) for the head dim D, float32 (dtype 0) or bfloat16 (1):
+// CUDA-core kernels for float32 in all three entry points, B5c in bfloat16
+// too; BF16_BODY(DIM) launches the tensor-core kernel of B5a or B5b.
+#define DL_HEAD_DIMS(BODY, T)      \
+  if (D == 32) { BODY(T, 32) }     \
+  if (D == 64) { BODY(T, 64) }     \
+  if (D == 128) { BODY(T, 128) }
 
 // Every entry point: tensors [B, L, H, D] with element strides (batch, row,
 // head) given and the D axis contiguous; m, l and di float32 [B, H, L],
 // contiguous; dtype 0 = float32, 1 = bfloat16; D in {32, 64, 128}; L a
 // multiple of 64; every pointer 16-byte aligned and every stride a multiple
-// of 4 (the wrapper checks all of it).  Each returns the number of kernels
-// launched (1), or -cudaError when a launch was refused
-// (-cudaErrorInvalidValue for an unsupported dtype, head dim or length).
+// of 16 bytes (the wrapper checks all of it).  Each returns the number of
+// kernels launched (1), or -cudaError when a launch was refused
+// (-cudaErrorInvalidValue for an unsupported dtype, head dim, length or
+// stride).
 
 // B5a.  m_out and l_out may both be null (no residuals: the serving path).
 extern "C" int dl_flash_fwd(const void* q, const void* k, const void* v,
@@ -599,16 +1136,27 @@ extern "C" int dl_flash_fwd(const void* q, const void* k, const void* v,
                             int64_t kh, int64_t vb, int64_t vl, int64_t vh,
                             int64_t ob, int64_t ol, int64_t oh, float scale,
                             int causal, cudaStream_t stream) {
-  if (!shape_ok(B, L, H)) return -(int)cudaErrorInvalidValue;
   const Strides sq{qb, ql, qh}, sk{kb, kl, kh}, sv{vb, vl, vh}, so{ob, ol, oh};
-#define DL_FWD(T, DIM)                                                       \
-  return launch(flash_fwd<T, DIM>, fwd_smem_floats<DIM>(), B, L, H, stream, \
-                static_cast<const T*>(q), static_cast<const T*>(k),         \
-                static_cast<const T*>(v), static_cast<T*>(o),               \
-                static_cast<float*>(m_out), static_cast<float*>(l_out), L,  \
-                sq, sk, sv, so, scale, causal);
-  DL_FLASH_DISPATCH(DL_FWD)
+  if (!shape_ok(B, L, H) || !rows_16b(dtype == 0 ? 4 : 2, sq, sk, sv, so))
+    return -(int)cudaErrorInvalidValue;
+#define DL_FWD(T, DIM)                                                      \
+  return launch(flash_fwd<T, DIM>, fwd_smem_floats<DIM>() * 4, kThreads, B, \
+                L, H, stream, static_cast<const T*>(q),                     \
+                static_cast<const T*>(k), static_cast<const T*>(v),         \
+                static_cast<T*>(o), static_cast<float*>(m_out),             \
+                static_cast<float*>(l_out), L, sq, sk, sv, so, scale,       \
+                causal);
+#define DL_FWD_MMA(T, DIM)                                                  \
+  return launch(flash_fwd_mma<DIM>, fwd_mma_smem_bytes<DIM>(), kMmaThreads, \
+                B, L, H, stream, static_cast<const T*>(q),                  \
+                static_cast<const T*>(k), static_cast<const T*>(v),         \
+                static_cast<T*>(o), static_cast<float*>(m_out),             \
+                static_cast<float*>(l_out), L, sq, sk, sv, so, scale,       \
+                causal);
+  if (dtype == 0) { DL_HEAD_DIMS(DL_FWD, float) }
+  if (dtype == 1) { DL_HEAD_DIMS(DL_FWD_MMA, bf16) }
 #undef DL_FWD
+#undef DL_FWD_MMA
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -621,18 +1169,21 @@ extern "C" int dl_flash_bwd_dq(
     int64_t vh, int64_t ob, int64_t ol, int64_t oh, int64_t dob, int64_t dol,
     int64_t doh, int64_t dqb, int64_t dql, int64_t dqh, float scale,
     int causal, cudaStream_t stream) {
-  if (!shape_ok(B, L, H)) return -(int)cudaErrorInvalidValue;
   const Strides sq{qb, ql, qh}, sk{kb, kl, kh}, sv{vb, vl, vh}, so{ob, ol, oh},
       sdo{dob, dol, doh}, sdq{dqb, dql, dqh};
-#define DL_DQ(T, DIM)                                                         \
-  return launch(flash_bwd_dq<T, DIM>, dq_smem_floats<DIM>(), B, L, H, stream, \
-                static_cast<const T*>(q), static_cast<const T*>(k),           \
-                static_cast<const T*>(v), static_cast<const T*>(o),           \
-                static_cast<const T*>(dout), static_cast<const float*>(m),    \
-                static_cast<const float*>(l), static_cast<T*>(dq),            \
-                static_cast<float*>(di), L, sq, sk, sv, so, sdo, sdq, scale,  \
-                causal);
-  DL_FLASH_DISPATCH(DL_DQ)
+  if (!shape_ok(B, L, H) ||
+      !rows_16b(dtype == 0 ? 4 : 2, sq, sk, sv, so, sdo, sdq))
+    return -(int)cudaErrorInvalidValue;
+#define DL_DQ(T, DIM)                                                       \
+  return launch(flash_bwd_dq<T, DIM>, dq_smem_floats<DIM>() * 4, kThreads,  \
+                B, L, H, stream, static_cast<const T*>(q),                  \
+                static_cast<const T*>(k), static_cast<const T*>(v),         \
+                static_cast<const T*>(o), static_cast<const T*>(dout),      \
+                static_cast<const float*>(m), static_cast<const float*>(l), \
+                static_cast<T*>(dq), static_cast<float*>(di), L, sq, sk, sv, \
+                so, sdo, sdq, scale, causal);
+  if (dtype == 0) { DL_HEAD_DIMS(DL_DQ, float) }
+  if (dtype == 1) { DL_HEAD_DIMS(DL_DQ, bf16) }
 #undef DL_DQ
   return -(int)cudaErrorInvalidValue;
 }
@@ -646,19 +1197,28 @@ extern "C" int dl_flash_bwd_dkv(
     int64_t vh, int64_t dob, int64_t dol, int64_t doh, int64_t dkb,
     int64_t dkl, int64_t dkh, int64_t dvb, int64_t dvl, int64_t dvh,
     float scale, int causal, cudaStream_t stream) {
-  if (!shape_ok(B, L, H)) return -(int)cudaErrorInvalidValue;
   const Strides sq{qb, ql, qh}, sk{kb, kl, kh}, sv{vb, vl, vh},
       sdo{dob, dol, doh}, sdk{dkb, dkl, dkh}, sdv{dvb, dvl, dvh};
-#define DL_DKV(T, DIM)                                                       \
-  return launch(flash_bwd_dkv<T, DIM>, dkv_smem_floats<DIM>(), B, L, H,      \
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),  \
-                static_cast<const T*>(v), static_cast<const T*>(dout),       \
-                static_cast<const float*>(m), static_cast<const float*>(l),  \
-                static_cast<const float*>(di), static_cast<T*>(dk),          \
-                static_cast<T*>(dv), L, sq, sk, sv, sdo, sdk, sdv, scale,    \
-                causal);
-  DL_FLASH_DISPATCH(DL_DKV)
-#undef DL_DKV
+  if (!shape_ok(B, L, H) ||
+      !rows_16b(dtype == 0 ? 4 : 2, sq, sk, sv, sdo, sdk, sdv))
+    return -(int)cudaErrorInvalidValue;
+#define DL_DKV_ARGS(T)                                                      \
+  B, L, H, stream, static_cast<const T*>(q), static_cast<const T*>(k),      \
+      static_cast<const T*>(v), static_cast<const T*>(dout),                \
+      static_cast<const float*>(m), static_cast<const float*>(l),           \
+      static_cast<const float*>(di), static_cast<T*>(dk),                   \
+      static_cast<T*>(dv), L, sq, sk, sv, sdo, sdk, sdv, scale, causal
+#define DL_DKV_CORE(T, DIM)                                               \
+  return launch(flash_bwd_dkv<T, DIM>, dkv_smem_floats<DIM>() * 4, kThreads, \
+                DL_DKV_ARGS(T));
+#define DL_DKV_MMA(T, DIM)                                               \
+  return launch(flash_bwd_dkv_mma<DIM>, dkv_mma_smem_bytes<DIM>(),         \
+                kMmaThreads, DL_DKV_ARGS(T));
+  if (dtype == 0) { DL_HEAD_DIMS(DL_DKV_CORE, float) }
+  if (dtype == 1) { DL_HEAD_DIMS(DL_DKV_MMA, bf16) }
+#undef DL_DKV_ARGS
+#undef DL_DKV_CORE
+#undef DL_DKV_MMA
   return -(int)cudaErrorInvalidValue;
 }
-#undef DL_FLASH_DISPATCH
+#undef DL_HEAD_DIMS

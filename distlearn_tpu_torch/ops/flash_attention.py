@@ -5,7 +5,9 @@ counterpart of the Pallas TPU kernels that
 ``_flash_attention_kernel``, ``_flash_attention_dkv_kernel`` and
 ``_flash_attention_dq_kernel`` in
 ``jax/experimental/pallas/ops/tpu/flash_attention.py``), hand-written in
-CUDA for Hopper in ``ops/csrc/flash_attention.cu``.
+CUDA for Hopper in ``ops/csrc/flash_attention.cu``: in bfloat16, B5a and
+B5b run on the tensor cores (``mma.sync``) and B5c on the CUDA cores; in
+float32 all three run on the CUDA cores (tensor cores would mean TF32).
 
 * :func:`flash_attention` — ``softmax(q k^T / sqrt(D), causal) v``; when a
   gradient is wanted it goes through :class:`FlashAttention`, whose forward
@@ -219,11 +221,12 @@ def _check(q: torch.Tensor, *rest: torch.Tensor) -> None:
         if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
             raise TypeError("flash_attention: float32 or bfloat16 inputs of "
                             f"one dtype, got {[u.dtype for u in tensors]}")
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                s * t.element_size() % 16 for s in t.stride()[:3]):
             raise ValueError("flash_attention: the D axis must be contiguous, "
-                             "the other strides multiples of 4 and the data "
-                             f"16-byte aligned, got strides {t.stride()}")
+                             "the other strides multiples of 16 bytes and "
+                             f"the data 16-byte aligned, got strides "
+                             f"{t.stride()}")
 
 
 def _check_stats(q: torch.Tensor, *stats: torch.Tensor) -> None:

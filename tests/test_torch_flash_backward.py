@@ -52,11 +52,19 @@ from distlearn_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from distlearn_tpu_torch.parallel import sequence as ts  # noqa: E402
 
 B, H = 1, 2
-#: (L, D, dtype, causal) of the cases held against the Pallas kernels
-PALLAS_CASES = [(L, D, dtype, causal) for L, D in ((128, 32), (128, 64),
-                                                   (256, 32), (256, 64))
-                for dtype in ("float32", "bfloat16")
-                for causal in (True, False)]
+#: (L, D, dtype, causal, q multiplier) of the cases held against the Pallas
+#: kernels: the grid below, then D = 128 and q multiplied by 8 (scaled
+#: scores of standard deviation 8, where the online rescale and the
+#: backward's dP - di cancellation work hardest)
+PALLAS_GRID = [(L, D, dtype, causal, 1.0)
+               for L, D in ((128, 32), (128, 64), (256, 32), (256, 64))
+               for dtype in ("float32", "bfloat16")
+               for causal in (True, False)]
+PALLAS_WIDE = [(128, 128, "float32", True, 1.0),
+               (128, 128, "bfloat16", True, 1.0)]
+PALLAS_LARGE = [(128, 64, "bfloat16", True, 8.0),
+                (128, 64, "bfloat16", False, 8.0)]
+PALLAS_CASES = PALLAS_GRID + PALLAS_WIDE + PALLAS_LARGE
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -80,12 +88,14 @@ def _clean_env(monkeypatch):
         monkeypatch.delenv(k, raising=False)
 
 
-def _inputs(L, D, dtype, seed=0):
+def _inputs(L, D, dtype, seed=0, mult=1.0):
     """q, k, v and the cotangent dO, ``[B, L, H, D]``, as numpy float32
-    (rounded to ``dtype`` first) and as the port's tensors."""
+    (rounded to ``dtype`` first) and as the port's tensors; q multiplied
+    by ``mult`` before the rounding."""
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal((B, L, H, D)).astype(np.float32)
             for _ in range(4)]
+    arrs[0] = arrs[0] * np.float32(mult)
     tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
     return [t.float().numpy() for t in tx], tx
 
@@ -105,8 +115,9 @@ def _port_grads(q, k, v, do, causal, impl=None):
     return o, torch.autograd.grad(o, (q, k, v), do)
 
 
-def _case_key(L, D, dtype, causal):
-    return f"{L}-{D}-{dtype}-{'causal' if causal else 'full'}"
+def _case_key(L, D, dtype, causal, mult=1.0):
+    return f"{L}-{D}-{dtype}-{'causal' if causal else 'full'}" + (
+        "" if mult == 1 else f"-q{mult:g}")
 
 
 def _write_pallas_outputs(path: str) -> None:
@@ -118,8 +129,8 @@ def _write_pallas_outputs(path: str) -> None:
         flash_attention as pallas_flash
 
     out = {}
-    for L, D, dtype, causal in PALLAS_CASES:
-        arrs, _ = _inputs(L, D, dtype, seed=L + D)
+    for L, D, dtype, causal, mult in PALLAS_CASES:
+        arrs, _ = _inputs(L, D, dtype, seed=L + D, mult=mult)
         q, k, v, do = (jnp.asarray(a).astype(dtype).transpose(0, 2, 1, 3)
                        for a in arrs)
 
@@ -131,7 +142,7 @@ def _write_pallas_outputs(path: str) -> None:
             o, vjp = jax.vjp(f, q, k, v)
             grads = vjp(do)
         for name, t in zip(("o", "dq", "dk", "dv"), (o, *grads)):
-            out[f"{_case_key(L, D, dtype, causal)}-{name}"] = np.asarray(
+            out[f"{_case_key(L, D, dtype, causal, mult)}-{name}"] = np.asarray(
                 t.transpose(0, 2, 1, 3).astype(jnp.float32))
     np.savez(path, **out)
 
@@ -159,8 +170,48 @@ def pallas_outputs(tmp_path_factory):
                                  (256, 64)])
 def test_twins_match_pallas_kernels_in_interpret_mode(pallas_outputs, L, D,
                                                       dtype, causal):
-    _, (q, k, v, do) = _inputs(L, D, dtype, seed=L + D)
-    key = _case_key(L, D, dtype, causal)
+    _check_against_pallas(pallas_outputs, L, D, dtype, causal)
+
+
+@pytest.mark.parametrize("L,D,dtype,causal,mult", PALLAS_WIDE,
+                         ids=lambda x: str(x))
+def test_twins_match_pallas_kernels_at_head_dim_128(pallas_outputs, L, D,
+                                                    dtype, causal, mult):
+    """The same at D = 128, the width whose B5b keeps K and V in shared
+    memory on the card."""
+    _check_against_pallas(pallas_outputs, L, D, dtype, causal, mult)
+
+
+@pytest.mark.parametrize("L,D,dtype,causal,mult", PALLAS_LARGE,
+                         ids=lambda x: str(x))
+def test_backward_twins_match_pallas_kernels_at_large_scores(
+        pallas_outputs, L, D, dtype, causal, mult):
+    """q multiplied by 8, as ``chip_smoke.py`` also holds the card's
+    tensor-core kernels.  The forward twin's o against the library's; the
+    backward twins on the library's own di (``sum(o * dO)`` of its o) and
+    the forward twin's m and l against its gradients.  End to end the two
+    differ by more than the tolerance in dK: o agrees to one bfloat16 ulp,
+    but where P is nearly one-hot ``dP - di`` cancels and scales that ulp
+    of di up (measured 0.19 on dK of magnitude up to 20)."""
+    key = _case_key(L, D, dtype, causal, mult)
+    _, (q, k, v, do) = _inputs(L, D, dtype, seed=L + D, mult=mult)
+    want_o, *want_g = (pallas_outputs[f"{key}-{n}"]
+                       for n in ("o", "dq", "dk", "dv"))
+    o, m, l = fa.flash_attention_fwd(q, k, v, causal)
+    np.testing.assert_allclose(_np(o), want_o, **TOL[dtype])
+    di = fa.flash_attention_di_plain(
+        torch.from_numpy(want_o).to(q.dtype), do)
+    dq = fa.flash_attention_dq_plain(q, k, v, do, m, l, di, causal)
+    dk, dv = fa.flash_attention_dkv_plain(q, k, v, do, m, l, di, causal)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), want_g):
+        assert got.dtype == q.dtype and got.shape == q.shape
+        np.testing.assert_allclose(_np(got), want, err_msg=name,
+                                   **TOL[dtype])
+
+
+def _check_against_pallas(pallas_outputs, L, D, dtype, causal, mult=1.0):
+    _, (q, k, v, do) = _inputs(L, D, dtype, seed=L + D, mult=mult)
+    key = _case_key(L, D, dtype, causal, mult)
     want_o, *want_g = (pallas_outputs[f"{key}-{n}"]
                        for n in ("o", "dq", "dk", "dv"))
     o, m, l = fa.flash_attention_fwd(q, k, v, causal)

@@ -1,0 +1,207 @@
+// Host emulation of the CUDA features that
+// distlearn_tpu_torch/ops/csrc/flash_attention.cu uses, so that its kernels
+// compile with g++ and run on the CPU (tests/test_torch_flash_emulated.py).
+//
+// Every thread of a block is a std::thread; blocks run one after another.
+// __syncthreads is a barrier over the block, and each warp collective
+// (__shfl_xor_sync, ldmatrix, mma.sync) exchanges its lanes' operands
+// through slots between two barriers over the warp.  ldmatrix and
+// mma.sync.m16n8k16 follow the PTX ISA's fragment layouts; bfloat16 rounds
+// to nearest even.  cp.async either lands at once or is held back until the
+// issuing thread's cp.async.wait_group, the two ends of what the card may
+// do, so a tile read before its wait or overwritten while another warp
+// reads it shows up as a wrong result in one of the two modes.
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+#define __align__(x) alignas(x)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 0 };
+template <typename K>
+cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+struct __nv_bfloat16 { uint16_t x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) uint2 { uint32_t x, y; };
+
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {uint16_t((u >> 16) | 0x40)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {uint16_t(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  const uint32_t u = uint32_t(b.x) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline float __fmul_rn(float a, float b) {
+  volatile float r = a * b;  // no contraction into a neighbouring add
+  return r;
+}
+
+// the dynamic shared memory of the one block that runs at a time
+alignas(128) inline unsigned char emu_smem[232448];
+
+struct EmuBlock {
+  std::unique_ptr<std::barrier<>> block;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  uint64_t slots[32][32][8];  // [warp][lane][word]
+};
+inline EmuBlock* emu_block;
+inline int emu_async_mode = 0;  // 0: cp.async lands at once; 1: at the wait
+struct EmuCopy {
+  void* dst;
+  const void* src;
+};
+inline thread_local std::vector<EmuCopy> emu_pending;
+
+inline int emu_lane() { return threadIdx.x % 32; }
+inline void emu_warp_sync() {
+  emu_block->warps[threadIdx.x / 32]->arrive_and_wait();
+}
+inline uint64_t* emu_slot(int lane) {
+  return emu_block->slots[threadIdx.x / 32][lane];
+}
+
+inline void __syncthreads() { emu_block->block->arrive_and_wait(); }
+
+inline float __shfl_xor_sync(unsigned, float x, int off) {
+  std::memcpy(emu_slot(emu_lane()), &x, 4);
+  emu_warp_sync();
+  float y;
+  std::memcpy(&y, emu_slot(emu_lane() ^ off), 4);
+  emu_warp_sync();
+  return y;
+}
+
+inline void cp_async16(void* dst, const void* src) {
+  if (emu_async_mode == 0)
+    std::memcpy(dst, src, 16);
+  else
+    emu_pending.push_back({dst, src});
+}
+inline void cp_async_commit() {}
+inline void cp_async_wait_all() {
+  for (const EmuCopy& c : emu_pending) std::memcpy(c.dst, c.src, 16);
+  emu_pending.clear();
+}
+
+inline uint32_t emu_pack(uint16_t lo, uint16_t hi) {
+  return uint32_t(lo) | (uint32_t(hi) << 16);
+}
+// r[i] of lane l: row l/4, columns 2(l%4), +1 of matrix i, whose 8 rows
+// lanes 8i .. 8i+7 point at
+inline void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  emu_slot(emu_lane())[0] = (uint64_t)(uintptr_t)p;
+  emu_warp_sync();
+  const int l = emu_lane();
+  for (int i = 0; i < 4; ++i) {
+    const uint16_t* row =
+        (const uint16_t*)(uintptr_t)emu_slot(i * 8 + l / 4)[0];
+    r[i] = emu_pack(row[2 * (l % 4)], row[2 * (l % 4) + 1]);
+  }
+  emu_warp_sync();
+}
+// .trans: rows 2(l%4), +1, column l/4 of matrix i
+inline void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  emu_slot(emu_lane())[0] = (uint64_t)(uintptr_t)p;
+  emu_warp_sync();
+  const int l = emu_lane();
+  for (int i = 0; i < 4; ++i) {
+    const uint16_t* r0 =
+        (const uint16_t*)(uintptr_t)emu_slot(i * 8 + 2 * (l % 4))[0];
+    const uint16_t* r1 =
+        (const uint16_t*)(uintptr_t)emu_slot(i * 8 + 2 * (l % 4) + 1)[0];
+    r[i] = emu_pack(r0[l / 4], r1[l / 4]);
+  }
+  emu_warp_sync();
+}
+inline float emu_lo(uint64_t u) { return __bfloat162float({uint16_t(u)}); }
+inline float emu_hi(uint64_t u) {
+  return __bfloat162float({uint16_t(u >> 16)});
+}
+// c += a b over the warp: A 16x16 (row-major fragments), B 16x8, C 16x8
+inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                     uint32_t b1) {
+  uint64_t* s = emu_slot(emu_lane());
+  for (int i = 0; i < 4; ++i) s[i] = a[i];
+  s[4] = b0;
+  s[5] = b1;
+  emu_warp_sync();
+  float A[16][16], Bm[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const uint64_t* o = emu_slot(l);
+    const int g = l / 4, t = l % 4;
+    for (int h = 0; h < 2; ++h) {
+      A[g][2 * t + h] = h ? emu_hi(o[0]) : emu_lo(o[0]);
+      A[g + 8][2 * t + h] = h ? emu_hi(o[1]) : emu_lo(o[1]);
+      A[g][8 + 2 * t + h] = h ? emu_hi(o[2]) : emu_lo(o[2]);
+      A[g + 8][8 + 2 * t + h] = h ? emu_hi(o[3]) : emu_lo(o[3]);
+      Bm[2 * t + h][g] = h ? emu_hi(o[4]) : emu_lo(o[4]);
+      Bm[8 + 2 * t + h][g] = h ? emu_hi(o[5]) : emu_lo(o[5]);
+    }
+  }
+  emu_warp_sync();
+  const int g = emu_lane() / 4, t = emu_lane() % 4;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + (e >> 1) * 8, col = 2 * t + (e & 1);
+    float acc = c[e];
+    for (int k = 0; k < 16; ++k) acc += A[row][k] * Bm[k][col];
+    c[e] = acc;
+  }
+}
+
+template <typename Kernel, typename... Args>
+void emu_launch(Kernel kernel, dim3 grid, int threads, Args... args) {
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        EmuBlock blk;
+        blk.block = std::make_unique<std::barrier<>>(threads);
+        for (int w = 0; w < threads / 32; ++w)
+          blk.warps.push_back(std::make_unique<std::barrier<>>(32));
+        emu_block = &blk;
+        std::vector<std::thread> ts;
+        for (int t = 0; t < threads; ++t)
+          ts.emplace_back([&, t] {
+            threadIdx = dim3(t);
+            blockIdx = dim3(x, y, z);
+            gridDim = grid;
+            kernel(args...);
+            cp_async_wait_all();
+          });
+        for (std::thread& th : ts) th.join();
+      }
+}
