@@ -12,9 +12,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    cuDNN deterministic) for parity and timing alike.
 2. build   — compile every CUDA source of the port (one nvcc each, started
    together) into the git-ignored build directory; per flash kernel,
-   ptxas's registers and spills (none allowed in the D=64 bfloat16 B5a and
-   B5b) and the HMMA count of its SASS (``cuobjdump -sass``): non-zero in
-   exactly the tensor-core kernels, the bfloat16 B5a and B5b.
+   ptxas's registers and spills (none allowed in the D=64 bfloat16 B5a,
+   B5b and B5c) and the HMMA count of its SASS (``cuobjdump -sass``):
+   non-zero in exactly the tensor-core kernels, the bfloat16 B5a, B5b and
+   B5c.
 3. kernels — each kernel against its plain PyTorch version, bit for bit, at
    the full-width CIFAR-10 bucket and at a ragged length; median times over
    CUDA events (L2 flushed before each launch) beside the plain version, the
@@ -32,10 +33,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 6. wire    — the AsyncEA int8 codec kernels (B3 amax + quantize with error
    feedback, B4 dequantize-and-add) against their plain versions, bit for
    bit, at the convnet's 18 leaf sizes and at a ragged, unaligned length,
-   one kernel launch per wrapper call; non-finite input raises, a zero
-   leaf launches no quantize; times over
-   the whole 18-leaf delta and the largest leaf (conv4) beside the plain
-   versions, ``torch.add(c, q, alpha=s)`` and the bound.
+   one kernel launch per wrapper call; B4 over all 18 leaves in one call
+   (q cut from one byte frame at unaligned offsets, as the server's are)
+   in one launch, and over more leaves than one launch's table holds in
+   one launch per table; non-finite input raises, a zero leaf launches no
+   quantize; times over the whole 18-leaf delta (B4: one call) and the
+   largest leaf (conv4) beside the plain versions, the loop of
+   ``torch.add(c, q, alpha=s)`` over the leaves (not bit for bit) and the
+   bound.
 7. async trajectory — a serial AsyncEA server and one client with their
    tensors on the card, at the convnet's 18 leaves, 20 int8 and 5 raw
    rounds with a seeded drift: center and client params bit for bit the
@@ -45,7 +50,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    card (a serial server, 2 clients, a tester), the full-width CIFAR-10
    convnet, batch 128 per client, tau 4, alpha 0.2, int8, 8 syncs per
    client; 16 syncs applied, 5 tester pushes, finite losses, and the B3/B4
-   launch counts the design implies.  Prints where a sync's time goes.
+   launch counts the design implies (B4: one launch per apply).  Prints where a sync's time goes.
 9. flash   — kernel B5a (causal flash-attention forward) against its plain
    twin and the xla route at the serving shape (B=1, H=16, D=64) for L =
    128, 256, 1024, 2048, at B=4, H=8, D=128, L=1024 and at B=2, H=4, D=32,
@@ -76,7 +81,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``F.scaled_dot_product_attention(is_causal=True)`` (timed as the
    library yardstick only) against B5c + B5b together; the FLASH_BF16_CASES
    checked the same way, untimed; a profiled float32 call names only the
-   CUDA-core kernels, a bfloat16 one the tensor-core B5a and B5b.
+   CUDA-core kernels, a bfloat16 one only the tensor-core ones.
 12. train LM — the full-width LM of ``bench.py:1690-1713`` (vocab 32768,
    dim 1024, depth 8, 16 heads, max_len 1024, bfloat16 compute, float32
    params, batch 8 of uniform tokens, lr 1e-2) on one NCCL rank with
@@ -87,8 +92,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    under full remat); (d) ``build_lm_mixed_step``, ``params ==
    master.to(bfloat16)`` bit for bit; (e) steps/s, tokens/s and peak
    memory per mode, one profiled step (device busy, B5a/B5b/B5c shares,
-   B5a and B5b by their tensor-core kernels' names) and MFU against the
-   bfloat16 dense peak (the run fails above 1).
+   each by its tensor-core kernel's name and with 8 launches: the profile
+   lost no device event) and MFU against the bfloat16 dense peak (the run
+   fails above 1).
 13. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -385,14 +391,16 @@ def phase_build():
             if "ptxas" in line and ("registers" in line or "spill" in line
                                     or "Compiling" in line):
                 log(f"[build] {src}: {line.strip()}")
-    # the bfloat16 B5a and B5b run on tensor cores, the rest on CUDA cores
+    # the bfloat16 B5a, B5b and B5c run on tensor cores, the float32 ones
+    # on CUDA cores
     if "flash_attention.cu" in logs:
         info = ptxas_report(logs["flash_attention.cu"])
         log("[build] flash kernels (registers, spill stores/loads bytes): "
             + ", ".join(f"{k} {v.get('regs')} regs, spill "
                         f"{v.get('spill')}" for k, v in sorted(info.items())))
         for label in ("flash_fwd_mma<bf16, 64>",
-                      "flash_bwd_dkv_mma<bf16, 64>"):
+                      "flash_bwd_dkv_mma<bf16, 64>",
+                      "flash_bwd_dq_mma<bf16, 64>"):
             check(label in info and info[label].get("spill") == (0, 0),
                   f"{label}: ptxas reports spills or no entry: "
                   f"{info.get(label)}")
@@ -402,8 +410,8 @@ def phase_build():
     check(len(hmma) == 18, f"expected 18 flash kernels, found {sorted(hmma)}")
     for label, n in hmma.items():
         check((n > 0) == ("_mma<" in label),
-              f"{label}: {n} HMMA instructions; only the bfloat16 B5a and "
-              "B5b kernels run on tensor cores")
+              f"{label}: {n} HMMA instructions; exactly the bfloat16 B5a, "
+              "B5b and B5c kernels run on tensor cores")
 
 
 # ---------------------------------------------------------------------------
@@ -782,6 +790,40 @@ def phase_wire_kernels(torch, card):
         f" torch.add(c, q, alpha=s) "
         f"{'is' if lib_equal else 'is NOT'} bitwise equal to B4")
 
+    # B4 over a list of leaves, as the server applies a delta: the 18 leaves
+    # and the ragged one with q cut from one byte frame at the offsets a
+    # packed frame gives them (the first at byte 1), in one launch; then
+    # more leaves than one table holds, one launch per table
+    for leaf_sizes in (sizes + [RAGGED_LEAF],
+                       (sizes + [RAGGED_LEAF, 1, 3]) * 7):
+        frame = torch.randint(-127, 128, (sum(leaf_sizes) + 1,),
+                              generator=gen, device=dev, dtype=torch.int8)
+        offs = [1 + sum(leaf_sizes[:i]) for i in range(len(leaf_sizes))]
+        qs = [frame[o:o + n] for o, n in zip(offs, leaf_sizes)]
+        cs = [torch.randn(n, generator=gen, device=dev) for n in leaf_sizes]
+        scales = [0.5 ** (i % 9) / 127.0 for i in range(len(leaf_sizes))]
+        want = wk.dequant_add_leaves_plain(cs, qs, scales)
+        before = wk.dequant_add_leaves_cuda.launches
+        got = wk.dequant_add_leaves_cuda(cs, qs, scales)
+        launches = wk.dequant_add_leaves_cuda.launches - before
+        wk.dequant_add_leaves_cuda(cs, qs, scales, outs=cs)     # in place
+        torch.cuda.synchronize()
+        tables = -(-len(leaf_sizes) // wk.LEAF_CAPACITY)
+        check(launches == tables, f"dequant_add_leaves_cuda over "
+              f"{len(leaf_sizes)} leaves launched {launches} kernels, "
+              f"expected {tables}")
+        err = max(max_abs(torch, g, w) for g, w in zip(got, want))
+        check(all(torch.equal(g, w) and torch.equal(c, w)
+                  for g, w, c in zip(got, want, cs)),
+              f"dequant_add_leaves_cuda differs from dequant_add_leaves_plain"
+              f" over {len(leaf_sizes)} leaves: max abs {err}")
+        errs["dequant_add"] = max(errs["dequant_add"], err)
+        log(f"[wire] B4 over {len(leaf_sizes)} leaves (q at unaligned "
+            f"offsets of one byte frame), copied and in place: bitwise equal "
+            f"to dequant_add_leaves_plain, {launches} launch(es) per call "
+            f"(table capacity {wk.LEAF_CAPACITY})")
+        del frame, qs, cs, want, got
+
     x = torch.ones(CONV4, device=dev)
     for bad in (float("nan"), float("inf"), float("-inf")):
         x[-1] = bad
@@ -822,15 +864,17 @@ def phase_wire_kernels(torch, card):
         for i in idx:
             wk.quantize_ef_plain(leaves[i])
 
-    def b4(idx):
-        for i in idx:
-            wk.dequant_add_cuda(centers[i], qs[i], scales[i], out=centers[i])
+    def b4(idx):    # one call over the leaves, as the server's apply
+        cl = [centers[i] for i in idx]
+        wk.dequant_add_leaves_cuda(cl, [qs[i] for i in idx],
+                                   [scales[i] for i in idx], outs=cl)
 
     def b4_plain(idx):
-        for i in idx:
-            wk.dequant_add_plain(centers[i], qs[i], scales[i])
+        wk.dequant_add_leaves_plain([centers[i] for i in idx],
+                                    [qs[i] for i in idx],
+                                    [scales[i] for i in idx])
 
-    def b4_lib(idx):
+    def b4_lib(idx):    # the yardstick: one torch.add a leaf, not bitwise
         for i in idx:
             torch.add(centers[i], qs[i], alpha=scales[i])
 
@@ -841,7 +885,7 @@ def phase_wire_kernels(torch, card):
             ("quantize_ef", 9, 6, b3, b3_plain, None,
              "none: no PyTorch call quantizes with error feedback"),
             ("dequant_add", 9, 2, b4, b4_plain, b4_lib,
-             "torch.add(c, q, alpha=s)")):
+             "torch.add(c, q, alpha=s) a leaf")):
         for label, idx in (("whole delta", list(range(len(shapes)))),
                            ("conv4", [big])):
             n = sum(sizes[i] for i in idx)
@@ -906,6 +950,15 @@ def reset_wire_counts(wk):
     wk.amax_cuda.launches = 0
     wk.quantize_ef_cuda.launches = 0
     wk.dequant_add_cuda.launches = 0
+    wk.dequant_add_leaves_cuda.launches = 0
+
+
+def b4_launches(wk) -> int:
+    """B4's launches on the server's path (the list wrapper's); a launch
+    of the one-leaf wrapper there fails the run."""
+    check(wk.dequant_add_cuda.launches == 0, "the server applied a leaf "
+          "through the one-leaf B4 wrapper")
+    return wk.dequant_add_leaves_cuda.launches
 
 
 def run_async_pair(torch, device, codec, rounds):
@@ -959,7 +1012,7 @@ def phase_async_trajectory(torch):
         card = run_async_pair(torch, "cuda", codec, rounds)
         t_card = time.perf_counter() - t0
         launches = (wk.amax_cuda.launches, wk.quantize_ef_cuda.launches,
-                    wk.dequant_add_cuda.launches)
+                    b4_launches(wk))
         t0 = time.perf_counter()
         cpu = run_async_pair(torch, "cpu", codec, rounds)
         t_cpu = time.perf_counter() - t0
@@ -971,8 +1024,10 @@ def phase_async_trajectory(torch):
                 f"from the CPU route's: max abs "
                 f"{max(max_abs(torch, x, y) for x, y in zip(a, b))}")
         if codec == "int8":
-            check(min(launches) > 0, f"int8 rounds on the card launched "
-                  f"(amax, quantize, dequant_add) = {launches}")
+            check(min(launches) > 0 and launches[2] == rounds,
+                  f"{rounds} int8 rounds on the card launched (amax, "
+                  f"quantize, dequant_add) = {launches}; expected one "
+                  "dequant_add launch per apply")
         log(f"[async] {rounds} {codec} rounds, card against the CPU route: "
             f"center and client params bitwise equal (18 leaves); card "
             f"{t_card:.2f} s, CPU {t_cpu:.2f} s; (amax, quantize, "
@@ -1034,7 +1089,7 @@ def phase_async_train(torch):
     wall = time.perf_counter() - t0
     launches = {"amax": wk.amax_cuda.launches,
                 "quantize_ef": wk.quantize_ef_cuda.launches,
-                "dequant_add": wk.dequant_add_cuda.launches}
+                "dequant_add": b4_launches(wk)}
 
     leaf_syncs = syncs * CONVNET_LEAVES
     check(out["server"] == {"served": syncs, "tests": tests},
@@ -1051,10 +1106,11 @@ def phase_async_train(torch):
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     check(launches == {"amax": leaf_syncs,
                        "quantize_ef": leaf_syncs - zero_scales[0],
-                       "dequant_add": leaf_syncs},
-          f"launches {launches}: expected amax and dequant_add {leaf_syncs} "
-          f"({syncs} syncs x {CONVNET_LEAVES} leaves), quantize_ef "
-          f"{leaf_syncs} - {zero_scales[0]} zero-scale leaves")
+                       "dequant_add": syncs},
+          f"launches {launches}: expected amax {leaf_syncs} ({syncs} syncs "
+          f"x {CONVNET_LEAVES} leaves), quantize_ef {leaf_syncs} - "
+          f"{zero_scales[0]} zero-scale leaves, dequant_add {syncs} (one a "
+          "sync)")
     check(fu.fused_sgd.launches == 0 and fu.fused_elastic.launches == 0,
           "a fused update kernel launched on the AsyncEA path")
 
@@ -1077,7 +1133,7 @@ def phase_async_train(torch):
         f"error {rounds[0]['test_error']:.4f} -> {rounds[-1]['test_error']:.4f}")
     log(f"[async] launches on the path: amax {launches['amax']}, "
         f"quantize_ef {launches['quantize_ef']} ({zero_scales[0]} zero-scale "
-        f"leaves), dequant_add {launches['dequant_add']}")
+        f"leaves), dequant_add {launches['dequant_add']} (one per apply)")
     log(f"[async] local step p50 {p50(step_ms):.3f} ms; client sync p50 "
         f"{p50(sync_ms):.3f} ms = center fetch {parts['async_ea.fetch_center']:.3f}"
         f" + delta {parts['async_ea.delta']:.3f} + encode (B3 + D2H) "
@@ -1663,9 +1719,8 @@ def lm_train_flops(vocab, dim, depth, max_len, batch, mlp_ratio=4):
 
 FLASH_KERNELS = (("B5a", "flash_fwd"), ("B5b", "flash_bwd_dkv"),
                  ("B5c", "flash_bwd_dq"))
-# the kernels a bfloat16 call runs: B5a and B5b on tensor cores (mma), B5c
-# on CUDA cores (core)
-FLASH_BF16_ROUTES = {"B5a": {"mma"}, "B5b": {"mma"}, "B5c": {"core"}}
+# the kernels a bfloat16 call runs: all three on tensor cores (mma)
+FLASH_BF16_ROUTES = {"B5a": {"mma"}, "B5b": {"mma"}, "B5c": {"mma"}}
 
 
 def flash_routes(keys) -> dict:
@@ -1889,6 +1944,8 @@ def phase_train_lm(torch, tree):
     check(busy > 0, "torch.profiler saw no device time in the LM step")
     shares = {tag: sum(e.self_device_time_total for e in evs
                        if key in e.key) / 1e3 for tag, key in FLASH_KERNELS}
+    counts = {tag: sum(e.count for e in evs if key in e.key)
+              for tag, key in FLASH_KERNELS}
     routes = flash_routes(e.key for e in evs)
     check(routes == FLASH_BF16_ROUTES,
           f"the bfloat16 LM step ran flash kernels {routes}, expected "
@@ -1896,13 +1953,18 @@ def phase_train_lm(torch, tree):
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
     log(f"[train] (e) one profiled step: {wall_ms:.2f} ms wall (profiler "
         f"on), device busy {busy:.2f} ms, idle {1 - busy / wall_ms:.1%}; "
-        + ", ".join(f"{tag} {ms:.2f} ms = {ms / busy:.1%}"
-                    for tag, ms in shares.items())
-        + "; B5a and B5b on tensor cores (flash_fwd_mma, flash_bwd_dkv_mma),"
-        " B5c on CUDA cores")
+        + ", ".join(f"{tag} {ms:.2f} ms = {ms / busy:.1%} in "
+                    f"{counts[tag]} launches" for tag, ms in shares.items())
+        + "; all three on tensor cores (flash_fwd_mma, flash_bwd_dkv_mma, "
+        "flash_bwd_dq_mma)")
     for e in top:
         log(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms  "
             f"x{e.count:<4d} {e.key[:90]}")
+    # the profile lost no device event: every flash launch of the step is
+    # in it (phase 11's late sessions once dropped a session's first ones)
+    check(counts == {tag: depth for tag, _ in FLASH_KERNELS},
+          f"the profiled step names flash launches {counts}, expected "
+          f"{depth} of each: the profile lost device events")
     return {"launches": {"flash_attention_dkv": launches[1],
                          "flash_attention_dq": launches[2],
                          "flash_attention_train": launches[0]},

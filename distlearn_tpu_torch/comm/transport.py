@@ -625,9 +625,9 @@ class Conn:
                      ) -> "wire.PackedPayload":
         """Receive a tensor list WITHOUT decoding — wire-dtype buffers plus
         the manifest, as a :class:`wire.PackedPayload`.  The fused-apply
-        path (``ops/wire_kernels.dequant_add_cuda``) consumes quantized
-        bytes directly, so decoding here would materialize the f32 copy the
-        fused kernels exist to avoid.  Legacy per-leaf ``'T'`` frames are
+        path (``ops/wire_kernels.dequant_add_leaves_cuda``) consumes
+        quantized bytes directly, so decoding here would materialize the
+        f32 copy the fused kernels exist to avoid.  Legacy per-leaf ``'T'`` frames are
         wrapped as a raw payload, so callers need no separate path.
 
         ``out`` (packed frames only) receives the whole data region into

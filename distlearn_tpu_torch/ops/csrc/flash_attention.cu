@@ -55,7 +55,7 @@
 //
 //   bfloat16 B5a  flash_fwd_mma      tensor cores (mma.sync m16n8k16)
 //   bfloat16 B5b  flash_bwd_dkv_mma  tensor cores (mma.sync m16n8k16)
-//   bfloat16 B5c  flash_bwd_dq       CUDA cores (the next redesign)
+//   bfloat16 B5c  flash_bwd_dq_mma   tensor cores (mma.sync m16n8k16)
 //   float32 B5a, B5b, B5c            CUDA cores: on tensor cores float32
 //                                    means TF32 (10-bit mantissas), which
 //                                    the float32 tolerances do not allow
@@ -70,7 +70,7 @@
 // from the diagonal to the end (the causal skip, at tile level).  Head dims
 // 32, 64 and 128 are built: those of the repo's LM configurations.
 //
-// The tensor-core kernels (bfloat16 B5a, B5b): 128 threads, 4 warps of 16
+// The tensor-core kernels (bfloat16 B5a, B5b, B5c): 128 threads, 4 warps of 16
 // rows of the block's tile.  Tiles stay bfloat16 in shared memory, rows
 // padded by 16 bytes so that the 8 rows an ldmatrix reads fall in 8
 // distinct bank groups, and arrive by cp.async into a ring of two buffers:
@@ -92,8 +92,16 @@
 //   there and packed into the A fragments of dV += P^T dO and dK += dS^T Q
 //   (dO and Q by ldmatrix.trans).  Only Q, dO and the query rows' m, 1/l
 //   and di pass through shared memory.
-// The CUDA-core kernels (float32 B5a, B5b; B5c in both dtypes; simple and
-// right): 256 threads; tiles staged in shared memory as float32; for a
+//   B5c: B5b turned to own query rows.  The prologue computes di of the
+//   lane's rows g and g + 8 (O from device memory once, dO from its tile;
+//   a sum over the 4 lanes of a quad) and keeps it with m and 1/l in
+//   registers; the warp's Q and dO rows are A fragments (in registers for
+//   D <= 64, re-read from shared memory at D = 128); per key tile S = Q K^T
+//   and dP = dO V^T are 16x64 slabs in registers, dS = (dP - di) P scale
+//   is formed in place and packed into the A fragments of dQ += dS K (K by
+//   ldmatrix.trans).  P and dS never touch shared memory.
+// The CUDA-core kernels (float32 B5a, B5b, B5c; simple and right): 256
+// threads; tiles staged in shared memory as float32; for a
 // 64x64 score tile thread t owns rows 4*(t/16) .. +3 and columns t%16 +
 // 16*c, so row max and row sum reduce over a half warp by shuffles; P and
 // dS pass through shared memory; products are float32 FMAs.  Tiles read
@@ -777,6 +785,161 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The tensor-core dQ (bfloat16).  Shared memory: the Q and dO tiles, then
+// two K and two V buffers, each 64 rows of D + 8 bfloat16.
+template <int D>
+constexpr int dq_mma_smem_bytes() {
+  return 6 * kBM * (D + 8) * (int)sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ o,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ m_in,
+                     const float* __restrict__ l_in, bf16* __restrict__ dq,
+                     float* __restrict__ di_out, int L, Strides sq,
+                     Strides sk, Strides sv, Strides so, Strides sdo,
+                     Strides sdq, float scale, int causal) {
+  constexpr int kTile = kBM * (D + 8);
+  constexpr int kKS = D / 16;
+  constexpr int kNO = D / 8;
+  // Q and dO as A fragments in registers up to D = 64; at D = 128 they are
+  // re-read from shared memory, as B5b does with K and V
+  constexpr bool kQRegs = D <= 64;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* dos = qs + kTile;
+  bf16* ks = dos + kTile;     // [2][kBN][D + 8]
+  bf16* vs = ks + 2 * kTile;  // [2][kBN][D + 8]
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = tile * kBM;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first query row
+  const bf16* kbase = k + b * sk.b + h * sk.h;
+  const bf16* vbase = v + b * sv.b + h * sv.h;
+
+  copy_tile_async<D>(qs, q + b * sq.b + q0 * sq.l + h * sq.h, sq.l);
+  copy_tile_async<D>(dos, dout + b * sdo.b + q0 * sdo.l + h * sdo.h, sdo.l);
+  copy_tile_async<D>(ks, kbase, sk.l);
+  copy_tile_async<D>(vs, vbase, sv.l);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp: m, 1/l and di (the same in the 4 lanes
+  // of a quad) and the 16 x D accumulator of dQ
+  const int64_t stat = ((int64_t)b * gridDim.y + h) * L + q0 + wr + g;
+  const float mrow[2] = {m_in[stat], m_in[stat + 8]};
+  const float inv_l[2] = {1.f / l_in[stat], 1.f / l_in[stat + 8]};
+  float di[2];
+  uint32_t qf[kQRegs ? kKS : 1][4], dof[kQRegs ? kKS : 1][4];
+  float acc[kNO][4];
+#pragma unroll
+  for (int n = 0; n < kNO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int n_tiles = causal ? tile + 1 : L / kBN;  // kBM == kBN
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t == 0) {
+      // the prologue: di = sum_d O * dO over the row, each lane of the
+      // quad a quarter of its 4-column groups (O from device memory, once;
+      // dO from its tile), then m, 1/l; Q and dO into A fragments
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wr + g + 8 * r;
+        const bf16* orow = o + b * so.b + (int64_t)(q0 + row) * so.l +
+                           h * so.h;
+        float part = 0.f;
+#pragma unroll
+        for (int c = 4 * tq; c < D; c += 16) {
+          float ov[4], dv[4];
+          load4(orow + c, ov);
+          load4(dos + row * (D + 8) + c, dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part = fmaf(ov[e], dv[e], part);
+        }
+        di[r] = quad_sum(part);
+        if (tq == 0) di_out[stat + 8 * r] = di[r];
+      }
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int kk = 0; kk < kKS; ++kk) {
+          load_a(qf[kk], qs, D + 8, wr, kk * 16, lane);
+          load_a(dof[kk], dos, D + 8, wr, kk * 16, lane);
+        }
+      }
+    }
+    if (t + 1 < n_tiles) {  // the next tile into the other buffers
+      const int64_t k1 = (int64_t)(t + 1) * kBN;
+      copy_tile_async<D>(ks + ((t + 1) & 1) * kTile, kbase + k1 * sk.l, sk.l);
+      copy_tile_async<D>(vs + ((t + 1) & 1) * kTile, vbase + k1 * sv.l, sv.l);
+    }
+    cp_async_commit();
+    const bf16* kt = ks + (t & 1) * kTile;
+    const bf16* vt = vs + (t & 1) * kTile;
+
+    // S = Q K^T and dP = dO V^T: key block j holds keys 8j + 2tq, +1 of
+    // rows g, g + 8
+    float p[8][4], ds[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] = ds[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        load_a(a, qs, D + 8, wr, kk * 16, lane);
+      }
+      slab_product<D>(p, a, kt, kk, lane);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = dof[kk][e];
+      } else {
+        load_a(a, dos, D + 8, wr, kk * 16, lane);
+      }
+      slab_product<D>(ds, a, vt, kk, lane);
+    }
+    // P = exp(s * scale - m) * (1/l), 0 where key > query on the diagonal;
+    // then dS = (dP - di) P scale in place
+    const bool diag = causal && t == tile;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float pe =
+            diag && j * 8 + 2 * tq + (e & 1) > wr + g + 8 * r
+                ? 0.f
+                : expf(__fmul_rn(p[j][e], scale) - mrow[r]) * inv_l[r];
+        ds[j][e] = (ds[j][e] - di[r]) * pe * scale;
+      }
+    // dQ += bf16(dS) K, K read [k][n] by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      slab_to_a(a, ds, kk);
+      acc_product<D>(acc, a, kt, kk, lane);
+    }
+  }
+
+  const int64_t row = q0 + wr + g;
+  bf16* out = dq + b * sdq.b + row * sdq.l + h * sdq.h;
+  store_acc<D>(out, out + 8 * sdq.l, acc, tq);
+}
+
 // ---------------------------------------------------------------------------
 // B5b: dK and dV, one block per key tile
 // ---------------------------------------------------------------------------
@@ -1111,9 +1274,8 @@ bool rows_16b(int elt_bytes, S... s) {
 
 }  // namespace
 
-// BODY(T, DIM) for the head dim D, float32 (dtype 0) or bfloat16 (1):
-// CUDA-core kernels for float32 in all three entry points, B5c in bfloat16
-// too; BF16_BODY(DIM) launches the tensor-core kernel of B5a or B5b.
+// BODY(T, DIM) for the head dim D: each entry point launches its CUDA-core
+// kernel for float32 (dtype 0) and its tensor-core kernel for bfloat16 (1).
 #define DL_HEAD_DIMS(BODY, T)      \
   if (D == 32) { BODY(T, 32) }     \
   if (D == 64) { BODY(T, 64) }     \
@@ -1174,17 +1336,23 @@ extern "C" int dl_flash_bwd_dq(
   if (!shape_ok(B, L, H) ||
       !rows_16b(dtype == 0 ? 4 : 2, sq, sk, sv, so, sdo, sdq))
     return -(int)cudaErrorInvalidValue;
-#define DL_DQ(T, DIM)                                                       \
+#define DL_DQ_ARGS(T)                                                       \
+  B, L, H, stream, static_cast<const T*>(q), static_cast<const T*>(k),      \
+      static_cast<const T*>(v), static_cast<const T*>(o),                   \
+      static_cast<const T*>(dout), static_cast<const float*>(m),            \
+      static_cast<const float*>(l), static_cast<T*>(dq),                    \
+      static_cast<float*>(di), L, sq, sk, sv, so, sdo, sdq, scale, causal
+#define DL_DQ_CORE(T, DIM)                                                  \
   return launch(flash_bwd_dq<T, DIM>, dq_smem_floats<DIM>() * 4, kThreads,  \
-                B, L, H, stream, static_cast<const T*>(q),                  \
-                static_cast<const T*>(k), static_cast<const T*>(v),         \
-                static_cast<const T*>(o), static_cast<const T*>(dout),      \
-                static_cast<const float*>(m), static_cast<const float*>(l), \
-                static_cast<T*>(dq), static_cast<float*>(di), L, sq, sk, sv, \
-                so, sdo, sdq, scale, causal);
-  if (dtype == 0) { DL_HEAD_DIMS(DL_DQ, float) }
-  if (dtype == 1) { DL_HEAD_DIMS(DL_DQ, bf16) }
-#undef DL_DQ
+                DL_DQ_ARGS(T));
+#define DL_DQ_MMA(T, DIM)                                                   \
+  return launch(flash_bwd_dq_mma<DIM>, dq_mma_smem_bytes<DIM>(),            \
+                kMmaThreads, DL_DQ_ARGS(T));
+  if (dtype == 0) { DL_HEAD_DIMS(DL_DQ_CORE, float) }
+  if (dtype == 1) { DL_HEAD_DIMS(DL_DQ_MMA, bf16) }
+#undef DL_DQ_ARGS
+#undef DL_DQ_CORE
+#undef DL_DQ_MMA
   return -(int)cudaErrorInvalidValue;
 }
 

@@ -6,8 +6,10 @@
 //   dl_amax_abs_f32   <- _amax_call (the max|x| reduction before the codec)
 //   dl_quant_ef_f32   <- _quant_ef_call / _quant_ef_kernel
 //                        q = rint(x / s) as int8, r = x - f32(q) * s
-//   dl_dequant_add_f32 <- _dequant_add_call / _dequant_add_kernel
-//                        out = c + f32(q) * s  (out may be c)
+//   dl_dequant_add_leaves_f32 <- _dequant_add_call / _dequant_add_kernel
+//                        out = c + f32(q) * s  (out may be c), every leaf
+//                        of a delta in one launch; dl_dequant_add_f32 is
+//                        its one-leaf case
 //
 // Bound: all three are streams with a few float operations per element, far
 // below the card's compute rate, so HBM bandwidth bounds them.  Over the
@@ -18,11 +20,14 @@
 // q and writes c: 39.0 MB, 11.6 us.
 //
 // Design: the TPU kernels walk (256, 128) VMEM blocks padded to the int8
-// (32, 128) tile; here each kernel is a grid-stride stream over one flat
-// leaf, no padding, one launch per leaf.  Each thread moves 4 consecutive
-// elements with one 16-byte float load or store (float4) and one 4-byte int8
-// load or store (char4) when every pointer is aligned for that; any other
-// leaf, and the tail of a length that is not a multiple of 4, takes a scalar
+// (32, 128) tile; here the amax and the quantize are grid-stride streams
+// over one flat leaf, no padding, one launch per leaf, and the
+// dequantize-add takes all the leaves of a delta in one launch (the server
+// applies a delta in one call: the per-leaf launches cost 5x the kernels'
+// busy time in host calls).  Each thread moves 4 consecutive elements with
+// one 16-byte float load or store (float4) and one 4-byte int8 load or
+// store (char4) when every pointer is aligned for that; any other leaf,
+// and the tail of a length that is not a multiple of 4, takes a scalar
 // loop in the same kernel.
 //
 // The amax reduces the bit patterns of |x| as unsigned integers: for
@@ -45,6 +50,7 @@
 // Each function launches on the caller's stream and does not synchronise.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -119,29 +125,75 @@ __global__ void quant_ef(char4* __restrict__ q4, float4* __restrict__ r4,
 // dequantize and add
 // ---------------------------------------------------------------------------
 
+__host__ __device__ __forceinline__ bool aligned(const void* p,
+                                                 uintptr_t bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
+}
+
 __device__ __forceinline__ float dqa1(float c, signed char q, float s) {
   return __fadd_rn(c, __fmul_rn((float)q, s));
 }
 
-// One launch per leaf, laid out as quant_ef.  out may alias c: each element
+// Every leaf of a delta in one launch.  The table rides in the kernel's
+// parameters (2.6 KB of the 4 KB they may hold) and gives each leaf a run
+// of blocks: leaf i owns blocks first[i] .. first[i + 1] - 1 (a prefix sum
+// the host computes), and each block takes kLeafChunk consecutive elements
+// of its leaf.  A leaf whose pointers are aligned for it moves 4 elements a
+// thread with one float4 and one char4 access, and its last block takes the
+// tail of a length that is not a multiple of 4 one element at a time; any
+// other leaf (the server's q leaves are views at arbitrary byte offsets of
+// its staging frame) takes the scalar loop.  out may alias c: each element
 // is read and written by the same thread.
-__global__ void dequant_add(float4* out4, const float4* c4,
-                            const char4* __restrict__ q4, int64_t n4,
-                            float* out, const float* c,
-                            const signed char* __restrict__ q, int64_t begin,
-                            int64_t n, float s) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  for (int64_t i = tid; i < n4; i += stride) {
-    float4 a = c4[i], o;
-    char4 b = q4[i];
-    o.x = dqa1(a.x, b.x, s);
-    o.y = dqa1(a.y, b.y, s);
-    o.z = dqa1(a.z, b.z, s);
-    o.w = dqa1(a.w, b.w, s);
-    out4[i] = o;
+constexpr int kLeafCap = 64;
+constexpr int kLeafChunk = 4 * 4 * kThreads;  // 4 float4 a thread
+
+struct LeafTable {
+  float* out[kLeafCap];
+  const float* c[kLeafCap];
+  const signed char* q[kLeafCap];
+  int64_t n[kLeafCap];
+  float s[kLeafCap];
+  int first[kLeafCap + 1];  // first[count]: the grid
+  int count;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    dequant_add_leaves(const __grid_constant__ LeafTable t) {
+  int leaf = 0, hi = t.count - 1;  // the last leaf whose first block <= ours
+  while (leaf < hi) {
+    const int mid = (leaf + hi + 1) >> 1;
+    if (t.first[mid] <= (int)blockIdx.x)
+      leaf = mid;
+    else
+      hi = mid - 1;
   }
-  for (int64_t i = begin + tid; i < n; i += stride)
+  float* out = t.out[leaf];
+  const float* c = t.c[leaf];
+  const signed char* q = t.q[leaf];
+  const float s = t.s[leaf];
+  const int64_t n = t.n[leaf];
+  const int64_t begin = (int64_t)(blockIdx.x - t.first[leaf]) * kLeafChunk;
+  const int64_t end = begin + kLeafChunk < n ? begin + kLeafChunk : n;
+  int64_t scalar = begin;
+  if (aligned(out, 16) && aligned(c, 16) && aligned(q, 4)) {
+    const int64_t end4 = end & ~(int64_t)3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t e = begin + 4 * (threadIdx.x + (int64_t)i * kThreads);
+      if (e < end4) {
+        const float4 a = *reinterpret_cast<const float4*>(c + e);
+        const char4 b = *reinterpret_cast<const char4*>(q + e);
+        float4 o;
+        o.x = dqa1(a.x, b.x, s);
+        o.y = dqa1(a.y, b.y, s);
+        o.z = dqa1(a.z, b.z, s);
+        o.w = dqa1(a.w, b.w, s);
+        *reinterpret_cast<float4*>(out + e) = o;
+      }
+    }
+    scalar = end4;
+  }
+  for (int64_t i = scalar + threadIdx.x; i < end; i += kThreads)
     out[i] = dqa1(c[i], q[i], s);
 }
 
@@ -158,10 +210,6 @@ int grid_for(int64_t work) {
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;
   return (int)(blocks < max_blocks ? blocks : max_blocks);
-}
-
-bool aligned(const void* p, uintptr_t bytes) {
-  return ((uintptr_t)p & (bytes - 1)) == 0;
 }
 
 // The entry points' return value: the number of kernels launched (each
@@ -191,13 +239,46 @@ extern "C" int dl_quant_ef_f32(signed char* q, float* r, const float* x,
   return launched(cudaGetLastError());
 }
 
+// B4 over count leaves: out[i] = c[i] + f32(q[i]) * s[i] for every leaf i
+// of n[i] elements (out[i] may be c[i]).  The arrays are the host's; one
+// launch per table of up to kLeafCap non-empty leaves, none for a list of
+// empty leaves.
+extern "C" int dl_dequant_add_leaves_f32(float* const* out,
+                                         const float* const* c,
+                                         const signed char* const* q,
+                                         const int64_t* n, const float* s,
+                                         int count, cudaStream_t stream) {
+  int launches = 0;
+  LeafTable t;
+  t.count = 0;
+  int64_t blocks = 0;
+  for (int i = 0; i <= count; ++i) {
+    const int64_t b = i < count ? (n[i] + kLeafChunk - 1) / kLeafChunk : 0;
+    if (t.count > 0 && (i == count || t.count == kLeafCap ||
+                        blocks + b > INT_MAX)) {
+      t.first[t.count] = (int)blocks;
+      dequant_add_leaves<<<(int)blocks, kThreads, 0, stream>>>(t);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return -(int)err;
+      ++launches;
+      t.count = 0;
+      blocks = 0;
+    }
+    if (b == 0) continue;
+    t.out[t.count] = out[i];
+    t.c[t.count] = c[i];
+    t.q[t.count] = q[i];
+    t.n[t.count] = n[i];
+    t.s[t.count] = s[i];
+    t.first[t.count++] = (int)blocks;
+    blocks += b;
+  }
+  return launches;
+}
+
+// One leaf: the one-leaf table of dl_dequant_add_leaves_f32.
 extern "C" int dl_dequant_add_f32(float* out, const float* c,
                                   const signed char* q, int64_t n, float s,
                                   cudaStream_t stream) {
-  int64_t n4 =
-      aligned(out, 16) && aligned(c, 16) && aligned(q, 4) ? n / 4 : 0;
-  dequant_add<<<grid_for(n4 > 0 ? n4 : n), kThreads, 0, stream>>>(
-      reinterpret_cast<float4*>(out), reinterpret_cast<const float4*>(c),
-      reinterpret_cast<const char4*>(q), n4, out, c, q, n4 * 4, n, s);
-  return launched(cudaGetLastError());
+  return dl_dequant_add_leaves_f32(&out, &c, &q, &n, &s, 1, stream);
 }

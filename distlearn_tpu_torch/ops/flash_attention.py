@@ -5,9 +5,9 @@ counterpart of the Pallas TPU kernels that
 ``_flash_attention_kernel``, ``_flash_attention_dkv_kernel`` and
 ``_flash_attention_dq_kernel`` in
 ``jax/experimental/pallas/ops/tpu/flash_attention.py``), hand-written in
-CUDA for Hopper in ``ops/csrc/flash_attention.cu``: in bfloat16, B5a and
-B5b run on the tensor cores (``mma.sync``) and B5c on the CUDA cores; in
-float32 all three run on the CUDA cores (tensor cores would mean TF32).
+CUDA for Hopper in ``ops/csrc/flash_attention.cu``: in bfloat16 all three
+run on the tensor cores (``mma.sync``); in float32 all three run on the
+CUDA cores (tensor cores would mean TF32).
 
 * :func:`flash_attention` — ``softmax(q k^T / sqrt(D), causal) v``; when a
   gradient is wanted it goes through :class:`FlashAttention`, whose forward

@@ -17,16 +17,18 @@ Two routes, chosen by what the caller holds:
   - B3 :func:`quantize_ef_cuda` — ``q = rint(d / s)`` as int8 and
     ``r = d - f32(q) * s``, after :func:`amax_cuda`'s ``max|d|`` (replaces
     ``quantize_ef_jax``, ``_amax_call`` and ``_quant_ef_call``);
-  - B4 :func:`dequant_add_cuda` — ``c' = c + f32(q) * s`` (replaces
-    ``dequant_add_jax``/``_dequant_add_call``).
+  - B4 :func:`dequant_add_leaves_cuda` — ``c' = c + f32(q) * s`` over
+    every leaf of a delta in one launch, :func:`dequant_add_cuda` its
+    one-leaf case (replaces ``dequant_add_jax``/``_dequant_add_call``).
 
   Each wrapper dispatches on its tensors' device: a CUDA tensor launches the
   kernel (or the wrapper raises), a CPU tensor takes the plain PyTorch
   version beside it (:func:`amax_plain`, :func:`quantize_ef_plain`,
-  :func:`dequant_add_plain`), one operation per rounding, which is also the
-  kernels' oracle.  There is no fallback from one to the other.  Each
-  wrapper counts its kernel launches in ``<wrapper>.launches``, as many as
-  the C entry point reports (one per call).
+  :func:`dequant_add_plain`, :func:`dequant_add_leaves_plain`), one
+  operation per rounding, which is also the kernels' oracle.  There is no
+  fallback from one to the other.  Each wrapper counts its kernel launches
+  in ``<wrapper>.launches``, as many as the C entry point reports (one per
+  call; one per table of leaves for the list wrapper).
 
 The scale follows the reference formula exactly: ``amax`` is checked finite
 on the host (``ValueError`` otherwise — the center must never take a
@@ -59,7 +61,8 @@ from distlearn_tpu_torch.ops.fused_update import cast_scalar
 __all__ = [
     "quantize_ef_into", "fp16_ef_into", "dequant_add", "fp16_add",
     "amax_plain", "amax_cuda", "quantize_ef_plain", "quantize_ef_cuda",
-    "dequant_add_plain", "dequant_add_cuda", "encode_ef_into",
+    "dequant_add_plain", "dequant_add_cuda", "dequant_add_leaves_plain",
+    "dequant_add_leaves_cuda", "encode_ef_into",
 ]
 
 
@@ -187,7 +190,10 @@ _SIGNATURES = {
     "dl_amax_abs_f32": (_P, _P, ctypes.c_int64, _P),
     "dl_quant_ef_f32": (_P, _P, _P, ctypes.c_int64, ctypes.c_float, _P),
     "dl_dequant_add_f32": (_P, _P, _P, ctypes.c_int64, ctypes.c_float, _P),
+    "dl_dequant_add_leaves_f32": (_P, _P, _P, _P, _P, ctypes.c_int, _P),
 }
+#: leaves in one launch of the multi-leaf B4 (``kLeafCap`` in the source)
+LEAF_CAPACITY = 64
 
 
 #: guards the launch counts: roles running as threads share the wrappers
@@ -345,6 +351,62 @@ def dequant_add_cuda(c: torch.Tensor, q: torch.Tensor, scale: float,
 
 
 dequant_add_cuda.launches = 0
+
+
+def dequant_add_leaves_plain(cs, qs, scales) -> list[torch.Tensor]:
+    """:func:`dequant_add_plain` of every leaf."""
+    return [dequant_add_plain(c, q, s) for c, q, s in zip(cs, qs, scales)]
+
+
+def dequant_add_leaves_cuda(cs, qs, scales, outs=None) -> list[torch.Tensor]:
+    """B4 over a list of leaves: ``outs[i] = cs[i] + f32(qs[i]) * s_i`` in
+    one launch for every :data:`LEAF_CAPACITY` non-empty leaves (the
+    server's apply of a whole delta).  ``outs`` may be ``cs`` (in place);
+    default allocates.  CPU leaves take :func:`dequant_add_leaves_plain`."""
+    cs, qs = list(cs), list(qs)
+    if len(qs) != len(cs) or len(scales) != len(cs) or (
+            outs is not None and len(outs) != len(cs)):
+        raise ValueError("dequant_add_leaves_cuda: one q, scale and out per "
+                         "leaf")
+    if not cs:
+        return []
+    if cs[0].device.type == "cpu":
+        res = dequant_add_leaves_plain(cs, qs, scales)
+        return res if outs is None else [o.copy_(r) for o, r in
+                                         zip(outs, res)]
+    dev = cs[0].device
+    outs = [torch.empty_like(c) for c in cs] if outs is None else list(outs)
+    # one pass over the leaves: the checks of _check, inlined (this is the
+    # host time the one launch exists to cut), and the table's columns
+    f32, i8 = torch.float32, torch.int8
+    po, pc, pq, ns = [], [], [], []
+    for c, q, o in zip(cs, qs, outs):
+        n = c.numel()
+        if not (c.dtype == f32 and o.dtype == f32 and q.dtype == i8
+                and q.numel() == n and o.numel() == n and c.is_contiguous()
+                and q.is_contiguous() and o.is_contiguous()):
+            raise ValueError(
+                "dequant_add_leaves_cuda: contiguous float32 c and out and "
+                f"int8 q of one length per leaf, got {c.dtype} "
+                f"{tuple(c.shape)}, {q.dtype} {tuple(q.shape)}, {o.dtype} "
+                f"{tuple(o.shape)}")
+        po.append(o.data_ptr())
+        pc.append(c.data_ptr())
+        pq.append(q.data_ptr())
+        ns.append(n)
+    if len({t.device for t in (*cs, *qs, *outs)}) != 1:
+        raise ValueError(f"dequant_add_leaves_cuda: all tensors must be on "
+                         f"{dev}")
+    n = len(cs)
+    # ctypes rounds each scale to float32 to nearest even, as _f32 does
+    _launch(dequant_add_leaves_cuda, "dl_dequant_add_leaves_f32",
+            (_P * n)(*po), (_P * n)(*pc), (_P * n)(*pq),
+            (ctypes.c_int64 * n)(*ns), (ctypes.c_float * n)(*scales), n,
+            _stream(dev))
+    return outs
+
+
+dequant_add_leaves_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -27,8 +27,9 @@ unless ``device="cpu"`` is asked for) and the host sees only wire bytes:
   page-locked host twin (:class:`_LeafSlab`): each ``Center?`` is one
   device-to-host copy; a received delta frame lands in a page-locked
   staging buffer, goes to the device in one copy, and is applied there —
-  int8 leaves by the B4 kernel (``ops/wire_kernels.dequant_add_cuda``),
-  fp16 leaves widened and added, raw leaves added;
+  int8 leaves by one launch of the B4 kernel over all of them
+  (``ops/wire_kernels.dequant_add_leaves_cuda``), fp16 leaves widened and
+  added, raw leaves added;
 * the client's params, center copy, delta and error-feedback residual live
   on the device: the received center goes host-to-device in one copy, the
   elastic move runs there, B3 (``quantize_ef_cuda``) quantizes, and only
@@ -311,21 +312,25 @@ class AsyncEAServer:
 
     def _apply_delta(self, payload: "wire.PackedPayload"):
         """Fold one received, validated delta into the center on the
-        device, in place: int8 leaves through B4, fp16 leaves widened and
-        added, raw leaves added (dtypes equal, checked).  Synchronised
-        before returning, so the staging buffer is free for the next
-        frame."""
+        device, in place: the int8 leaves through B4 in one call (one
+        launch for the whole delta), fp16 leaves widened and added, raw
+        leaves added (dtypes equal, checked).  Synchronised before
+        returning, so the staging buffer is free for the next frame."""
         t0 = time.perf_counter()
         with obs.span("async_ea.apply"):
             bufs = self._device_bufs(payload)
+            cs, qs, scales = [], [], []
             for c, entry, b in zip(self.center, payload.manifest["leaves"],
                                    bufs):
                 if entry["enc"] == "int8":
-                    wire_kernels.dequant_add_cuda(c, b, entry["scale"], out=c)
+                    cs.append(c)
+                    qs.append(b)
+                    scales.append(entry["scale"])
                 elif entry["enc"] == "fp16":
                     c.add_(b.to(c.dtype))
                 else:
                     c.add_(b)
+            wire_kernels.dequant_add_leaves_cuda(cs, qs, scales, outs=cs)
             _sync(self.device)
         self._c_syncs.inc()
         if self._obs_on:

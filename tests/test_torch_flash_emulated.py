@@ -7,8 +7,8 @@ block as a thread and the warp collectives (shuffles, ``ldmatrix``,
 (:data:`PTX_HELPERS`) are taken out and the header's stand in; its dynamic
 shared memory and its launch are mapped onto the header's.  So the
 kernels' indexing, fragment layouts, masks, online softmax and cp.async
-ring run as written, B5a and B5b on their tensor-core path in bfloat16 and
-every kernel on its CUDA-core path, and are held against their plain twins
+ring run as written, every kernel on its tensor-core path in bfloat16 and
+on its CUDA-core path in float32, and are held against their plain twins
 (``ops/flash_attention.py``), which the card holds them against too
 (``chip_smoke.py`` phases 9 and 11), at the same tolerances: float32
 within 1e-5 (B5a) and rtol 2e-4, atol 2e-5 (B5b, B5c); bfloat16 within
@@ -63,7 +63,7 @@ def host_source(cu: str) -> str:
                     f'#include "{SHIM.name}"', 1)
     text = _replace(text, "#include <cuda_runtime.h>", "", 1)
     text = _replace(text, "extern __shared__ __align__(16) unsigned char "
-                    "smem_tc[];", "unsigned char* smem_tc = emu_smem;", 2)
+                    "smem_tc[];", "unsigned char* smem_tc = emu_smem;", 3)
     text = _replace(text, "extern __shared__ float smem[];",
                     "float* smem = reinterpret_cast<float*>(emu_smem);", 3)
     text = _replace(text, "kernel<<<dim3(L / kBM, H, B), threads, smem, "

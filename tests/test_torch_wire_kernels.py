@@ -17,11 +17,27 @@ wire_kernels.py``) on the same numpy inputs.
   int8 and fp16 — numpy leaves through the host route and torch leaves
   through the tensor route — and the same residuals.
 
-The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
-them against the plain versions bit for bit.
+* B4 over a list of leaves (the server's one call per delta): the plain
+  twin bit for bit against JAX's host route and within one ulp of its
+  Pallas kernel at the convnet's 18 leaves cut from one byte frame at
+  unaligned offsets; the port server's apply of a delta the JAX codec
+  encoded; the list wrapper's launch count, one per table of leaves.
+
+The CUDA kernels run on the card, where ``chip_smoke.py`` holds them against
+the plain versions bit for bit.  Their code also runs here:
+``ops/csrc/wire_kernels.cu`` compiles with g++ as host C++ over
+``tests/torch_cuda_emu.h`` (as tests/test_torch_flash_emulated.py does for
+the flash kernels), and the emulated kernels are held against the plain
+versions bit for bit at small sizes, the multi-leaf B4 across more leaves
+than one launch's table holds.  Those cases skip where no g++ is.
 """
 
+import ctypes
 import json
+import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import pytest
 
@@ -266,3 +282,210 @@ def test_launch_counts_what_the_entry_point_reports(monkeypatch, rc):
     else:
         wk._launch(wk.dequant_add_cuda, "dl_dequant_add_f32")
         assert wk.dequant_add_cuda.launches == rc
+
+
+# ---------------------------------------------------------------------------
+# B4 over a list of leaves
+# ---------------------------------------------------------------------------
+
+def _frame_leaves(sizes, seed):
+    """Centers, int8 leaves cut from one byte frame at the offsets a packed
+    frame gives them (the first at byte 1: none 4-byte aligned by design)
+    and scales."""
+    rng = np.random.default_rng(seed)
+    frame = rng.integers(-127, 128, sum(sizes) + 1).astype(np.int8)
+    offs = np.cumsum([1] + sizes[:-1])
+    cs = [rng.standard_normal(n).astype(np.float32) for n in sizes]
+    qs = [frame[o:o + n] for o, n in zip(offs, sizes)]
+    scales = [float(np.abs(_delta(n + 1, seed)).max()) / 127.0
+              for n in sizes]
+    return frame, cs, qs, scales
+
+
+def test_dequant_add_leaves_plain_vs_jax_on_one_frame():
+    """The twin of the server's one-call apply at the convnet's 18 leaves:
+    bit for bit JAX's host route (the reference codec) and within one ulp
+    of its Pallas kernel in interpret mode, which fuses the multiply-add
+    (tests/test_wire_kernels.py's tolerance); the list wrapper on CPU
+    tensors, in place, gives the same bits."""
+    _, cs, qs, scales = _frame_leaves(CONVNET_SIZES, 7)
+    tqs = [torch.from_numpy(q) for q in qs]     # views into the frame
+    got = wk.dequant_add_leaves_plain([torch.from_numpy(c) for c in cs],
+                                      tqs, scales)
+    centers = [torch.from_numpy(c.copy()) for c in cs]
+    assert wk.dequant_add_leaves_cuda(centers, tqs, scales,
+                                      outs=centers) == centers
+    for c, q, s, g, inplace in zip(cs, qs, scales, got, centers):
+        want = jwk.dequant_add(c, q, s)
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(want))
+        np.testing.assert_array_equal(_bits(inplace.numpy()), _bits(want))
+        _assert_within_one_ulp_of(
+            g.numpy(), jwk.dequant_add_jax(c, q, s),
+            np.abs(c) + np.abs(q.astype(np.float32) * np.float32(s)))
+
+
+def test_server_apply_matches_the_jax_codec():
+    """The port server's apply (one B4 call for the int8 leaves, raw leaves
+    added) on the CPU route, of a frame the JAX package's codec encoded:
+    the center equals JAX's host decode-and-add bit for bit."""
+    from distlearn_tpu_torch import obs
+    from distlearn_tpu_torch.parallel import async_ea as pea
+    rng = np.random.default_rng(3)
+    sizes = CONVNET_SIZES + [17]
+    center = [rng.standard_normal(n).astype(np.float32) for n in sizes[:-1]]
+    center.append(np.arange(17, dtype=np.int32))
+    delta = [(rng.standard_normal(n) * 0.01).astype(np.float32)
+             for n in sizes[:-1]] + [np.full(17, 3, np.int32)]
+    ref = jwire.encode_leaves(delta, "int8")
+    srv = pea.AsyncEAServer.__new__(pea.AsyncEAServer)
+    srv.device = torch.device("cpu")
+    srv._rx = wire.FrameBuffer()
+    srv._obs_on = False
+    srv._c_syncs = obs.counter("test_async_ea_syncs_total", "applied")
+    srv._slab = pea._LeafSlab([(a.shape, a.dtype) for a in center],
+                              srv.device)
+    srv.center = srv._slab.leaves
+    for c, a in zip(srv.center, center):
+        c.copy_(torch.from_numpy(a))
+    nbytes = sum(b.nbytes for b in ref.bufs)
+    srv._rx.reserve(nbytes)
+    frame = srv._rx.host_tensor(nbytes).numpy()
+    frame[:] = np.concatenate([np.asarray(b).reshape(-1).view(np.uint8)
+                               for b in ref.bufs])
+    srv._apply_delta(wire.PackedPayload(ref.manifest, ref.bufs, "int8",
+                                        nbytes, 0, frame=frame))
+    for c, a, e, b in zip(srv.center, center, ref.manifest["leaves"],
+                          ref.bufs):
+        want = (jwk.dequant_add(a, b, e["scale"]) if e["enc"] == "int8"
+                else a + b)
+        np.testing.assert_array_equal(_bits(c.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("n_leaves,tables", [(1, 1), (18, 1), (64, 1),
+                                             (65, 2), (130, 3)])
+def test_dequant_add_leaves_counts_one_launch_per_table(monkeypatch,
+                                                        n_leaves, tables):
+    """The list wrapper hands every leaf to ONE entry-point call and counts
+    the launches it reports: one per table of up to LEAF_CAPACITY leaves
+    (device-less meta tensors stand in for the card's)."""
+    calls = []
+
+    def entry(outs, cs, qs, ns, scales, count, stream):
+        calls.append((list(ns), list(scales), count))
+        return -(-sum(n > 0 for n in list(ns)[:count]) // wk.LEAF_CAPACITY)
+
+    monkeypatch.setattr(wk._build, "function", lambda source, name, sig:
+                        entry if name == "dl_dequant_add_leaves_f32"
+                        else None)
+    monkeypatch.setattr(wk, "_stream", lambda device: None)
+    monkeypatch.setattr(wk.dequant_add_leaves_cuda, "launches", 0)
+    sizes = [1 + i % 7 for i in range(n_leaves)]
+    cs = [torch.empty(n, device="meta") for n in sizes]
+    qs = [torch.empty(n, dtype=torch.int8, device="meta") for n in sizes]
+    scales = [0.1 * (i + 1) for i in range(n_leaves)]
+    outs = wk.dequant_add_leaves_cuda(cs, qs, scales, outs=cs)
+    assert outs == cs
+    assert calls == [(sizes, [wk._f32(s) for s in scales], n_leaves)]
+    assert wk.dequant_add_leaves_cuda.launches == tables
+    with pytest.raises(ValueError, match="one q, scale and out"):
+        wk.dequant_add_leaves_cuda(cs, qs[:-1], scales)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' own code on the CPU (tests/torch_cuda_emu.h)
+# ---------------------------------------------------------------------------
+
+SOURCE = Path(wk.__file__).resolve().parent / "csrc" / "wire_kernels.cu"
+SHIM = Path(__file__).resolve().parent / "torch_cuda_emu.h"
+
+
+def host_source(cu: str) -> str:
+    """The CUDA source as host C++ over the shim: each ``<<<grid, ...>>>``
+    launch becomes the shim's ``emu_launch``."""
+    assert cu.count("#include <cuda_runtime.h>") == 1
+    text = cu.replace("#include <cuda_runtime.h>", f'#include "{SHIM.name}"')
+    text, n = re.subn(r"(\w+)<<<(.+?), kThreads, 0, stream>>>\(",
+                      r"emu_launch(\1, dim3(\2), kThreads, ", text,
+                      flags=re.S)
+    assert n == 3, n
+    return text
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the emulated kernels")
+    d = tmp_path_factory.mktemp("wire_emu")
+    src = d / "wire_emu.cpp"
+    src.write_text(host_source(SOURCE.read_text()))
+    so = d / "libwire_emu.so"
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", f"-I{SHIM.parent}", "-o", str(so), str(src)],
+                   check=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    for name, sig in wk._SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = sig, ctypes.c_int
+    return lib
+
+
+def _ptrs(ts, ctype=ctypes.c_void_p):
+    return (ctype * len(ts))(*(t.data_ptr() for t in ts))
+
+
+def test_emulated_dequant_add_leaves_past_the_table(emu):
+    """140 leaves, three tables: empty ones, lengths off a multiple
+    of 4, centers and outputs off their 16-byte alignment, q leaves at odd
+    offsets of one byte frame, half of them in place.  Every output equals
+    the twin bit for bit, and the entry point reports one launch per table
+    of up to LEAF_CAPACITY non-empty leaves."""
+    rng = np.random.default_rng(5)
+    sizes = [int(n) for n in rng.integers(1, 6000, 140)]
+    sizes[:4] = [0, 1, 4 * 4096 + 3, 0]
+    _, cs, qs, scales = _frame_leaves(sizes, 5)
+    tcs = []
+    for i, c in enumerate(cs):      # every third off its 16-byte alignment
+        t = torch.empty(c.size + 1)[i % 3 == 0:][:c.size]
+        t.copy_(torch.from_numpy(c))
+        tcs.append(t)
+    tqs = [torch.from_numpy(q) for q in qs]
+    outs = [c if i % 2 else torch.empty_like(c) for i, c in enumerate(tcs)]
+    want = wk.dequant_add_leaves_plain(tcs, tqs, scales)
+    nonempty = sum(n > 0 for n in sizes)
+    rc = emu.dl_dequant_add_leaves_f32(
+        _ptrs(outs), _ptrs(tcs), _ptrs(tqs),
+        (ctypes.c_int64 * len(sizes))(*sizes),
+        (ctypes.c_float * len(sizes))(*map(wk._f32, scales)), len(sizes),
+        None)
+    assert rc == -(-nonempty // wk.LEAF_CAPACITY) == 3
+    for o, w in zip(outs, want):
+        np.testing.assert_array_equal(_bits(o.numpy()), _bits(w.numpy()))
+    assert emu.dl_dequant_add_leaves_f32(None, None, None, None, None, 0,
+                                         None) == 0
+
+
+def test_emulated_single_leaf_codec_kernels(emu):
+    """amax, quantize with error feedback and the one-leaf dequantize-add
+    at a ragged length, aligned and a float off alignment."""
+    d = torch.from_numpy(_delta(5003, 9))
+    for off in (0, 1):
+        x = torch.empty(5004)[off:off + 5003]
+        x.copy_(d)
+        slot = torch.zeros(1, dtype=torch.int32)
+        assert emu.dl_amax_abs_f32(slot.data_ptr(), x.data_ptr(), 5003,
+                                   None) == 1
+        assert slot.view(torch.float32).item() == wk.amax_plain(x)
+        q0, s, r0 = wk.quantize_ef_plain(x)
+        q = torch.empty(5004, dtype=torch.int8)[off:off + 5003]
+        r = torch.empty(5004)[off:off + 5003]
+        assert emu.dl_quant_ef_f32(q.data_ptr(), r.data_ptr(), x.data_ptr(),
+                                   5003, wk._f32(s), None) == 1
+        assert torch.equal(q, q0)
+        np.testing.assert_array_equal(_bits(r.numpy()), _bits(r0.numpy()))
+        out = torch.empty(5004)[off:off + 5003]
+        assert emu.dl_dequant_add_f32(out.data_ptr(), x.data_ptr(),
+                                      q.data_ptr(), 5003, wk._f32(s),
+                                      None) == 1
+        np.testing.assert_array_equal(
+            _bits(out.numpy()), _bits(wk.dequant_add_plain(x, q, s).numpy()))

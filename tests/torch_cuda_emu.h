@@ -1,6 +1,7 @@
-// Host emulation of the CUDA features that
-// distlearn_tpu_torch/ops/csrc/flash_attention.cu uses, so that its kernels
-// compile with g++ and run on the CPU (tests/test_torch_flash_emulated.py).
+// Host emulation of the CUDA features that the kernels of
+// distlearn_tpu_torch/ops/csrc/flash_attention.cu and wire_kernels.cu use,
+// so that they compile with g++ and run on the CPU
+// (tests/test_torch_flash_emulated.py, tests/test_torch_wire_kernels.py).
 //
 // Every thread of a block is a std::thread; blocks run one after another.
 // __syncthreads is a barrier over the block, and each warp collective
@@ -12,6 +13,7 @@
 // do, so a tile read before its wait or overwritten while another warp
 // reads it shows up as a wrong result in one of the two modes.
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -22,6 +24,11 @@
 
 #define __global__
 #define __device__
+#define __host__
+#define __grid_constant__
+// a static array in a kernel is shared by every thread of the one block
+// that runs at a time
+#define __shared__ static
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
@@ -31,7 +38,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx, gridDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -39,11 +46,26 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 0 };
 template <typename K>
 cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+// two SMs: grid-stride kernels get few blocks, so few threads here
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 2;
+  return cudaSuccess;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
 
 struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) uint2 { uint32_t x, y; };
+struct alignas(4) char4 { signed char x, y, z, w; };
 
 inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   uint32_t u;
@@ -66,9 +88,36 @@ inline float __uint_as_float(uint32_t u) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+// one rounding each, never contracted into a neighbouring operation
 inline float __fmul_rn(float a, float b) {
-  volatile float r = a * b;  // no contraction into a neighbouring add
+  volatile float r = a * b;
   return r;
+}
+inline float __fadd_rn(float a, float b) {
+  volatile float r = a + b;
+  return r;
+}
+inline float __fsub_rn(float a, float b) {
+  volatile float r = a - b;
+  return r;
+}
+inline float __fdiv_rn(float a, float b) {
+  volatile float r = a / b;
+  return r;
+}
+inline int __float2int_rn(float x) { return (int)std::nearbyint(x); }
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline unsigned max(unsigned a, unsigned b) { return a > b ? a : b; }
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
 }
 
 // the dynamic shared memory of the one block that runs at a time
@@ -104,6 +153,15 @@ inline float __shfl_xor_sync(unsigned, float x, int off) {
   std::memcpy(&y, emu_slot(emu_lane() ^ off), 4);
   emu_warp_sync();
   return y;
+}
+
+inline unsigned __reduce_max_sync(unsigned, unsigned x) {
+  emu_slot(emu_lane())[0] = x;
+  emu_warp_sync();
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m = max(m, (unsigned)emu_slot(l)[0]);
+  emu_warp_sync();
+  return m;
 }
 
 inline void cp_async16(void* dst, const void* src) {
@@ -198,6 +256,7 @@ void emu_launch(Kernel kernel, dim3 grid, int threads, Args... args) {
           ts.emplace_back([&, t] {
             threadIdx = dim3(t);
             blockIdx = dim3(x, y, z);
+            blockDim = dim3(threads);
             gridDim = grid;
             kernel(args...);
             cp_async_wait_all();
