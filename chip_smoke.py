@@ -11,16 +11,19 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (nvidia-smi); float32 everywhere (TF32 off for convolutions and matmuls,
    cuDNN deterministic) for parity and timing alike.
 2. build   — compile every CUDA source of the port (one nvcc each, started
-   together) into the git-ignored build directory; per flash kernel,
-   ptxas's registers and spills (none allowed in the D=64 bfloat16 B5a,
-   B5b and B5c) and the HMMA count of its SASS (``cuobjdump -sass``):
-   non-zero in exactly the tensor-core kernels, the bfloat16 B5a, B5b and
-   B5c.
+   together) into the git-ignored build directory; B1's two 128-bit loads
+   before its first store (``cuobjdump -sass``); per flash kernel, ptxas's
+   registers and spills (none allowed in the D=64 bfloat16 B5a, B5b and
+   B5c) and the HMMA count of its SASS (``cuobjdump -sass``): non-zero in
+   exactly the tensor-core kernels, the bfloat16 B5a, B5b and B5c.
 3. kernels — each kernel against its plain PyTorch version, bit for bit, at
-   the full-width CIFAR-10 bucket and at a ragged length; median times over
-   CUDA events (L2 flushed before each launch) beside the plain version, the
-   one PyTorch call computing the same function where there is one, and the
-   bound (bytes over the card's HBM rate, operations over its FP32 rate).
+   the full-width CIFAR-10 bucket and at a ragged length, aligned and one
+   element in, B1 also at lengths 1, 3 and around four chunks, one launch a
+   call; median times over CUDA events (L2 flushed before each launch)
+   beside the plain version, the one PyTorch call computing the same
+   function where there is one, and the bound (bytes over the card's HBM
+   rate, operations over its FP32 rate); B1 also on the host's clock
+   (flush, synchronize, call, synchronize) beside ``torch.add``.
 4. sgd     — the main path: AllReduceSGD on the full-width convnet
    (dropout 0.5, global batch 256) through ``build_sgd_step`` on a
    single-rank NCCL group, then ``build_sync_step``; the fused-SGD kernel
@@ -32,25 +35,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    bucket per round.  Then fused against plain.
 6. wire    — the AsyncEA int8 codec kernels (B3 amax + quantize with error
    feedback, B4 dequantize-and-add) against their plain versions, bit for
-   bit, at the convnet's 18 leaf sizes and at a ragged, unaligned length,
-   one kernel launch per wrapper call; B4 over all 18 leaves in one call
-   (q cut from one byte frame at unaligned offsets, as the server's are)
-   in one launch, and over more leaves than one launch's table holds in
-   one launch per table; non-finite input raises, a zero leaf launches no
-   quantize; times over the whole 18-leaf delta (B4: one call) and the
+   bit: the one-leaf wrappers at the convnet's 18 leaf sizes and at a
+   ragged, unaligned length, one launch of each per call; B3 over all 18
+   leaves (q cut from one byte frame at unaligned offsets, as the client's
+   encode writes them) in one amax and one quantize launch, over more
+   leaves than one table holds in one of each per table, and with a NaN,
+   +inf or -inf in leaf 5 (leaves 0-4 encoded, 5-17 untouched, the scales
+   raise) or a NaN in leaf 10 of 147 (every later table untouched); B4 likewise in one launch per table; the client's encode on the
+   card against the CPU route (manifest bytes, frame, residuals; with a
+   poisoned leaf both raise alike), with two B3 launches and one
+   synchronize an encode (CUDA runtime calls by torch.profiler);
+   non-finite input raises and writes nothing, a zero leaf gives q = 0, r
+   = x; times over the whole 18-leaf delta (one call each) and the
    largest leaf (conv4) beside the plain versions, the loop of
    ``torch.add(c, q, alpha=s)`` over the leaves (not bit for bit) and the
-   bound.
+   bound, and the whole call on the host's clock.
 7. async trajectory — a serial AsyncEA server and one client with their
    tensors on the card, at the convnet's 18 leaves, 20 int8 and 5 raw
    rounds with a seeded drift: center and client params bit for bit the
    same run on the port's CPU route (B3, B4, the copies and the transport
-   together).
+   together), one launch of each B3 pass and of B4 an int8 round.
 8. async train — the AsyncEA path: the example's roles as threads on the
    card (a serial server, 2 clients, a tester), the full-width CIFAR-10
    convnet, batch 128 per client, tau 4, alpha 0.2, int8, 8 syncs per
    client; 16 syncs applied, 5 tester pushes, finite losses, and the B3/B4
-   launch counts the design implies (B4: one launch per apply).  Prints where a sync's time goes.
+   launch counts the design implies (one amax, one quantize and one B4
+   launch a sync).  Prints where a sync's time goes.
 9. flash   — kernel B5a (causal flash-attention forward) against its plain
    twin and the xla route at the serving shape (B=1, H=16, D=64) for L =
    128, 256, 1024, 2048, at B=4, H=8, D=128, L=1024 and at B=2, H=4, D=32,
@@ -135,6 +145,10 @@ CPU_REF_LOGP_TOL = 1e-3
 TIMING_ITERS = 100
 CIFAR_BUCKET = 4_329_472
 RAGGED = CIFAR_BUCKET - 1021     # not a multiple of 4 or of 1024
+# B1: one block's chunk (1 float4 x 128 threads) and the short and ragged
+# lengths around it
+SGD_CHUNK = 4 * 128
+SGD_SHORT = (1, 3, 4 * SGD_CHUNK - 1, 4 * SGD_CHUNK + 5)
 
 # AsyncEA phases: 2 clients of batch 128 (global 256, as in the SGD phase)
 ASYNC_CLIENTS, ASYNC_BATCH, ASYNC_TAU, ASYNC_ALPHA = 2, 128, 4, 0.2
@@ -142,6 +156,7 @@ ASYNC_SYNCS_PER_CLIENT, ASYNC_TEST_TIME = 8, 4
 TRAJ_ROUNDS = (("int8", 20), ("raw", 5))
 CONVNET_LEAVES, CONVNET_PARAMS, CONV4 = 18, 4_328_970, 3_276_800
 RAGGED_LEAF = CONV4 - 1021               # not a multiple of 4
+B3_SENTINEL_Q, B3_SENTINEL_R = 0x55, -7.5  # what B3 must leave unwritten
 ROLE_TIMEOUT_S = 300
 
 # Card rates for the bound (NVIDIA's H100 and H200 SXM data sheets): HBM
@@ -380,6 +395,29 @@ def sass_hmma(lib: str) -> dict:
     return counts
 
 
+def sass_loads_before_store(lib: str, key: str) -> dict:
+    """{kernel: 128-bit global loads (LDG.E.128, LDG.E.EF.128, ...) before
+    its first global store} for the kernels of ``lib`` whose mangled name
+    holds ``key``, from ``cuobjdump -sass``."""
+    from distlearn_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-500:]}")
+    counts = {}
+    for part in out.stdout.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if key not in name:
+            continue
+        n = 0
+        for line in part.splitlines():
+            if "STG" in line:
+                break
+            n += "LDG" in line and ".128" in line
+        counts[name] = n
+    return counts
+
+
 def phase_build():
     from distlearn_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -404,6 +442,15 @@ def phase_build():
             check(label in info and info[label].get("spill") == (0, 0),
                   f"{label}: ptxas reports spills or no entry: "
                   f"{info.get(label)}")
+    # B1's design issues both loads of a thread (a float4 of p and one of
+    # g) before its store
+    order = sass_loads_before_store(
+        str(_build.library_path("fused_update.cu")), "sgd_chunk")
+    log(f"[build] B1 (sgd_chunk): 128-bit loads before the first store "
+        f"(cuobjdump -sass): {order}")
+    check(list(order.values()) == [2],
+          f"B1: expected one sgd_chunk kernel with both 128-bit loads "
+          f"before its first store, found {order}")
     hmma = sass_hmma(str(_build.library_path("flash_attention.cu")))
     log("[build] HMMA instructions per flash kernel (cuobjdump -sass): "
         + ", ".join(f"{k} {n}" for k, n in sorted(hmma.items())))
@@ -436,6 +483,22 @@ def time_ms(torch, fn, flush, iters=TIMING_ITERS):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def host_ms(torch, fn, flush, iters=TIMING_ITERS):
+    """Median milliseconds of one whole call of ``fn`` on the host's clock
+    over ``iters`` calls: flush the L2, synchronize, start the clock, call,
+    synchronize.  Unlike :func:`time_ms`, the wrapper's host time cannot
+    hide behind the flush still running on the card."""
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def max_abs(torch, a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -447,13 +510,17 @@ def phase_kernels(torch, card):
     rand = lambda n: torch.randn(n, generator=gen, device=dev)
     lr, alpha = 0.1, EA_ALPHA
     errs = {"fused_sgd": 0.0, "fused_elastic": 0.0}
-    for n in (CIFAR_BUCKET, RAGGED):
+    for n in (CIFAR_BUCKET, RAGGED) + SGD_SHORT:
         p, g, c = rand(n + 1), rand(n + 1), rand(n + 1)
         # the aligned buckets, and views one element in (no 16-byte
         # alignment: the kernels' scalar path)
         for pv, gv, cv in ((p[:n], g[:n], c[:n]), (p[1:], g[1:], c[1:])):
+            before = fu.fused_sgd.launches
             out, ref = fu.fused_sgd(pv, gv, lr), fu.sgd_plain(pv, gv, lr)
             torch.cuda.synchronize()
+            check(fu.fused_sgd.launches == before + 1,
+                  f"fused_sgd at n={n} launched "
+                  f"{fu.fused_sgd.launches - before} kernels, expected 1")
             check(torch.equal(out, ref),
                   f"fused_sgd differs from sgd_plain at n={n}: max abs "
                   f"{max_abs(torch, out, ref)}")
@@ -467,8 +534,9 @@ def phase_kernels(torch, card):
             errs["fused_elastic"] = max(errs["fused_elastic"],
                                         max_abs(torch, np_, rp),
                                         max_abs(torch, d, rd))
-    log(f"[kernels] bitwise equal to the plain versions at n={CIFAR_BUCKET} "
-        f"and n={RAGGED}, aligned and unaligned")
+    log(f"[kernels] bitwise equal to the plain versions at n={CIFAR_BUCKET}, "
+        f"n={RAGGED} and n in {SGD_SHORT}, aligned and unaligned; B1 one "
+        f"launch per call")
 
     rate, part = hbm_rate(card)
     n = CIFAR_BUCKET
@@ -494,12 +562,18 @@ def phase_kernels(torch, card):
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "max_abs_err": errs[name],
         }
-        log(f"[kernels] {name} n={n}: {row['ms']:.4f} ms | plain "
-            f"{row['plain_ms']:.4f} ms | library ({note}) "
-            f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} ms"
-            f" | bound {row['bound_ms']:.4f} ms ({bytes_moved / 1e6:.1f} MB at "
+        log(f"[kernels] {name} n={n}: {row['ms']:.5f} ms | plain "
+            f"{row['plain_ms']:.5f} ms | library ({note}) "
+            f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 5)} ms"
+            f" | bound {row['bound_ms']:.5f} ms ({bytes_moved / 1e6:.1f} MB at "
             f"{rate / 1e12:.2f} TB/s, {part}) | {bytes_moved / row['ms'] / 1e6:.0f} "
             f"GB/s achieved, {row['bound_ms'] / row['ms']:.1%} of bound")
+        if name == "fused_sgd":
+            # the whole call on the host's clock, beside the library's
+            host = (host_ms(torch, kern, flush), host_ms(torch, library, flush))
+            log(f"[kernels] fused_sgd whole call on the host clock (flush, "
+                f"synchronize, call, synchronize; median of {TIMING_ITERS}): "
+                f"{host[0]:.5f} ms | torch.add {host[1]:.5f} ms")
         rows.append((name, row))
     del flush
     return dict(rows)
@@ -532,8 +606,7 @@ def cifar_batches(torch, n_batches, batch, seed=0):
 KERNEL_CLASSES = (            # (class, substrings of a kernel's name)
     ("convolution", ("xmma", "implicit_gemm", "cudnn", "conv", "winograd")),
     ("nccl", ("nccl",)),
-    ("fused update", ("sgd_vec4", "sgd_scalar", "elastic_vec4",
-                      "elastic_scalar")),
+    ("fused update", ("sgd_chunk", "elastic_vec4", "elastic_scalar")),
     ("copy/cat", ("CatArrayBatchedCopy", "copy")),
 )
 
@@ -727,7 +800,53 @@ def convnet_shapes() -> list[tuple]:
             tree_leaves(cifar_convnet().init(0, device="cpu")[0])]
 
 
+def b3_inputs(torch, gen, dev, sizes, poison=None, bad=float("nan")):
+    """B3's inputs on the card: float32 leaves of ``sizes`` (leaf
+    ``poison`` holding ``bad`` at its last element), and a maker of fresh
+    outputs: q windows cut from one byte frame at the offsets a packed
+    frame gives them (the first at byte 1: none 4-byte aligned by design)
+    and r leaves, both filled with sentinels a pass must not touch where
+    it does not write."""
+    xs = [torch.randn(n, generator=gen, device=dev) * 3 for n in sizes]
+    if poison is not None:
+        xs[poison][-1] = bad
+    offs = [1 + sum(sizes[:i]) for i in range(len(sizes))]
+
+    def outputs():
+        frame = torch.full((sum(sizes) + 1,), B3_SENTINEL_Q, dtype=torch.int8,
+                           device=dev)
+        qs = [frame[o:o + n] for o, n in zip(offs, sizes)]
+        rs = [torch.full((n,), B3_SENTINEL_R, device=dev) for n in sizes]
+        return frame, qs, rs
+    return xs, outputs
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bit for bit (-0.0 is not 0.0, a NaN equals its own bits)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def runtime_calls(torch, fn) -> dict:
+    """{CUDA runtime call: count} that ``fn`` makes, from torch.profiler:
+    the calls of a profiled ``fn`` less those of a profiled no-op (the
+    profiler's own, such as its closing device synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def calls(f):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            f()
+        return {e.key: e.count for e in prof.key_averages()
+                if e.key.startswith("cuda")}
+    base, got = calls(lambda: None), calls(fn)
+    return {k: n - base.get(k, 0) for k, n in got.items()
+            if n != base.get(k, 0)}
+
+
 def phase_wire_kernels(torch, card):
+    from distlearn_tpu_torch.comm import wire
     from distlearn_tpu_torch.ops import wire_kernels as wk
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -784,10 +903,10 @@ def phase_wire_kernels(torch, card):
                                       max_abs(torch, r, r0))
             errs["dequant_add"] = max(errs["dequant_add"],
                                       max_abs(torch, o, o0))
-    log(f"[wire] B3 (amax + quantize_ef) and B4 (dequant_add) bitwise equal "
-        f"to their plain versions at the {len(sizes)} convnet leaf sizes and "
-        f"n={RAGGED_LEAF}, aligned and unaligned, one kernel launch per call;"
-        f" torch.add(c, q, alpha=s) "
+    log(f"[wire] B3 (amax + quantize_ef, one leaf) and B4 (dequant_add) "
+        f"bitwise equal to their plain versions at the {len(sizes)} convnet "
+        f"leaf sizes and n={RAGGED_LEAF}, aligned and unaligned, one kernel "
+        f"launch per call of each; torch.add(c, q, alpha=s) "
         f"{'is' if lib_equal else 'is NOT'} bitwise equal to B4")
 
     # B4 over a list of leaves, as the server applies a delta: the 18 leaves
@@ -824,23 +943,147 @@ def phase_wire_kernels(torch, card):
             f"(table capacity {wk.LEAF_CAPACITY})")
         del frame, qs, cs, want, got
 
+    # B3 over a list of leaves, as the client encodes a delta: the 18
+    # leaves and the ragged one, then more leaves than one table holds (a
+    # zero leaf and short ones among them), q written into windows of one
+    # byte frame at unaligned offsets; one amax and one quantize launch per
+    # table, the scale computed on the card; then a NaN in leaf 10 of the
+    # 147 (the first table: the guard must stop every later table's blocks
+    # too), and a NaN, +inf or -inf in leaf 5 of the 18
+    for leaf_sizes, poison, bad in (
+            (sizes + [RAGGED_LEAF], None, None),
+            ((sizes + [RAGGED_LEAF, 1, 3]) * 7, None, None),
+            ((sizes + [RAGGED_LEAF, 1, 3]) * 7, 10, float("nan")),
+            (sizes, 5, float("nan")), (sizes, 5, float("inf")),
+            (sizes, 5, float("-inf"))):
+        xs, outputs = b3_inputs(torch, gen, dev, leaf_sizes, poison, bad)
+        if poison is None and len(leaf_sizes) > wk.LEAF_CAPACITY:
+            xs[3].zero_()
+            xs[3][::2] = -0.0
+        (frame, qs, rs), (tframe, tqs, trs) = outputs(), outputs()
+        before = (wk.amax_leaves_cuda.launches,
+                  wk.quantize_ef_leaves_cuda.launches)
+        _, slots, _ = wk.quantize_ef_leaves_cuda(xs, qs, rs)
+        launches = (wk.amax_leaves_cuda.launches - before[0],
+                    wk.quantize_ef_leaves_cuda.launches - before[1])
+        amaxes = wk.quantize_ef_leaves_plain(xs, tqs, trs)
+        torch.cuda.synchronize()
+        slots = slots.cpu()
+        tables = -(-len(leaf_sizes) // wk.LEAF_CAPACITY)
+        what = (f"B3 over {len(leaf_sizes)} leaves" + (
+            "" if poison is None else f" with {bad} in leaf {poison}"))
+        check(launches == (tables, tables),
+              f"{what}: (amax, quantize) launches {launches}, expected "
+              f"{tables} of each")
+        check(torch.equal(slots, wk.amax_bits_plain(xs)),
+              f"{what}: amax slots differ from amax_bits_plain")
+        check(wk.first_nonfinite(slots) == wk.first_nonfinite(amaxes) ==
+              (len(leaf_sizes) if poison is None else poison),
+              f"{what}: first non-finite leaf {wk.first_nonfinite(slots)}")
+        check(torch.equal(frame, tframe) and all(
+            bits_equal(torch, r, t) for r, t in zip(rs, trs)),
+            f"{what}: q or r differ from quantize_ef_leaves_plain: max abs "
+            f"{max(max_abs(torch, r, t) for r, t in zip(rs, trs))}")
+        if poison is None:
+            check(wk.scales_of(slots) == wk.scales_of(amaxes),
+                  f"{what}: scales differ from the plain route's")
+            errs["quantize_ef"] = max(
+                errs["quantize_ef"], max_abs(torch, frame, tframe),
+                max(max_abs(torch, r, t) for r, t in zip(rs, trs)))
+        else:
+            check(all((q == B3_SENTINEL_Q).all() and (r == B3_SENTINEL_R)
+                      .all() for q, r in zip(qs[poison:], rs[poison:])),
+                  f"{what}: a leaf from {poison} on was written")
+            try:
+                wk.scales_of(slots)
+            except ValueError:
+                pass
+            else:
+                raise SmokeFailure(f"{what}: the host took the scales")
+        log(f"[wire] {what}, q at unaligned offsets of one byte frame: q, r "
+            f"and the amax slots bitwise equal to quantize_ef_leaves_plain; "
+            f"(amax, quantize) launches {launches}" + (
+                "" if poison is None else
+                f"; leaves {poison}-{len(leaf_sizes) - 1} untouched, the "
+                "scales raise ValueError"))
+        del xs, frame, qs, rs, tframe, tqs, trs
+
+    # the client's encode on the card against the port's CPU route: the
+    # manifest's bytes, the frame and the residuals bit for bit; one
+    # synchronize and two B3 launches an encode; with a poisoned leaf 5,
+    # both raise and leave the same residuals
+    leaves = [torch.randn(sh, generator=gen, device=dev) * 0.01
+              for sh in shapes] + [torch.arange(17, dtype=torch.int32,
+                                                device=dev)]
+    held = [torch.full(x.shape, B3_SENTINEL_R, device=dev) for x in leaves]
+    fb = wire.FrameBuffer(pinned=True)
+    res = [h.clone() for h in held]
+    wk.encode_ef_into(leaves, res, "int8", out=fb)    # allocates the stage
+    reset_wire_counts(wk)
+    calls = runtime_calls(torch, lambda: wk.encode_ef_into(leaves, res, "int8",
+                                                           out=fb))
+    launches = (wk.amax_leaves_cuda.launches,
+                wk.quantize_ef_leaves_cuda.launches)
+    syncs = sum(n for k, n in calls.items() if "Synchronize" in k or (
+        k.startswith("cudaMemcpy") and "Async" not in k))
+    log(f"[wire] one encode of the 18 leaves and a raw one: (amax, quantize) "
+        f"launches {launches}; CUDA runtime calls (torch.profiler): "
+        + ", ".join(f"{k} {n}" for k, n in sorted(calls.items())))
+    check(launches == (1, 1), f"an encode launched (amax, quantize) "
+          f"{launches}, expected one of each")
+    check(calls, "torch.profiler recorded no CUDA runtime call")
+    check(syncs == 1, f"an encode synchronized {syncs} times, expected once")
+    for poison in (None, 5):
+        xs = [x.clone() for x in leaves]
+        if poison is not None:
+            xs[poison][-1] = float("nan")
+        out = {}
+        for route in ("card", "cpu"):
+            tx = xs if route == "card" else [x.cpu() for x in xs]
+            rr = [h.clone() if route == "card" else h.cpu() for h in held]
+            try:
+                payload = wk.encode_ef_into(tx, rr, "int8", out=(
+                    wire.FrameBuffer(pinned=True) if route == "card" else None))
+                out[route] = (json.dumps(payload.manifest),
+                              bytes(payload.frame), [r.cpu() for r in rr])
+            except ValueError:
+                out[route] = (None, None, [r.cpu() for r in rr])
+        (m_card, f_card, r_card), (m_cpu, f_cpu, r_cpu) = \
+            out["card"], out["cpu"]
+        check(m_card == m_cpu and f_card == f_cpu and all(
+            bits_equal(torch, a, b) for a, b in zip(r_card, r_cpu)),
+            "encode_ef_into on the card differs from the CPU route" + (
+                "" if poison is None else f" with a NaN in leaf {poison}"))
+        check((m_card is None) == (poison is not None),
+              f"encode_ef_into with poison {poison}: raised "
+              f"{m_card is None}")
+    log("[wire] encode_ef_into of the 18 leaves and a raw one on the card: "
+        "the manifest's bytes, the frame and the residuals equal the CPU "
+        "route's; with a NaN in leaf 5 both raise ValueError and leave the "
+        f"same residuals (leaves 0-4 encoded); {syncs} synchronize an encode")
+
     x = torch.ones(CONV4, device=dev)
     for bad in (float("nan"), float("inf"), float("-inf")):
         x[-1] = bad
+        q = torch.full((CONV4,), B3_SENTINEL_Q, dtype=torch.int8, device=dev)
+        r = torch.full((CONV4,), B3_SENTINEL_R, device=dev)
         try:
-            wk.quantize_ef_cuda(x)
+            wk.quantize_ef_cuda(x, q=q, r=r)
         except ValueError:
+            check(bool((q == B3_SENTINEL_Q).all() and (r == B3_SENTINEL_R)
+                       .all()), f"quantize_ef_cuda wrote a leaf holding {bad}")
             continue
         raise SmokeFailure(f"quantize_ef_cuda accepted a {bad} at the last "
                            f"element of a {CONV4}-element leaf")
-    before = wk.quantize_ef_cuda.launches
-    q, s, r = wk.quantize_ef_cuda(torch.zeros(CONV4, device=dev))
+    zero = torch.zeros(CONV4, device=dev)
+    zero[::3] = -0.0
+    q, s, r = wk.quantize_ef_cuda(zero)
     torch.cuda.synchronize()
-    check(s == 0.0 and wk.quantize_ef_cuda.launches == before
-          and not q.any() and not r.any(),
-          "a zero leaf launched the quantize kernel or carried a value")
-    log("[wire] nan, +inf and -inf at the last element raise ValueError; a "
-        "zero leaf takes no quantize launch")
+    check(s == 0.0 and not q.any() and bits_equal(torch, r, zero),
+          "a zero leaf: q not 0 or r not the leaf bit for bit")
+    log("[wire] nan, +inf and -inf at the last element raise ValueError and "
+        "write nothing; a zero leaf gives q = 0 and r = x bit for bit "
+        "(-0.0 kept)")
 
     # times: the whole 18-leaf delta (what a sync encodes and applies) and
     # the conv4 leaf alone
@@ -850,19 +1093,20 @@ def phase_wire_kernels(torch, card):
     centers = [torch.randn(sh, generator=gen, device=dev) for sh in shapes]
     qs = [torch.empty(sh, dtype=torch.int8, device=dev) for sh in shapes]
     rs = [torch.empty(sh, device=dev) for sh in shapes]
-    scales = [wk.quantize_ef_cuda(d, q=q, r=r)[1]
-              for d, q, r in zip(leaves, qs, rs)]
+    scales = wk.scales_of(wk.quantize_ef_leaves_cuda(leaves, qs, rs)[1].cpu())
     big = sizes.index(CONV4)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
-    def b3(idx):
-        amaxes = wk.amax_cuda([leaves[i] for i in idx])
-        for i, a in zip(idx, amaxes):
-            wk.quantize_ef_cuda(leaves[i], a, q=qs[i], r=rs[i])
+    def b3(idx):    # one call over the leaves and the scales' read back
+        _, slots, _ = wk.quantize_ef_leaves_cuda(
+            [leaves[i] for i in idx], [qs[i] for i in idx],
+            [rs[i] for i in idx])
+        wk.scales_of(slots.cpu())
 
     def b3_plain(idx):
-        for i in idx:
-            wk.quantize_ef_plain(leaves[i])
+        wk.quantize_ef_leaves_plain([leaves[i] for i in idx],
+                                    [qs[i] for i in idx],
+                                    [rs[i] for i in idx])
 
     def b4(idx):    # one call over the leaves, as the server's apply
         cl = [centers[i] for i in idx]
@@ -902,25 +1146,31 @@ def phase_wire_kernels(torch, card):
                 "max_abs_err": errs[name],
             }
             lib_txt = "null" if row["library_ms"] is None \
-                else f"{row['library_ms']:.4f}"
+                else f"{row['library_ms']:.5f}"
             log(f"[wire] {name} {label} (n={n}, {len(idx)} leaves): "
-                f"{row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
-                f"library ({note}) {lib_txt} ms | bound {row['bound_ms']:.4f}"
+                f"{row['ms']:.5f} ms | plain {row['plain_ms']:.5f} ms | "
+                f"library ({note}) {lib_txt} ms | bound {row['bound_ms']:.5f}"
                 f" ms ({per_elem_bytes * n / 1e6:.1f} MB at "
                 f"{rate / 1e12:.2f} TB/s, {part}) | {row['bound_ms'] / row['ms']:.1%}"
                 " of bound")
             if label == "whole delta":
                 rows[name] = row
+                host = host_ms(torch, lambda: kern(idx), flush)
+                lib_host = "" if library is None else (
+                    f" | library {host_ms(torch, lambda: library(idx), flush):.5f} ms")
+                log(f"[wire] {name} whole delta on the host clock (flush, "
+                    f"synchronize, call, synchronize; median of "
+                    f"{TIMING_ITERS}): {host:.5f} ms{lib_host}")
                 log(f"[wire] {name} whole delta: kernels busy "
-                    f"{device_ms(torch, lambda: kern(idx)):.4f} ms per call "
+                    f"{device_ms(torch, lambda: kern(idx)):.5f} ms per call "
                     "(torch.profiler, device time of this file's kernels "
-                    "only); the rest of the call is host time between "
-                    "launches")
+                    "only, L2 warm: the calls repeat unflushed); the rest of "
+                    "the call is host time between launches")
     del flush
     return rows
 
 
-WIRE_KERNEL_NAMES = ("amax_abs", "quant_ef", "dequant_add")
+WIRE_KERNEL_NAMES = ("amax_leaves", "quant_ef_leaves", "dequant_add")
 
 
 def device_ms(torch, fn, calls=10):
@@ -947,10 +1197,18 @@ def device_ms(torch, fn, calls=10):
 # ---------------------------------------------------------------------------
 
 def reset_wire_counts(wk):
-    wk.amax_cuda.launches = 0
-    wk.quantize_ef_cuda.launches = 0
-    wk.dequant_add_cuda.launches = 0
-    wk.dequant_add_leaves_cuda.launches = 0
+    for fn in (wk.amax_cuda, wk.amax_leaves_cuda, wk.quantize_ef_cuda,
+               wk.quantize_ef_leaves_cuda, wk.dequant_add_cuda,
+               wk.dequant_add_leaves_cuda):
+        fn.launches = 0
+
+
+def b3_launches(wk) -> tuple[int, int]:
+    """B3's (amax, quantize) launches on the client's path (the list
+    wrappers'); a launch of a one-leaf wrapper there fails the run."""
+    check(wk.amax_cuda.launches == wk.quantize_ef_cuda.launches == 0,
+          "the client encoded a leaf through a one-leaf B3 wrapper")
+    return wk.amax_leaves_cuda.launches, wk.quantize_ef_leaves_cuda.launches
 
 
 def b4_launches(wk) -> int:
@@ -1011,8 +1269,7 @@ def phase_async_trajectory(torch):
         t0 = time.perf_counter()
         card = run_async_pair(torch, "cuda", codec, rounds)
         t_card = time.perf_counter() - t0
-        launches = (wk.amax_cuda.launches, wk.quantize_ef_cuda.launches,
-                    b4_launches(wk))
+        launches = (*b3_launches(wk), b4_launches(wk))
         t0 = time.perf_counter()
         cpu = run_async_pair(torch, "cpu", codec, rounds)
         t_cpu = time.perf_counter() - t0
@@ -1024,10 +1281,10 @@ def phase_async_trajectory(torch):
                 f"from the CPU route's: max abs "
                 f"{max(max_abs(torch, x, y) for x, y in zip(a, b))}")
         if codec == "int8":
-            check(min(launches) > 0 and launches[2] == rounds,
+            check(launches == (rounds, rounds, rounds),
                   f"{rounds} int8 rounds on the card launched (amax, "
-                  f"quantize, dequant_add) = {launches}; expected one "
-                  "dequant_add launch per apply")
+                  f"quantize, dequant_add) = {launches}; expected one of "
+                  "each per sync")
         log(f"[async] {rounds} {codec} rounds, card against the CPU route: "
             f"center and client params bitwise equal (18 leaves); card "
             f"{t_card:.2f} s, CPU {t_cpu:.2f} s; (amax, quantize, "
@@ -1044,7 +1301,6 @@ def phase_async_train(torch):
     from distlearn_tpu_torch.obs import trace as obs_trace
     from distlearn_tpu_torch.ops import fused_update as fu
     from distlearn_tpu_torch.ops import wire_kernels as wk
-    from distlearn_tpu_torch.parallel import async_ea
 
     steps = ASYNC_SYNCS_PER_CLIENT * ASYNC_TAU
     syncs = ASYNC_CLIENTS * ASYNC_SYNCS_PER_CLIENT
@@ -1063,35 +1319,20 @@ def phase_async_train(torch):
         return lambda: out.__setitem__(name, easgd.ROLES[kind](
             easgd.parse_role(kind, common + extra)))
 
-    # count the int8 leaves the server receives with a zero scale: the
-    # design launches no quantize for those
-    zero_scales = [0]
-    apply = async_ea.AsyncEAServer._apply_delta
-
-    def counting_apply(self, payload):
-        zero_scales[0] += sum(e.get("scale") == 0.0
-                              for e in payload.manifest["leaves"])
-        return apply(self, payload)
-
-    async_ea.AsyncEAServer._apply_delta = counting_apply
     obs_trace.clear()
     torch.cuda.synchronize()
     reset_wire_counts(wk)
     reset_counts(fu)
     t0 = time.perf_counter()
-    try:
-        run_threads(role("server", "server", ["--tester"]),
-                    *[role(f"client{i}", "client", ["--nodeIndex", str(i)])
-                      for i in range(1, ASYNC_CLIENTS + 1)],
-                    role("tester", "tester", ["--numTests", str(tests)]))
-    finally:
-        async_ea.AsyncEAServer._apply_delta = apply
+    run_threads(role("server", "server", ["--tester"]),
+                *[role(f"client{i}", "client", ["--nodeIndex", str(i)])
+                  for i in range(1, ASYNC_CLIENTS + 1)],
+                role("tester", "tester", ["--numTests", str(tests)]))
     wall = time.perf_counter() - t0
-    launches = {"amax": wk.amax_cuda.launches,
-                "quantize_ef": wk.quantize_ef_cuda.launches,
+    amax, quant = b3_launches(wk)
+    launches = {"amax": amax, "quantize_ef": quant,
                 "dequant_add": b4_launches(wk)}
 
-    leaf_syncs = syncs * CONVNET_LEAVES
     check(out["server"] == {"served": syncs, "tests": tests},
           f"server: {out['server']}, expected {syncs} syncs, {tests} pushes")
     check(len(out["tester"]["rounds"]) == tests,
@@ -1104,13 +1345,9 @@ def phase_async_train(torch):
               "steps")
         losses += c["losses"]
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
-    check(launches == {"amax": leaf_syncs,
-                       "quantize_ef": leaf_syncs - zero_scales[0],
+    check(launches == {"amax": syncs, "quantize_ef": syncs,
                        "dequant_add": syncs},
-          f"launches {launches}: expected amax {leaf_syncs} ({syncs} syncs "
-          f"x {CONVNET_LEAVES} leaves), quantize_ef {leaf_syncs} - "
-          f"{zero_scales[0]} zero-scale leaves, dequant_add {syncs} (one a "
-          "sync)")
+          f"launches {launches}: expected {syncs} of each (one a sync)")
     check(fu.fused_sgd.launches == 0 and fu.fused_elastic.launches == 0,
           "a fused update kernel launched on the AsyncEA path")
 
@@ -1132,13 +1369,13 @@ def phase_async_train(torch):
         f" losses {losses[0]:.4f} -> {losses[-1]:.4f} (all finite); test "
         f"error {rounds[0]['test_error']:.4f} -> {rounds[-1]['test_error']:.4f}")
     log(f"[async] launches on the path: amax {launches['amax']}, "
-        f"quantize_ef {launches['quantize_ef']} ({zero_scales[0]} zero-scale "
-        f"leaves), dequant_add {launches['dequant_add']} (one per apply)")
+        f"quantize_ef {launches['quantize_ef']}, dequant_add "
+        f"{launches['dequant_add']} (one of each per sync)")
     log(f"[async] local step p50 {p50(step_ms):.3f} ms; client sync p50 "
         f"{p50(sync_ms):.3f} ms = center fetch {parts['async_ea.fetch_center']:.3f}"
         f" + delta {parts['async_ea.delta']:.3f} + encode (B3 + D2H) "
-        f"{parts['async_ea.encode']:.3f} (of which D2H "
-        f"{parts['wire_kernels.frame_d2h']:.3f}) + push "
+        f"{parts['async_ea.encode']:.3f} (of which the wait for B3 and the "
+        f"frame's D2H {parts['wire_kernels.frame_d2h']:.3f}) + push "
         f"{parts['async_ea.push_delta']:.3f} (p50 of each part)")
     log(f"[async] server: apply (H2D + B4) p50 {parts['async_ea.apply']:.3f}"
         f" ms, center D2H p50 {parts['async_ea.center_d2h']:.3f} ms, "

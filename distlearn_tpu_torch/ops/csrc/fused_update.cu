@@ -14,15 +14,25 @@
 // (read p and c, write p' and d), 69.3 MB.  At the H100 SXM's 3.35 TB/s that
 // is 15.5 us and 20.7 us.
 //
-// Design: the TPU kernel walks (256, 128) VMEM blocks in a sequential grid;
-// here every thread owns 4 consecutive elements and moves them with one
-// 16-byte load or store per array (float4), and a grid-stride loop covers
-// any length.  The tail of a length that is not a multiple of 4, and buffers
-// that are not 16-byte aligned, take a scalar path.  The arithmetic uses
-// __fmul_rn/__fsub_rn, which nvcc never contracts into an FMA, so each kernel
-// equals its plain PyTorch version (two separate rounded ops) bit for bit.
-// Each function launches on the caller's stream, does not synchronise, and
-// returns cudaGetLastError() so a refused launch is reported.
+// Design: the TPU kernel walks (256, 128) VMEM blocks in a sequential grid.
+// B1 (redesigned): each block of 128 threads owns one contiguous chunk of
+// 512 elements and the grid is ceil(n / 512), no grid-stride round.  Each
+// thread issues both its loads (one float4 of p and one of g, streaming
+// hints: each byte is touched once) before it computes or stores; the
+// grid-stride design before it waited out four or five DRAM round trips in
+// sequence a thread, the last round almost empty.  This shape was the
+// fastest of (1, 2, 4) float4 a thread x (128, 256) threads a block on the
+// convnet's bucket (PERF.md keeps the others' times).  Buffers that are not
+// 16-byte aligned, and the tail of a length that is not a multiple of 4,
+// take a scalar loop in the same kernel: one launch per call whatever the
+// alignment.  B2 keeps the first design: every thread owns 4 consecutive
+// elements a round (float4) and a grid-stride loop covers any length.  The
+// arithmetic uses __fmul_rn/__fsub_rn, which nvcc never contracts into an
+// FMA, so each kernel equals its plain PyTorch version (two separate
+// rounded ops) bit for bit.  Each function launches on the caller's
+// stream, does not synchronise, and reports a refused launch
+// (dl_fused_sgd_f32: the number of kernels launched, or -cudaError;
+// dl_fused_elastic_f32: cudaGetLastError()).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,25 +45,35 @@ __device__ __forceinline__ float sgd1(float p, float g, float lr) {
   return __fsub_rn(p, __fmul_rn(lr, g));
 }
 
-__global__ void sgd_vec4(float4* __restrict__ out, const float4* __restrict__ p,
-                         const float4* __restrict__ g, int64_t n4, float lr) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n4;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float4 a = p[i], b = g[i], r;
-    r.x = sgd1(a.x, b.x, lr);
-    r.y = sgd1(a.y, b.y, lr);
-    r.z = sgd1(a.z, b.z, lr);
-    r.w = sgd1(a.w, b.w, lr);
-    out[i] = r;
-  }
-}
+constexpr int kSgdBlock = 128;
+constexpr int64_t kSgdChunk = 4 * kSgdBlock;
 
-__global__ void sgd_scalar(float* __restrict__ out, const float* __restrict__ p,
-                           const float* __restrict__ g, int64_t begin,
-                           int64_t n, float lr) {
-  for (int64_t i = begin + blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       i < n; i += (int64_t)gridDim.x * blockDim.x)
-    out[i] = sgd1(p[i], g[i], lr);
+// B1 over one chunk a block: [blockIdx.x * kSgdChunk, + kSgdChunk) cut at
+// n.  vec: out, p and g are all 16-byte aligned (the host decides, for
+// every block).
+__global__ void __launch_bounds__(kSgdBlock)
+    sgd_chunk(float* __restrict__ out, const float* __restrict__ p,
+              const float* __restrict__ g, int64_t n, float lr, bool vec) {
+  const int64_t begin = blockIdx.x * kSgdChunk;
+  const int64_t end = begin + kSgdChunk < n ? begin + kSgdChunk : n;
+  int64_t scalar = begin;
+  if (vec) {
+    const int64_t end4 = end & ~(int64_t)3;
+    const int64_t e = begin + 4 * (int64_t)threadIdx.x;
+    if (e < end4) {
+      const float4 a = __ldcs(reinterpret_cast<const float4*>(p + e));
+      const float4 b = __ldcs(reinterpret_cast<const float4*>(g + e));
+      float4 r;
+      r.x = sgd1(a.x, b.x, lr);
+      r.y = sgd1(a.y, b.y, lr);
+      r.z = sgd1(a.z, b.z, lr);
+      r.w = sgd1(a.w, b.w, lr);
+      __stcs(reinterpret_cast<float4*>(out + e), r);
+    }
+    scalar = end4;  // below end only in the last block
+  }
+  for (int64_t i = scalar + threadIdx.x; i < end; i += kSgdBlock)
+    __stcs(out + i, sgd1(__ldcs(p + i), __ldcs(g + i), lr));
 }
 
 __device__ __forceinline__ void elastic1(float p, float c, float alpha,
@@ -113,21 +133,15 @@ bool aligned16(const void* a, const void* b, const void* c,
 
 }  // namespace
 
+// B1: out = p - lr * g over n elements in one launch; returns the number
+// of kernels launched (1, or 0 for n = 0) or -cudaError.
 extern "C" int dl_fused_sgd_f32(float* out, const float* p, const float* g,
                                 int64_t n, float lr, cudaStream_t stream) {
-  int64_t begin = 0;
-  if (aligned16(out, p, g)) {
-    int64_t n4 = n / 4;
-    if (n4 > 0)
-      sgd_vec4<<<grid_for(n4), kThreads, 0, stream>>>(
-          reinterpret_cast<float4*>(out), reinterpret_cast<const float4*>(p),
-          reinterpret_cast<const float4*>(g), n4, lr);
-    begin = n4 * 4;
-  }
-  if (begin < n)
-    sgd_scalar<<<grid_for(n - begin), kThreads, 0, stream>>>(out, p, g, begin,
-                                                             n, lr);
-  return (int)cudaGetLastError();
+  if (n <= 0) return 0;
+  sgd_chunk<<<(unsigned)((n + kSgdChunk - 1) / kSgdChunk), kSgdBlock, 0,
+              stream>>>(out, p, g, n, lr, aligned16(out, p, g));
+  const cudaError_t err = cudaGetLastError();
+  return err == cudaSuccess ? 1 : -(int)err;
 }
 
 extern "C" int dl_fused_elastic_f32(float* new_p, float* delta, const float* p,

@@ -102,13 +102,13 @@ def fused_sgd(p_flat: torch.Tensor, g_flat: torch.Tensor,
         return sgd_plain(p_flat, g_flat, lr)
     n = _check("fused_sgd", p_flat, g_flat)
     out = torch.empty_like(p_flat)
-    if n:
-        rc = _kernel("dl_fused_sgd_f32")(
-            out.data_ptr(), p_flat.data_ptr(), g_flat.data_ptr(), n,
-            cast_scalar(lr, torch.float32),
-            torch.cuda.current_stream(p_flat.device).cuda_stream)
-        _raise_on(rc, "fused_sgd")
-        fused_sgd.launches += 1
+    # ctypes rounds lr to float32 to nearest even, as cast_scalar does
+    rc = _kernel("dl_fused_sgd_f32")(
+        out.data_ptr(), p_flat.data_ptr(), g_flat.data_ptr(), n, lr,
+        torch.cuda.current_stream(p_flat.device).cuda_stream)
+    if rc < 0:                          # rc: kernels launched, or -error
+        _raise_on(-rc, "fused_sgd")
+    fused_sgd.launches += rc
     return out
 
 

@@ -14,34 +14,40 @@ Two routes, chosen by what the caller holds:
 * **Tensor route** (torch tensors): the two Pallas TPU kernels become
   hand-written CUDA kernels for Hopper (``ops/csrc/wire_kernels.cu``):
 
-  - B3 :func:`quantize_ef_cuda` — ``q = rint(d / s)`` as int8 and
-    ``r = d - f32(q) * s``, after :func:`amax_cuda`'s ``max|d|`` (replaces
-    ``quantize_ef_jax``, ``_amax_call`` and ``_quant_ef_call``);
+  - B3 :func:`quantize_ef_leaves_cuda` — ``max|d|`` of every leaf of a
+    delta (:func:`amax_leaves_cuda`), then ``q = rint(d / s)`` as int8 and
+    ``r = d - f32(q) * s`` with the scale computed on the device, two
+    launches a delta; :func:`amax_cuda` and :func:`quantize_ef_cuda` are
+    their one-leaf cases with a read back (replaces ``quantize_ef_jax``,
+    ``_amax_call`` and ``_quant_ef_call``);
   - B4 :func:`dequant_add_leaves_cuda` — ``c' = c + f32(q) * s`` over
     every leaf of a delta in one launch, :func:`dequant_add_cuda` its
     one-leaf case (replaces ``dequant_add_jax``/``_dequant_add_call``).
 
   Each wrapper dispatches on its tensors' device: a CUDA tensor launches the
   kernel (or the wrapper raises), a CPU tensor takes the plain PyTorch
-  version beside it (:func:`amax_plain`, :func:`quantize_ef_plain`,
+  version beside it (:func:`amax_plain`, :func:`amax_bits_plain`,
+  :func:`quantize_ef_plain`, :func:`quantize_ef_leaves_plain`,
   :func:`dequant_add_plain`, :func:`dequant_add_leaves_plain`), one
   operation per rounding, which is also the kernels' oracle.  There is no
   fallback from one to the other.  Each wrapper counts its kernel launches
   in ``<wrapper>.launches``, as many as the C entry point reports (one per
-  call; one per table of leaves for the list wrapper).
+  table of up to :data:`LEAF_CAPACITY` leaves).
 
-The scale follows the reference formula exactly: ``amax`` is checked finite
-on the host (``ValueError`` otherwise — the center must never take a
-poisoned delta), ``scale = amax / 127.0`` in Python floats rides in the
-manifest, and the kernels get it rounded to the leaf's float type.  A zero
-scale launches nothing: q = 0 and the whole delta carries in r.
+The scale follows the reference formula exactly: ``scale = amax / 127.0``
+in double rides in the manifest, and the quantize rounds it to float (on
+the device, from the same amax bits).  A non-finite amax raises
+``ValueError`` on the host (the center must never take a poisoned delta);
+as in the JAX route, the leaves before the first non-finite one are
+encoded and the rest are left untouched.  A zero scale writes q = 0 and
+carries the whole delta in r.
 
 :func:`encode_ef_into` assembles one packed payload whose manifest is
 byte-identical to ``wire.encode_leaves``'s for the same values: numpy
 leaves take the host route; torch leaves take the tensor route, which writes
 the int8 and raw wire bytes into a device staging twin of the frame buffer
-and moves the whole frame to the host in one copy (fp16 leaves are encoded
-on the host).
+and moves the whole frame, with the amax slots behind it, to the host in
+one copy and one synchronize (fp16 leaves are encoded on the host).
 """
 
 from __future__ import annotations
@@ -60,7 +66,9 @@ from distlearn_tpu_torch.ops.fused_update import cast_scalar
 
 __all__ = [
     "quantize_ef_into", "fp16_ef_into", "dequant_add", "fp16_add",
-    "amax_plain", "amax_cuda", "quantize_ef_plain", "quantize_ef_cuda",
+    "amax_plain", "amax_bits_plain", "amax_cuda", "amax_leaves_cuda",
+    "amaxes_of", "first_nonfinite", "scales_of", "quantize_ef_plain",
+    "quantize_ef_cuda", "quantize_ef_leaves_plain", "quantize_ef_leaves_cuda",
     "dequant_add_plain", "dequant_add_cuda", "dequant_add_leaves_plain",
     "dequant_add_leaves_cuda", "encode_ef_into",
 ]
@@ -187,12 +195,12 @@ def fp16_add(t: np.ndarray, wirebuf: np.ndarray,
 _SOURCE = "wire_kernels.cu"
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "dl_amax_abs_f32": (_P, _P, ctypes.c_int64, _P),
-    "dl_quant_ef_f32": (_P, _P, _P, ctypes.c_int64, ctypes.c_float, _P),
+    "dl_amax_leaves_f32": (_P, _P, _P, ctypes.c_int, _P),
+    "dl_quant_ef_leaves_f32": (_P, _P, _P, _P, _P, ctypes.c_int, _P),
     "dl_dequant_add_f32": (_P, _P, _P, ctypes.c_int64, ctypes.c_float, _P),
     "dl_dequant_add_leaves_f32": (_P, _P, _P, _P, _P, ctypes.c_int, _P),
 }
-#: leaves in one launch of the multi-leaf B4 (``kLeafCap`` in the source)
+#: leaves in one launch of a multi-leaf kernel (``kLeafCap`` in the source)
 LEAF_CAPACITY = 64
 
 
@@ -249,24 +257,85 @@ def amax_plain(d: torch.Tensor) -> float:
     return float(torch.amax(torch.abs(d))) if d.numel() else 0.0
 
 
+def amax_bits_plain(xs) -> torch.Tensor:
+    """The amax slots of the leaves ``xs`` as the kernel writes them: per
+    leaf the largest bit pattern of ``|x|`` as int32 (the bits of
+    ``max|x|``; of the largest NaN if ``x`` holds one; 0 when empty)."""
+    return torch.tensor([int(torch.abs(x).view(torch.int32).amax())
+                         if x.numel() else 0 for x in xs], dtype=torch.int32)
+
+
+def amaxes_of(slots) -> list[float]:
+    """The ``max|x|`` values of host amax slots as Python floats: the
+    kernel's int32 bits of float32, or the twin's float64 values."""
+    a = np.asarray(slots)
+    return (a.view(np.float32) if a.dtype == np.int32 else a).tolist()
+
+
+def first_nonfinite(slots) -> int:
+    """The index of the first non-finite amax slot (``len(slots)`` if
+    none): the leaf at which the JAX route's encode raises."""
+    amaxes = amaxes_of(slots)
+    return next((i for i, a in enumerate(amaxes) if not math.isfinite(a)),
+                len(amaxes))
+
+
+def scales_of(slots) -> list[float]:
+    """The manifest scales ``amax / 127.0`` of host amax slots; raises
+    ``ValueError`` if a leaf's amax is not finite."""
+    return [_scale_of(a) for a in amaxes_of(slots)]
+
+
+def _amax_into(wrapper, xs, slots: torch.Tensor) -> None:
+    """One memset of ``slots`` and one amax launch per table of the
+    contiguous float32 leaves ``xs``, counted on ``wrapper``."""
+    dev, name = slots.device, wrapper.__name__
+    _check(name, dev, len(xs), (slots, torch.int32))
+    for x in xs:
+        if x.dtype != torch.float32 or not x.is_contiguous() or \
+                x.device != dev:
+            raise ValueError(f"{name}: contiguous float32 leaves on {dev} "
+                             f"only, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+    n = len(xs)
+    _launch(wrapper, "dl_amax_leaves_f32", slots.data_ptr(),
+            (_P * n)(*(x.data_ptr() for x in xs)),
+            (ctypes.c_int64 * n)(*(x.numel() for x in xs)), n, _stream(dev))
+
+
+def amax_leaves_cuda(xs, slots: torch.Tensor | None = None) -> torch.Tensor:
+    """B3's first pass over the leaves of a delta: the amax slots (int32,
+    one per leaf, the bits of ``max|x|``) on the leaves' device, written
+    into ``slots`` when given, by one amax launch per
+    :data:`LEAF_CAPACITY` non-empty leaves; does not synchronise.  CPU
+    leaves take :func:`amax_bits_plain`."""
+    xs = list(xs)
+    dev = xs[0].device if xs else torch.device("cpu")
+    if dev.type == "cpu":
+        bits = amax_bits_plain(xs)
+        return bits if slots is None else slots.copy_(bits)
+    if slots is None:
+        slots = torch.empty(len(xs), dtype=torch.int32, device=dev)
+    _amax_into(amax_leaves_cuda, xs, slots)
+    return slots
+
+
+amax_leaves_cuda.launches = 0
+
+
 def amax_cuda(xs: list[torch.Tensor]) -> list[float]:
-    """``max|x|`` of every leaf in ``xs``: one amax launch per non-empty
-    CUDA leaf into one device slot buffer, then ONE read back to the host
-    for all of them (a NaN anywhere in a leaf gives NaN).  CPU leaves take
+    """``max|x|`` of every leaf in ``xs``: the amax launches into one
+    device slot buffer, then ONE read back to the host for all of them (a
+    NaN anywhere in a leaf gives NaN).  CPU leaves take
     :func:`amax_plain`."""
     if not xs:
         return []
     dev = xs[0].device
     if dev.type == "cpu":
         return [amax_plain(x) for x in xs]
-    slots = torch.zeros(len(xs), dtype=torch.int32, device=dev)
-    for i, x in enumerate(xs):
-        n = x.numel()
-        _check("amax_cuda", dev, n, (x, torch.float32))
-        if n:
-            _launch(amax_cuda, "dl_amax_abs_f32", slots.data_ptr() + 4 * i,
-                    x.data_ptr(), n, _stream(dev))
-    return slots.cpu().numpy().view(np.float32).tolist()
+    slots = torch.empty(len(xs), dtype=torch.int32, device=dev)
+    _amax_into(amax_cuda, xs, slots)
+    return amaxes_of(slots.cpu())
 
 
 amax_cuda.launches = 0
@@ -286,40 +355,99 @@ def quantize_ef_plain(d: torch.Tensor, amax: float | None = None
     return qf.to(torch.int8), scale, d - qf * s
 
 
-def quantize_ef_cuda(d: torch.Tensor, amax: float | None = None,
-                     q: torch.Tensor | None = None,
-                     r: torch.Tensor | None = None
-                     ) -> tuple[torch.Tensor, float, torch.Tensor]:
-    """B3: int8 quantize with error feedback of one float32 leaf.  Returns
-    ``(q, scale, r)``, written into ``q``/``r`` when given (``r`` must not
-    alias ``d``).  ``amax`` is ``max|d|`` when the caller has it already
-    (:func:`amax_cuda` over all leaves); otherwise one amax launch and one
-    read back come first.  Non-finite input raises ``ValueError``; a zero
-    scale launches nothing."""
-    if amax is None:
-        amax = amax_cuda([d])[0]
-    if d.device.type == "cpu":
-        qq, scale, rr = quantize_ef_plain(d, amax)
-        if q is None:
-            return qq, scale, rr
+def quantize_ef_leaves_plain(xs, qs, rs) -> torch.Tensor:
+    """B3 over the leaves of a delta in plain PyTorch, as the JAX route
+    encodes them: :func:`quantize_ef_plain` of each leaf in order into
+    ``qs[i]`` and ``rs[i]``, stopping at the first leaf whose ``max|x|`` is
+    not finite (it and every later leaf stay untouched).  Returns each
+    leaf's ``max|x|`` as a float64 tensor, for :func:`scales_of`."""
+    amaxes = [amax_plain(x) for x in xs]
+    for x, q, r, a in zip(xs, qs, rs, amaxes):
+        if not math.isfinite(a):
+            break
+        qq, _, rr = quantize_ef_plain(x, a)
         q.copy_(qq)
         r.copy_(rr)
-        return q, scale, r
-    scale = _scale_of(amax)
-    q = torch.empty(d.shape, dtype=torch.int8, device=d.device) \
-        if q is None else q
-    r = torch.empty_like(d) if r is None else r
-    n = d.numel()
-    _check("quantize_ef_cuda", d.device, n, (d, torch.float32),
-           (q, torch.int8), (r, torch.float32))
-    if scale == 0.0:
-        q.zero_()
-        r.copy_(d)
-    elif n:
-        _launch(quantize_ef_cuda, "dl_quant_ef_f32", q.data_ptr(),
-                r.data_ptr(), d.data_ptr(), n, _f32(scale),
-                _stream(d.device))
-    return q, scale, r
+    return torch.tensor(amaxes, dtype=torch.float64)
+
+
+def _quantize_leaves(amax_wrapper, wrapper, xs, qs, rs, slots):
+    """B3 over ``xs``: the amax pass counted on ``amax_wrapper``, the
+    quantize pass on ``wrapper``.  Returns ``(qs, slots, rs)``."""
+    xs = list(xs)
+    qs = [torch.empty(x.shape, dtype=torch.int8, device=x.device)
+          for x in xs] if qs is None else list(qs)
+    rs = [torch.empty_like(x) for x in xs] if rs is None else list(rs)
+    if len(qs) != len(xs) or len(rs) != len(xs):
+        raise ValueError(f"{wrapper.__name__}: one q and one r per leaf")
+    dev = xs[0].device if xs else torch.device("cpu")
+    if dev.type == "cpu":
+        return qs, quantize_ef_leaves_plain(xs, qs, rs), rs
+    # one pass over the leaves: the checks of _check, inlined (this is the
+    # host time the one launch exists to cut), and the table's columns
+    f32, i8 = torch.float32, torch.int8
+    px, pq, pr, ns = [], [], [], []
+    for x, q, r in zip(xs, qs, rs):
+        n = x.numel()
+        if not (x.dtype == f32 and r.dtype == f32 and q.dtype == i8
+                and q.numel() == n and r.numel() == n and x.is_contiguous()
+                and q.is_contiguous() and r.is_contiguous()):
+            raise ValueError(
+                f"{wrapper.__name__}: contiguous float32 x and r and int8 q "
+                f"of one length per leaf, got {x.dtype} {tuple(x.shape)}, "
+                f"{q.dtype} {tuple(q.shape)}, {r.dtype} {tuple(r.shape)}")
+        px.append(x.data_ptr())
+        pq.append(q.data_ptr())
+        pr.append(r.data_ptr())
+        ns.append(n)
+    if len({t.device for t in (*xs, *qs, *rs)}) != 1:
+        raise ValueError(f"{wrapper.__name__}: all tensors must be on {dev}")
+    if slots is None:
+        slots = torch.empty(len(xs), dtype=torch.int32, device=dev)
+    _check(wrapper.__name__, dev, len(xs), (slots, torch.int32))
+    n, stream = len(xs), _stream(dev)
+    px, ns = (_P * n)(*px), (ctypes.c_int64 * n)(*ns)
+    _launch(amax_wrapper, "dl_amax_leaves_f32", slots.data_ptr(), px, ns, n,
+            stream)
+    _launch(wrapper, "dl_quant_ef_leaves_f32", (_P * n)(*pq),
+            (_P * n)(*pr), px, ns, slots.data_ptr(), n, stream)
+    return qs, slots, rs
+
+
+def quantize_ef_leaves_cuda(xs, qs=None, rs=None,
+                            slots: torch.Tensor | None = None):
+    """B3 over every leaf of a delta: one amax launch (counted on
+    :func:`amax_leaves_cuda`) and one quantize launch per
+    :data:`LEAF_CAPACITY` non-empty leaves, with no host round trip
+    between them: the quantize reads each leaf's amax from the device slots
+    and computes its scale there.  Writes ``qs[i]`` (int8) and ``rs[i]``
+    (float32, not aliasing ``xs[i]``), allocated when None, and returns
+    ``(qs, slots, rs)``: ``slots`` (int32, one per leaf, on the leaves'
+    device, into ``slots`` when given) holds the bits of each ``max|x|``
+    once the stream gets there, for :func:`scales_of`, which raises on a
+    non-finite one.  Leaves from the first non-finite one on are left
+    untouched, as the JAX route leaves them.  Does not synchronise.  CPU
+    leaves (float32 or wider) take :func:`quantize_ef_leaves_plain`, whose
+    float64 amaxes come back in place of the slots."""
+    return _quantize_leaves(amax_leaves_cuda, quantize_ef_leaves_cuda, xs,
+                            qs, rs, slots)
+
+
+quantize_ef_leaves_cuda.launches = 0
+
+
+def quantize_ef_cuda(d: torch.Tensor, q: torch.Tensor | None = None,
+                     r: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, float, torch.Tensor]:
+    """B3 on one float32 leaf, the one-leaf case of
+    :func:`quantize_ef_leaves_cuda` (its amax launch counted on
+    :func:`amax_cuda`): returns ``(q, scale, r)``, written into ``q``/``r``
+    when given (``r`` must not alias ``d``), after one read back of the
+    amax.  Non-finite input raises ``ValueError`` and writes nothing."""
+    (q,), slots, (r,) = _quantize_leaves(
+        amax_cuda, quantize_ef_cuda, [d], None if q is None else [q],
+        None if r is None else [r], None)
+    return q, scales_of(slots.cpu())[0], r
 
 
 quantize_ef_cuda.launches = 0
@@ -444,11 +572,13 @@ def encode_ef_into(leaves, residuals, codec: str, out=None):
     ``wire.PackedPayload`` whose manifest is byte-identical to
     ``wire.encode_leaves``'s for the same inputs.
 
-    Torch leaves (all on one device) take the tensor route: B3 per int8
-    leaf after one :func:`amax_cuda` over all of them, int8 and raw wire
+    Torch leaves (all on one device) take the tensor route: one
+    :func:`quantize_ef_leaves_cuda` over the int8 leaves, int8 and raw wire
     bytes written into ``out``'s device stage, then one copy of the whole
-    frame to the host (synchronised before returning, so the frame is
-    complete when it is sent).  fp16 leaves are copied to the host and
+    frame and the amax slots to the host (synchronised before returning,
+    so the frame is complete when it is sent).  Non-finite input raises
+    ``ValueError`` after encoding the leaves before the first non-finite
+    one, as the JAX package's route does.  fp16 leaves are copied to the host and
     encoded there by :func:`fp16_ef_into`, as the JAX package's device route
     does.  Numpy leaves take the host route."""
     if codec not in wire.CODECS:
@@ -505,41 +635,55 @@ def _encode_tensors(leaves: list[torch.Tensor], residuals, codec: str, out):
     sizes = [wire.encoded_nbytes(dt, x.numel(), codec)
              for dt, x in zip(dtypes, leaves)]
     total = sum(sizes)
-    stage = (out.device_stage(total, dev) if out is not None
-             else torch.empty(total, dtype=torch.uint8, device=dev))
-    amaxes = iter(amax_cuda([x.contiguous() for x, e in zip(leaves, encs)
-                             if e == "int8"]))
-    entries, host_fp16 = [], []
+    # the int8 leaves' amax slots ride behind the frame, 16-byte aligned,
+    # and come to the host in the frame's one copy
+    q8 = [i for i, e in enumerate(encs) if e == "int8"]
+    tail = -(-total // 16) * 16
+    staged = tail + 4 * len(q8)
+    stage = (out.device_stage(staged, dev) if out is not None
+             else torch.empty(staged, dtype=torch.uint8, device=dev))
+    entries, host_fp16, xs, qs, rs = [], [], [], [], []
     offset = logical = 0
     for x, r, dt, enc, nbytes in zip(leaves, residuals, dtypes, encs, sizes):
         window = stage[offset:offset + nbytes]
-        extra: dict = {}
         if enc == "int8":
-            q = window.view(torch.int8).view(x.shape)
-            extra = {"scale": quantize_ef_cuda(x.contiguous(), next(amaxes),
-                                               q=q, r=r)[1]}
+            xs.append(x.contiguous())
+            qs.append(window.view(torch.int8).view(x.shape))
+            rs.append(r)
         elif enc == "fp16":
             host_fp16.append((x, r, offset))    # after the frame lands
         else:
             window.copy_(_as_bytes(x))
-            if r is not None:
-                r.zero_()
         entries.append({"dtype": dt.name, "shape": list(x.shape), "enc": enc,
-                        "offset": offset, "nbytes": nbytes, **extra})
+                        "offset": offset, "nbytes": nbytes})
         offset += nbytes
         logical += x.numel() * dt.itemsize
+    slots = stage[tail:staged].view(torch.int32)
+    if q8:
+        slots = quantize_ef_leaves_cuda(xs, qs, rs, slots=slots)[1]
     if out is not None:
-        out.reserve(total)
-        host = out.host_tensor(total)
+        out.reserve(staged)
+        host = out.host_tensor(staged)
     else:
-        host = torch.empty(total, dtype=torch.uint8)
-    if dev.type == "cuda":
-        torch.cuda.current_stream(dev).synchronize()     # the codec is done
+        host = torch.empty(staged, dtype=torch.uint8)
     with obs.span("wire_kernels.frame_d2h"):
-        host.copy_(stage[:total], non_blocking=host.is_pinned())
-        if dev.type == "cuda":
+        # the encode's one synchronize (a copy to pageable memory makes it)
+        pinned = host.is_pinned()
+        host.copy_(stage[:staged], non_blocking=pinned)
+        if pinned:
             torch.cuda.current_stream(dev).synchronize()
-    frame = host.numpy()
+    if dev.type == "cuda":
+        slots = host[tail:staged].view(torch.int32)
+    # the JAX route encodes leaf by leaf and raises at the first non-finite
+    # one: the leaves before it carry their residuals, the rest are untouched
+    k = first_nonfinite(slots)
+    stop = q8[k] if k < len(q8) else len(leaves)
+    for i, (e, r) in enumerate(zip(encs, residuals)):
+        if e == "raw" and r is not None and i < stop:
+            r.zero_()               # raw decodes to itself: zero carry
+    for i, scale in zip(q8, scales_of(slots)):   # raises at leaf ``stop``
+        entries[i]["scale"] = scale
+    frame = host[:total].numpy()
     bufs = [frame[e["offset"]:e["offset"] + e["nbytes"]]
             .view(wire.wire_dtype(e)).reshape(e["shape"]) for e in entries]
     for x, r, off in host_fp16:             # the host codec, as JAX's does

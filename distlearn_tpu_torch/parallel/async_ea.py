@@ -32,8 +32,10 @@ unless ``device="cpu"`` is asked for) and the host sees only wire bytes:
   added, raw leaves added;
 * the client's params, center copy, delta and error-feedback residual live
   on the device: the received center goes host-to-device in one copy, the
-  elastic move runs there, B3 (``quantize_ef_cuda``) quantizes, and only
-  the wire bytes (int8 for the int8 codec) cross back, in one copy.
+  elastic move runs there, B3 (``quantize_ef_leaves_cuda``: one amax and
+  one quantize launch over all the leaves) quantizes, and only the wire
+  bytes (int8 for the int8 codec) and the amax slots cross back, in one
+  copy and one synchronize.
 
 Not ported yet (ROADMAP A9(c)/(d)): the concurrent server, stripes
 (``shards > 1``), overlap, rejoin, elastic membership, HA and the slice

@@ -23,13 +23,22 @@ wire_kernels.py``) on the same numpy inputs.
   unaligned offsets; the port server's apply of a delta the JAX codec
   encoded; the list wrapper's launch count, one per table of leaves.
 
+* B3 over a list of leaves (the client's one call per delta): two
+  launches per table of leaves, the quantize reading the amax slots; the
+  encode of a delta with a non-finite leaf raises as the JAX package's
+  route does and leaves the same residuals (the leaves before it encoded,
+  the rest untouched).
+
 The CUDA kernels run on the card, where ``chip_smoke.py`` holds them against
 the plain versions bit for bit.  Their code also runs here:
 ``ops/csrc/wire_kernels.cu`` compiles with g++ as host C++ over
 ``tests/torch_cuda_emu.h`` (as tests/test_torch_flash_emulated.py does for
 the flash kernels), and the emulated kernels are held against the plain
-versions bit for bit at small sizes, the multi-leaf B4 across more leaves
-than one launch's table holds.  Those cases skip where no g++ is.
+versions bit for bit: B3's two passes over the convnet's 18 leaves with q
+in one byte frame at unaligned offsets (and the twin against JAX's host
+route there), over more leaves than one table holds with empty and zero
+leaves, and with a NaN or an infinity in one leaf (the guard across
+tables); the multi-leaf B4 likewise.  Those cases skip where no g++ is.
 """
 
 import ctypes
@@ -467,20 +476,22 @@ def test_emulated_dequant_add_leaves_past_the_table(emu):
 
 def test_emulated_single_leaf_codec_kernels(emu):
     """amax, quantize with error feedback and the one-leaf dequantize-add
-    at a ragged length, aligned and a float off alignment."""
+    at a ragged length, aligned and a float off alignment (B3's passes as
+    the one-leaf table that amax_cuda and quantize_ef_cuda launch)."""
     d = torch.from_numpy(_delta(5003, 9))
     for off in (0, 1):
         x = torch.empty(5004)[off:off + 5003]
         x.copy_(d)
-        slot = torch.zeros(1, dtype=torch.int32)
-        assert emu.dl_amax_abs_f32(slot.data_ptr(), x.data_ptr(), 5003,
-                                   None) == 1
+        slot = torch.full((1,), -1, dtype=torch.int32)
+        xp, n = _ptrs([x]), (ctypes.c_int64 * 1)(5003)
+        assert emu.dl_amax_leaves_f32(slot.data_ptr(), xp, n, 1, None) == 1
         assert slot.view(torch.float32).item() == wk.amax_plain(x)
         q0, s, r0 = wk.quantize_ef_plain(x)
         q = torch.empty(5004, dtype=torch.int8)[off:off + 5003]
         r = torch.empty(5004)[off:off + 5003]
-        assert emu.dl_quant_ef_f32(q.data_ptr(), r.data_ptr(), x.data_ptr(),
-                                   5003, wk._f32(s), None) == 1
+        assert emu.dl_quant_ef_leaves_f32(_ptrs([q]), _ptrs([r]), xp, n,
+                                          slot.data_ptr(), 1, None) == 1
+        assert wk.scales_of(slot) == [s]
         assert torch.equal(q, q0)
         np.testing.assert_array_equal(_bits(r.numpy()), _bits(r0.numpy()))
         out = torch.empty(5004)[off:off + 5003]
@@ -489,3 +500,221 @@ def test_emulated_single_leaf_codec_kernels(emu):
                                       None) == 1
         np.testing.assert_array_equal(
             _bits(out.numpy()), _bits(wk.dequant_add_plain(x, q, s).numpy()))
+
+
+def _quant_leaves_emulated(emu, xs, qs, rs):
+    """B3's two entry points over the leaves: (slots, amax launches,
+    quantize launches)."""
+    n = len(xs)
+    slots = torch.full((n,), -1, dtype=torch.int32)
+    ns = (ctypes.c_int64 * n)(*(x.numel() for x in xs))
+    xp = _ptrs(xs)
+    amax = emu.dl_amax_leaves_f32(slots.data_ptr(), xp, ns, n, None)
+    quant = emu.dl_quant_ef_leaves_f32(_ptrs(qs), _ptrs(rs), xp, ns,
+                                       slots.data_ptr(), n, None)
+    return slots, amax, quant
+
+
+# B3 over every leaf of a delta: the two entry points against the twin
+
+_SENTINEL_Q = 0x55          # q and r bytes a pass must leave untouched
+
+
+def _b3_inputs(sizes, seed, off_x=False, poison=None, bad=np.nan):
+    """Float32 leaves (every third one element off its 16-byte alignment
+    when ``off_x``), leaf ``poison`` holding ``bad`` at one element, leaf
+    4 all zeros of both signs when there are more than 4; and a maker of
+    fresh outputs: q windows cut from one byte frame at the offsets a
+    packed frame gives them (the first at byte 1), r leaves, both filled
+    with sentinels."""
+    rng = np.random.default_rng(seed)
+    xs = []
+    for i, n in enumerate(sizes):
+        t = torch.empty(n + 1)[int(off_x and i % 3 == 0):][:n]
+        a = (rng.standard_normal(n) * 3).astype(np.float32)
+        if i == 4 and len(sizes) > 4:
+            a = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+        if i == poison:
+            a[rng.integers(n)] = bad
+        t.copy_(torch.from_numpy(a))
+        xs.append(t)
+    offs = np.cumsum([1] + list(sizes[:-1]))
+
+    def outputs():
+        frame = torch.full((sum(sizes) + 1,), _SENTINEL_Q, dtype=torch.int8)
+        qs = [frame[o:o + n] for o, n in zip(offs, sizes)]
+        rs = [torch.full((n,), -7.5) for n in sizes]
+        return frame, qs, rs
+    return xs, outputs
+
+
+def _assert_b3_equals_twin(emu, sizes, xs, outputs):
+    """The emulated passes against quantize_ef_leaves_plain: q bytes (the
+    whole frame, sentinels included), r bits and the amax slots bit for
+    bit; one launch of each pass per table.  Returns the slots and the
+    kernels' q and r."""
+    frame, qs, rs = outputs()
+    tframe, tqs, trs = outputs()
+    slots, amax_launches, quant_launches = _quant_leaves_emulated(
+        emu, xs, qs, rs)
+    amaxes = wk.quantize_ef_leaves_plain(xs, tqs, trs)
+    tables = -(-sum(n > 0 for n in sizes) // wk.LEAF_CAPACITY)
+    assert amax_launches == quant_launches == tables
+    np.testing.assert_array_equal(slots.numpy(),
+                                  wk.amax_bits_plain(xs).numpy())
+    assert wk.first_nonfinite(slots) == wk.first_nonfinite(amaxes)
+    assert torch.equal(frame, tframe)
+    for r, t in zip(rs, trs):
+        np.testing.assert_array_equal(_bits(r.numpy()), _bits(t.numpy()))
+    return slots, qs, rs
+
+
+def test_emulated_quantize_ef_leaves_on_one_frame(emu):
+    """B3 over the convnet's 18 leaves in two launches, q written into
+    windows of one byte frame at unaligned offsets, as the client's encode
+    writes them: bit for bit the twin, and the twin bit for bit JAX's host
+    route (the reference codec), scales included."""
+    xs, outputs = _b3_inputs(CONVNET_SIZES, 11)
+    slots, qs, rs = _assert_b3_equals_twin(emu, CONVNET_SIZES, xs, outputs)
+    for x, q, r, s in zip(xs, qs, rs, wk.scales_of(slots)):
+        a = x.numpy()
+        q_ref, r_ref = np.empty(a.size, np.int8), np.empty(a.size, np.float32)
+        assert jwk.quantize_ef_into(a, q_ref, r_ref) == s
+        np.testing.assert_array_equal(q.numpy(), q_ref)
+        np.testing.assert_array_equal(_bits(r.numpy()), _bits(r_ref))
+
+
+@pytest.mark.parametrize("poison", [None, 10, 66])
+def test_emulated_quantize_ef_leaves_past_the_table(emu, poison):
+    """70 leaves, two tables of each pass: empty leaves, a leaf of zeros
+    of both signs (q = 0, r = x bit for bit), ragged lengths, leaves off
+    their 16-byte alignment.  A NaN in leaf 10 (first table) stops every
+    later leaf, the second table's too; one in leaf 66 (second table)
+    stops that table's leaves from 66 on and no leaf before it."""
+    rng = np.random.default_rng(12)
+    sizes = [int(n) for n in rng.integers(1, 3000, 70)]
+    sizes[:5] = [0, 1, 4 * 4096 + 3, 0, 37]
+    xs, outputs = _b3_inputs(sizes, 12, off_x=True, poison=poison)
+    slots, qs, rs = _assert_b3_equals_twin(emu, sizes, xs, outputs)
+    stop = 70 if poison is None else poison
+    assert wk.first_nonfinite(slots) == stop
+    assert not qs[4].any() and torch.equal(rs[4].view(torch.int32),
+                                           xs[4].view(torch.int32))
+    for i, (q, r) in enumerate(zip(qs, rs)):
+        untouched = bool((q == _SENTINEL_Q).all() and (r == -7.5).all())
+        assert untouched == (i >= stop or sizes[i] == 0), i
+    if poison is not None:
+        with pytest.raises(ValueError, match="non-finite"):
+            wk.scales_of(slots)
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_emulated_quantize_ef_leaves_stop_at_a_nonfinite_leaf(emu, bad):
+    """A NaN, +inf or -inf in leaf 5 of 18: leaves 0-4 are encoded, the q
+    and r bytes of leaves 5-17 are untouched, as the JAX route leaves them
+    when it raises at leaf 5; the slots make the host raise."""
+    sizes = [int(n) for n in np.random.default_rng(13).integers(1, 9000, 18)]
+    xs, outputs = _b3_inputs(sizes, 13, poison=5, bad=bad)
+    slots, qs, rs = _assert_b3_equals_twin(emu, sizes, xs, outputs)
+    for i, (x, q, r) in enumerate(zip(xs, qs, rs)):
+        if i < 5:
+            q0, _, r0 = wk.quantize_ef_plain(x)
+            assert torch.equal(q, q0) and torch.equal(r, r0)
+        else:
+            assert (q == _SENTINEL_Q).all() and (r == -7.5).all()
+    assert wk.first_nonfinite(slots) == 5
+    with pytest.raises(ValueError, match="non-finite"):
+        wk.scales_of(slots)
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_encode_nonfinite_leaf_matches_jax_route(bad):
+    """encode_ef_into on torch leaves (the port's tensor route, on the CPU
+    through the twin) and the JAX package's host route, on the same numpy
+    leaves with leaf 5 poisoned and raw int32 leaves before and after it:
+    both raise ValueError, and afterwards the residual lists are bit for
+    bit equal (leaves 0-4 carry their new residuals, raw ones zero; the
+    rest keep what they held)."""
+    rng = np.random.default_rng(14)
+    leaves = [(rng.standard_normal(n) * 2).astype(np.float32)
+              for n in (300, 17, 4099, 1, 64, 513, 77, 2000)]
+    leaves[1] = np.arange(17, dtype=np.int32)
+    leaves[6] = np.arange(77, dtype=np.int32)
+    leaves[5][100] = bad
+    held = [np.full(a.shape, -7.5, np.float32) for a in leaves]
+    jres = [h.copy() for h in held]
+    with pytest.raises(ValueError, match="non-finite"):
+        jwk.encode_ef_into(leaves, jres, "int8")
+    tres = [torch.from_numpy(h.copy()) for h in held]
+    with pytest.raises(ValueError, match="non-finite"):
+        wk.encode_ef_into([torch.from_numpy(a) for a in leaves], tres,
+                          "int8", out=wire.FrameBuffer())
+    for i, (j, t, h) in enumerate(zip(jres, tres, held)):
+        np.testing.assert_array_equal(_bits(t.numpy()), _bits(j))
+        assert np.array_equal(j, h) == (i >= 5), i
+
+
+@pytest.mark.parametrize("n_leaves,tables", [(1, 1), (18, 1), (64, 1),
+                                             (65, 2), (130, 3)])
+def test_quantize_ef_leaves_counts_two_launches_per_table(monkeypatch,
+                                                          n_leaves, tables):
+    """The list wrapper hands every leaf to ONE call of each entry point,
+    the quantize reading the slots the amax wrote, and counts the launches
+    they report: one of each per table of up to LEAF_CAPACITY leaves, the
+    amax on amax_leaves_cuda (device-less meta tensors stand in for the
+    card's)."""
+    calls = []
+
+    def per_table(ns, count):
+        return -(-sum(n > 0 for n in list(ns)[:count]) // wk.LEAF_CAPACITY)
+
+    def amax(slots, xs, ns, count, stream):
+        calls.append(("amax", slots, list(ns), count))
+        return per_table(ns, count)
+
+    def quant(qs, rs, xs, ns, slots, count, stream):
+        calls.append(("quant", slots, list(ns), count))
+        return per_table(ns, count)
+
+    entries = {"dl_amax_leaves_f32": amax, "dl_quant_ef_leaves_f32": quant}
+    monkeypatch.setattr(wk._build, "function",
+                        lambda source, name, sig: entries[name])
+    monkeypatch.setattr(wk, "_stream", lambda device: None)
+    for fn in (wk.amax_leaves_cuda, wk.quantize_ef_leaves_cuda,
+               wk.amax_cuda, wk.quantize_ef_cuda):
+        monkeypatch.setattr(fn, "launches", 0)
+    sizes = [1 + i % 7 for i in range(n_leaves)]
+    xs = [torch.empty(n, device="meta") for n in sizes]
+    slots = torch.empty(n_leaves, dtype=torch.int32, device="meta")
+    qs, got, rs = wk.quantize_ef_leaves_cuda(xs, slots=slots)
+    assert got is slots and [q.dtype for q in qs] == [torch.int8] * n_leaves
+    assert [tuple(r.shape) for r in rs] == [(n,) for n in sizes]
+    ptr = slots.data_ptr()
+    assert calls == [("amax", ptr, sizes, n_leaves),
+                     ("quant", ptr, sizes, n_leaves)]
+    assert (wk.amax_leaves_cuda.launches,
+            wk.quantize_ef_leaves_cuda.launches) == (tables, tables)
+    assert wk.amax_cuda.launches == wk.quantize_ef_cuda.launches == 0
+    with pytest.raises(ValueError, match="one q and one r"):
+        wk.quantize_ef_leaves_cuda(xs, qs[:-1], rs)
+
+
+def test_amax_slots_on_the_cpu():
+    """amax_leaves_cuda on CPU leaves takes amax_bits_plain: the bits of
+    each max|x| (an empty leaf 0, a NaN leaf its largest NaN's bits), into
+    the given slots; the host helpers read them as the JAX route would."""
+    nan = np.float32(np.nan).view(np.uint32) | np.uint32(0x1234)
+    xs = [torch.zeros(0), torch.tensor([-2.0, 1.5]), torch.tensor([3.0, 0.0]),
+          torch.from_numpy(np.array([1.0, nan.view(np.float32)], np.float32))]
+    slots = torch.full((4,), -1, dtype=torch.int32)
+    assert wk.amax_leaves_cuda(xs, slots) is slots
+    np.testing.assert_array_equal(
+        slots.numpy().view(np.uint32),
+        [0, np.float32(2).view(np.uint32), np.float32(3).view(np.uint32),
+         nan])
+    assert torch.equal(wk.amax_leaves_cuda(xs), slots)
+    assert wk.amaxes_of(slots)[:3] == [0.0, 2.0, 3.0]
+    assert wk.first_nonfinite(slots) == 3 and wk.first_nonfinite(slots[:3]) == 3
+    assert wk.scales_of(slots[:3]) == [0.0, 2.0 / 127.0, 3.0 / 127.0]
+    with pytest.raises(ValueError, match="non-finite"):
+        wk.scales_of(slots)

@@ -1,9 +1,11 @@
 // Host emulation of the CUDA features that the kernels of
-// distlearn_tpu_torch/ops/csrc/flash_attention.cu and wire_kernels.cu use,
-// so that they compile with g++ and run on the CPU
-// (tests/test_torch_flash_emulated.py, tests/test_torch_wire_kernels.py).
+// distlearn_tpu_torch/ops/csrc/flash_attention.cu, wire_kernels.cu and
+// fused_update.cu use, so that they compile with g++ and run on the CPU
+// (tests/test_torch_flash_emulated.py, tests/test_torch_wire_kernels.py,
+// tests/test_torch_fused_emulated.py).
 //
-// Every thread of a block is a std::thread; blocks run one after another.
+// Every thread of a block is a std::thread; blocks run one after another on
+// the same threads.
 // __syncthreads is a barrier over the block, and each warp collective
 // (__shfl_xor_sync, ldmatrix, mma.sync) exchanges its lanes' operands
 // through slots between two barriers over the warp.  ldmatrix and
@@ -105,7 +107,24 @@ inline float __fdiv_rn(float a, float b) {
   volatile float r = a / b;
   return r;
 }
+inline double __ddiv_rn(double a, double b) {
+  volatile double r = a / b;
+  return r;
+}
+inline float __double2float_rn(double x) {
+  volatile float r = (float)x;  // to nearest even, the default mode
+  return r;
+}
 inline int __float2int_rn(float x) { return (int)std::nearbyint(x); }
+// cache hints (streaming loads and stores) change nothing on the host
+template <typename T>
+inline T __ldcs(const T* p) {
+  return *p;
+}
+template <typename T>
+inline void __stcs(T* p, T v) {
+  *p = v;
+}
 inline uint32_t __float_as_uint(float f) {
   uint32_t u;
   std::memcpy(&u, &f, 4);
@@ -125,6 +144,7 @@ alignas(128) inline unsigned char emu_smem[232448];
 
 struct EmuBlock {
   std::unique_ptr<std::barrier<>> block;
+  std::atomic<int> vote{0};  // __syncthreads_or
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   uint64_t slots[32][32][8];  // [warp][lane][word]
 };
@@ -145,6 +165,16 @@ inline uint64_t* emu_slot(int lane) {
 }
 
 inline void __syncthreads() { emu_block->block->arrive_and_wait(); }
+
+inline int __syncthreads_or(int pred) {
+  if (pred) emu_block->vote.fetch_or(1);
+  __syncthreads();
+  const int any = emu_block->vote.load();
+  __syncthreads();
+  if (threadIdx.x == 0) emu_block->vote.store(0);
+  __syncthreads();
+  return any;
+}
 
 inline float __shfl_xor_sync(unsigned, float x, int off) {
   std::memcpy(emu_slot(emu_lane()), &x, 4);
@@ -243,24 +273,27 @@ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
 
 template <typename Kernel, typename... Args>
 void emu_launch(Kernel kernel, dim3 grid, int threads, Args... args) {
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        EmuBlock blk;
-        blk.block = std::make_unique<std::barrier<>>(threads);
-        for (int w = 0; w < threads / 32; ++w)
-          blk.warps.push_back(std::make_unique<std::barrier<>>(32));
-        emu_block = &blk;
-        std::vector<std::thread> ts;
-        for (int t = 0; t < threads; ++t)
-          ts.emplace_back([&, t] {
-            threadIdx = dim3(t);
+  EmuBlock blk;
+  blk.block = std::make_unique<std::barrier<>>(threads);
+  for (int w = 0; w < threads / 32; ++w)
+    blk.warps.push_back(std::make_unique<std::barrier<>>(32));
+  emu_block = &blk;
+  std::vector<std::thread> ts;
+  for (int t = 0; t < threads; ++t)
+    ts.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      blockDim = dim3(threads);
+      gridDim = grid;
+      for (unsigned z = 0; z < grid.z; ++z)
+        for (unsigned y = 0; y < grid.y; ++y)
+          for (unsigned x = 0; x < grid.x; ++x) {
             blockIdx = dim3(x, y, z);
-            blockDim = dim3(threads);
-            gridDim = grid;
             kernel(args...);
             cp_async_wait_all();
-          });
-        for (std::thread& th : ts) th.join();
-      }
+            // the block ends before the next one starts on the same
+            // threads and shared memory
+            __syncthreads();
+          }
+    });
+  for (std::thread& th : ts) th.join();
 }
