@@ -33,6 +33,21 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 5. ea      — AllReduceEA (tau 4, alpha 0.2) for 2 cycles through
    ``build_ea_steps``; the fused-elastic kernel must have launched once per
    bucket per round.  Then fused against plain.
+5a. graph sgd — ``build_sgd_scan_step`` at full width, batch 256, K=4 on
+   the same NCCL rank: 5 CUDA graph replays bit for bit against 20 eager
+   ``build_sgd_step`` calls from the same weights, batches and generator
+   seed (params, batchnorm stats, confusion matrix, step count, losses) at
+   dropout 0 and 0.5; a ``with_contrib`` replay with flags [1, 0, 1, 1]
+   against its four eager calls; a fresh seed-9 state carrying its own
+   generator through the dropout-0.5 capture, one replay bit for bit
+   against 4 eager steps; a profiled replay names B1 (``sgd_chunk``)
+   K times and makes one ``cudaGraphLaunch`` (torch.profiler's runtime
+   calls), with the replay's device idle share; steps/s eager against
+   graph on the host clock (median of 5 windows of 20 steps, each ending
+   in a synchronize), and the graph fed by ``DeviceDataset`` index vectors.
+5b. graph ea — ``build_ea_cycle`` (tau 4, alpha 0.2) for 2 cycles, each
+   replay bit for bit against 4 ``local_step`` calls and ``ea_round``; a
+   profiled replay names B2 once and makes one ``cudaGraphLaunch``.
 6. wire    — the AsyncEA int8 codec kernels (B3 amax + quantize with error
    feedback, B4 dequantize-and-add) against their plain versions, bit for
    bit: the one-leaf wrappers at the convnet's 18 leaf sizes and at a
@@ -51,8 +66,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``torch.add(c, q, alpha=s)`` over the leaves (not bit for bit) and the
    bound, and the whole call on the host's clock.
 7. async trajectory — a serial AsyncEA server and one client with their
-   tensors on the card, at the convnet's 18 leaves, 20 int8 and 5 raw
-   rounds with a seeded drift: center and client params bit for bit the
+   tensors on the card, at the convnet's 18 leaves on the JAX package's
+   wire layout (``CONVNET_WIRE``), 20 int8 and 5 raw rounds with a seeded
+   drift: center and client params bit for bit the
    same run on the port's CPU route (B3, B4, the copies and the transport
    together), one launch of each B3 pass and of B4 an int8 round.
 8. async train — the AsyncEA path: the example's roles as threads on the
@@ -105,7 +121,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    each by its tensor-core kernel's name and with 8 launches: the profile
    lost no device event) and MFU against the bfloat16 dense peak (the run
    fails above 1).
-13. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+13. examples — ``python -m distlearn_tpu_torch.examples.cifar10
+   --numEpochs 1 --numExamples 2048 --testExamples 512 --batchSize 256
+   --learningRate 0.01 --parity``, plain and with ``--deviceData --bf16``;
+   ``...examples.mnist_ea --scanCycle --communicationTime 4 --numEpochs
+   2``; ``...examples.mnist --numNodes 4 --numEpochs 1 --parity`` (warns
+   and runs one node on one card): each its own process on the card, each
+   parity line printed, every accuracy finite and above chance.
+14. entry  — ``graft_entry.entry()`` on the card against its CPU route
+   within phase 4's card-against-CPU log-prob tolerance.
+15. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -128,6 +153,10 @@ SGD_BATCH = 256          # global batch = per-node batch on one rank
 SGD_STEPS = 20           # >= 10 fused steps on the main path
 LR = 0.002               # the 2048-wide linear layer spikes the loss above this
 EA_TAU, EA_ALPHA, EA_CYCLES = 4, 0.2, 2
+# graph phase: K steps a replay, replays per check, timing windows, and the
+# contributor flags of the with_contrib replay
+GRAPH_K, GRAPH_REPLAYS, GRAPH_WINDOWS = 4, 5, 5
+GRAPH_FLAGS = (1, 0, 1, 1)
 PARITY_STEPS = 3
 # Fused and plain runs differ only in the update (the kernels equal their
 # plain versions bit for bit) and in how gradients are packed for the
@@ -158,6 +187,18 @@ CONVNET_LEAVES, CONVNET_PARAMS, CONV4 = 18, 4_328_970, 3_276_800
 RAGGED_LEAF = CONV4 - 1021               # not a multiple of 4
 B3_SENTINEL_Q, B3_SENTINEL_R = 0x55, -7.5  # what B3 must leave unwritten
 ROLE_TIMEOUT_S = 300
+# the examples as processes on the card (phase 13); the cifar10 runs take
+# lr 0.01: at the default 0.1 one epoch of 8 steps leaves the training
+# accuracy at chance, in this port and in the JAX example alike (PERF.md)
+EXAMPLE_TIMEOUT_S = 300
+CHANCE = 0.1                   # ten classes
+_CIFAR = ["cifar10", "--numEpochs", "1", "--numExamples", "2048",
+          "--testExamples", "512", "--batchSize", "256", "--learningRate",
+          "0.01", "--parity"]
+EXAMPLES = (_CIFAR, _CIFAR + ["--deviceData", "--bf16"],
+            ["mnist_ea", "--scanCycle", "--communicationTime", "4",
+             "--numEpochs", "2"],
+            ["mnist", "--numNodes", "4", "--numEpochs", "1", "--parity"])
 
 # Card rates for the bound (NVIDIA's H100 and H200 SXM data sheets): HBM
 # bytes/s by part, FP32 (non-tensor-core) FLOP/s, dense bf16 tensor-core
@@ -789,6 +830,261 @@ def phase_ea(torch, tree):
 
 
 # ---------------------------------------------------------------------------
+# Phases 5a-5b: the scanned steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def stack_batches(torch, batches):
+    return (torch.stack([x for x, _ in batches]),
+            torch.stack([y for _, y in batches]))
+
+
+def trees_equal(torch, a, b) -> bool:
+    from distlearn_tpu_torch.utils.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def profile_replay(torch, fn) -> dict:
+    """One profiled, synchronised ``fn()``: its device kernels by name with
+    their counts, the busy and wall milliseconds; and the CUDA runtime calls
+    of another ``fn()`` by name (graph launches among them), less the
+    profiler's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = {e.key: e.count for e in events
+               if e.device_type == DeviceType.CUDA}
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return {"kernels": kernels, "busy_ms": busy, "wall_ms": wall_ms,
+            "calls": runtime_calls(torch, fn)}
+
+
+def kernel_count(kernels: dict, sub: str) -> int:
+    return sum(n for k, n in kernels.items() if sub in k)
+
+
+def steps_per_s(torch, run_window, steps, windows=GRAPH_WINDOWS) -> float:
+    """Median over ``windows`` of ``steps`` over a window's host time; each
+    window ends in a synchronize."""
+    rates = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_window()
+        torch.cuda.synchronize()
+        rates.append(steps / (time.perf_counter() - t0))
+    return statistics.median(rates)
+
+
+def phase_graph_sgd(torch, tree):
+    """K AllReduceSGD steps a replay against the eager steps, bit for bit;
+    B1 and the graph launch in a profiled replay; steps/s eager against
+    graph, and the graph fed by DeviceDataset index vectors."""
+    from distlearn_tpu_torch.data import DeviceDataset, synthetic_cifar10
+    from distlearn_tpu_torch.models import cifar_convnet
+    from distlearn_tpu_torch.ops import flatten as flatten_lib
+    from distlearn_tpu_torch.train import trainer as tr
+    K = GRAPH_K
+    batches = cifar_batches(torch, K * GRAPH_REPLAYS, SGD_BATCH, seed=2)
+    groups = [stack_batches(torch, batches[i * K:(i + 1) * K])
+              for i in range(GRAPH_REPLAYS)]
+    out = {}
+    for rate in (0.0, 0.5):
+        model = cifar_convnet(dropout_rate=rate)
+        ts_e = tr.init_train_state(model, tree, seed=4, num_classes=10)
+        step = tr.build_sgd_step(model, tree, LR)
+        eager = []
+        for x, y in batches:
+            ts_e, loss = step(ts_e, x, y)
+            eager.append(loss)
+        ts_g = tr.init_train_state(model, tree, seed=4, num_classes=10)
+        scan = tr.build_sgd_scan_step(model, tree, LR)
+        graph = []
+        for xs, ys in groups:
+            ts_g, losses = scan(ts_g, xs, ys)
+            graph.append(losses)
+        torch.cuda.synchronize()
+        check(len(scan.captures) == 1, f"{len(scan.captures)} captures for "
+              "one K")
+        same = {"params": trees_equal(torch, ts_g.params, ts_e.params),
+                "batchnorm stats": trees_equal(torch, ts_g.model_state,
+                                               ts_e.model_state),
+                "confusion matrix": torch.equal(ts_g.cm, ts_e.cm),
+                "step count": torch.equal(ts_g.sync.my_steps,
+                                          ts_e.sync.my_steps),
+                "losses": torch.equal(torch.cat(graph), torch.stack(eager))}
+        log(f"[graph] sgd dropout {rate}: {GRAPH_REPLAYS} replays of K={K} "
+            f"against {K * GRAPH_REPLAYS} eager steps at batch {SGD_BATCH}: "
+            + ", ".join(f"{k} {'equal' if v else 'DIFFER'}"
+                        for k, v in same.items())
+            + f"; losses {float(eager[0]):.4f} -> {float(eager[-1]):.4f}")
+        check(all(same.values()), f"graph SGD (dropout {rate}) differs from "
+              f"the eager steps: {same}")
+        out[rate] = (model, scan, ts_g)
+
+    # one profiled replay: B1 K times, one graph launch
+    model, scan, ts_g = out[0.5]
+    n_buckets = len(flatten_lib.make_bucket_spec(ts_g.params).buckets)
+    xs, ys = groups[0]
+    prof = profile_replay(torch, lambda: scan(ts_g, xs, ys))
+    b1 = kernel_count(prof["kernels"], "sgd_chunk")
+    launches = prof["calls"].get("cudaGraphLaunch", 0)
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    log(f"[graph] profiled replay: {len(prof['kernels'])} kernel kinds, B1 "
+        f"(sgd_chunk) {b1} launches, cudaGraphLaunch {launches}, device busy "
+        f"{prof['busy_ms']:.3f} of {prof['wall_ms']:.3f} ms (idle "
+        f"{idle:.1%}); runtime calls "
+        + ", ".join(f"{k} {n}" for k, n in sorted(prof["calls"].items())))
+    check(b1 == K * n_buckets, f"a replay ran B1 {b1} times, expected "
+          f"{K} steps x {n_buckets} bucket(s)")
+    check(launches == 1, f"a replay made {launches} cudaGraphLaunch calls")
+
+    # with_contrib: flags [1, 0, 1, 1] against four eager calls
+    flags = torch.tensor(GRAPH_FLAGS, dtype=torch.int32, device="cuda")
+    ts_e = tr.init_train_state(model, tree, seed=5, num_classes=10)
+    step = tr.build_sgd_step(model, tree, LR, with_contrib=True)
+    eager = []
+    for (x, y), c in zip(batches[:K], flags):
+        ts_e, loss = step(ts_e, x, y, c)
+        eager.append(loss)
+    scan_c = tr.build_sgd_scan_step(model, tree, LR, with_contrib=True)
+    ts_c, losses = scan_c(tr.init_train_state(model, tree, seed=5,
+                                              num_classes=10), xs, ys, flags)
+    torch.cuda.synchronize()
+    ok = (trees_equal(torch, ts_c.params, ts_e.params)
+          and trees_equal(torch, ts_c.model_state, ts_e.model_state)
+          and torch.equal(ts_c.cm, ts_e.cm)
+          and torch.equal(losses, torch.stack(eager))
+          and int(ts_c.sync.my_steps) == sum(GRAPH_FLAGS))
+    log(f"[graph] with_contrib flags {list(GRAPH_FLAGS)}: one replay against "
+        f"{K} eager calls {'bit for bit' if ok else 'DIFFER'}; step count "
+        f"{int(ts_c.sync.my_steps)}")
+    check(ok, "the with_contrib replay differs from its eager calls")
+
+    # a state from another init, with its own generator, through the scan
+    # captured above: the generator's state is copied into the registered
+    # one, and the replay still equals the eager steps at dropout 0.5
+    ts_e = tr.init_train_state(model, tree, seed=9, num_classes=10)
+    step = tr.build_sgd_step(model, tree, LR)
+    eager = []
+    for x, y in batches[:K]:
+        ts_e, loss = step(ts_e, x, y)
+        eager.append(loss)
+    ts_f, losses = scan(tr.init_train_state(model, tree, seed=9,
+                                            num_classes=10), xs, ys)
+    torch.cuda.synchronize()
+    ok = (len(scan.captures) == 1
+          and trees_equal(torch, ts_f.params, ts_e.params)
+          and trees_equal(torch, ts_f.model_state, ts_e.model_state)
+          and torch.equal(ts_f.cm, ts_e.cm)
+          and torch.equal(losses, torch.stack(eager)))
+    log(f"[graph] a fresh seed-9 state with its own generator through the "
+        f"dropout-0.5 capture: one replay against {K} eager steps "
+        f"{'bit for bit' if ok else 'DIFFER'}")
+    check(ok, "a replay of a state carrying another generator differs from "
+          "its eager steps")
+
+    # steps/s on the host clock, eager against graph, from one call
+    step = tr.build_sgd_step(model, tree, LR)
+    box = {"e": tr.init_train_state(model, tree, seed=6, num_classes=10),
+           "g": ts_g}
+
+    def eager_window():
+        for x, y in batches:
+            box["e"] = step(box["e"], x, y)[0]
+
+    def graph_window():
+        for gx, gy in groups:
+            box["g"] = scan(box["g"], gx, gy)[0]
+
+    x_all, y_all, _ = synthetic_cifar10(4096, seed=7)
+    dds = DeviceDataset(x_all, y_all, 10, device=tree.device)
+    scan_d = tr.build_sgd_scan_step(model, tree, LR, dataset=dds)
+    idx = [torch.randint(0, 4096, (K, SGD_BATCH), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(i))
+           .numpy() for i in range(GRAPH_REPLAYS)]
+    box["d"] = tr.init_train_state(model, tree, seed=6, num_classes=10)
+    box["d"] = scan_d(box["d"], idx[0])[0]          # capture
+
+    def dataset_window():
+        for ix in idx:
+            box["d"] = scan_d(box["d"], ix)[0]
+
+    eager_window()                                  # warm
+    steps = K * GRAPH_REPLAYS
+    rates = {"eager": steps_per_s(torch, eager_window, steps),
+             "graph": steps_per_s(torch, graph_window, steps),
+             "graph_device_data": steps_per_s(torch, dataset_window, steps)}
+    log(f"[graph] steps/s at batch {SGD_BATCH} (host clock, median of "
+        f"{GRAPH_WINDOWS} windows of {steps} steps, each ending in a "
+        f"synchronize): eager {rates['eager']:.2f}, graph K={K} "
+        f"{rates['graph']:.2f}, graph fed by DeviceDataset index vectors "
+        f"{rates['graph_device_data']:.2f}; one replay's device idle "
+        f"{idle:.1%}")
+    return {"b1_per_replay": b1, "idle": idle, **rates}
+
+
+def phase_graph_ea(torch, tree):
+    """The EASGD cycle a replay against tau local steps and the round, bit
+    for bit; B2 once a replay."""
+    from distlearn_tpu_torch.models import cifar_convnet
+    from distlearn_tpu_torch.ops import flatten as flatten_lib
+    from distlearn_tpu_torch.train import trainer as tr
+    from distlearn_tpu_torch.utils.tree import tree_map
+    batches = cifar_batches(torch, EA_TAU * EA_CYCLES, SGD_BATCH, seed=3)
+    model = cifar_convnet()                       # dropout 0.5
+
+    def start():
+        ets = tr.init_ea_state(model, tree, seed=8, num_classes=10)
+        return ets._replace(center=tree_map(lambda c: c * 0.99, ets.center))
+
+    local, rnd = tr.build_ea_steps(model, tree, LR, EA_ALPHA)
+    cycle = tr.build_ea_cycle(model, tree, LR, EA_ALPHA)
+    ets_e, ets_g = start(), start()
+    for c in range(EA_CYCLES):
+        group = batches[c * EA_TAU:(c + 1) * EA_TAU]
+        eager = []
+        for x, y in group:
+            ets_e, loss = local(ets_e, x, y)
+            eager.append(loss)
+        ets_e = rnd(ets_e)
+        ets_g, losses = cycle(ets_g, *stack_batches(torch, group))
+        torch.cuda.synchronize()
+        same = {f: trees_equal(torch, getattr(ets_g, f), getattr(ets_e, f))
+                for f in ("params", "center", "model_state")}
+        same["confusion matrix"] = torch.equal(ets_g.cm, ets_e.cm)
+        same["losses"] = torch.equal(losses, torch.stack(eager))
+        log(f"[graph] ea cycle {c + 1} (tau {EA_TAU}, alpha {EA_ALPHA}): "
+            + ", ".join(f"{k} {'equal' if v else 'DIFFER'}"
+                        for k, v in same.items()))
+        check(all(same.values()), f"EA cycle {c + 1} differs from the eager "
+              f"steps: {same}")
+    n_buckets = len(flatten_lib.make_bucket_spec(ets_g.params).buckets)
+    xs, ys = stack_batches(torch, batches[:EA_TAU])
+    prof = profile_replay(torch, lambda: cycle(ets_g, xs, ys))
+    b2 = kernel_count(prof["kernels"], "elastic")
+    launches = prof["calls"].get("cudaGraphLaunch", 0)
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    log(f"[graph] profiled EA replay: B2 (elastic) {b2} launches, "
+        f"cudaGraphLaunch {launches}, device busy {prof['busy_ms']:.3f} of "
+        f"{prof['wall_ms']:.3f} ms (idle {idle:.1%})")
+    check(b2 == n_buckets, f"an EA replay ran B2 {b2} times, expected one "
+          f"per bucket ({n_buckets})")
+    check(launches == 1, f"an EA replay made {launches} cudaGraphLaunch "
+          "calls")
+    return {"b2_per_replay": b2, "idle": idle}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the AsyncEA wire codec kernels (B3, B4)
 # ---------------------------------------------------------------------------
 
@@ -1224,6 +1520,7 @@ def run_async_pair(torch, device, codec, rounds):
     convnet's seed-0 init, each round's drift drawn on the host from a
     fixed seed.  Returns the final center and client params on the host."""
     from distlearn_tpu_torch.models import cifar_convnet
+    from distlearn_tpu_torch.models.convert import CONVNET_WIRE
     from distlearn_tpu_torch.parallel import async_ea
     from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
     params0 = cifar_convnet().init(0, device="cpu")[0]
@@ -1236,7 +1533,8 @@ def run_async_pair(torch, device, codec, rounds):
             tuple(v.shape), generator=g)).to(v.device), p)
 
     def server_fn():
-        srv = async_ea.AsyncEAServer("127.0.0.1", port, 1, device=device)
+        srv = async_ea.AsyncEAServer("127.0.0.1", port, 1, device=device,
+                                     layout=CONVNET_WIRE)
         try:
             srv.init_server(params0)
             for _ in range(rounds):
@@ -1248,7 +1546,7 @@ def run_async_pair(torch, device, codec, rounds):
     def client_fn():
         c = async_ea.AsyncEAClient("127.0.0.1", port, node=1, tau=1,
                                    alpha=ASYNC_ALPHA, codec=codec,
-                                   device=device)
+                                   device=device, layout=CONVNET_WIRE)
         try:
             p = c.init_client(params0)
             for r in range(rounds):
@@ -2211,6 +2509,76 @@ def phase_train_lm(torch, tree):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phases 13-14: the examples and the entry point
+# ---------------------------------------------------------------------------
+
+def run_example(args: list[str]) -> str:
+    """One example as its own process on the card; its stdout."""
+    cmd = [sys.executable, "-m", f"distlearn_tpu_torch.examples.{args[0]}",
+           *args[1:]]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, cwd=HERE,
+                         timeout=EXAMPLE_TIMEOUT_S)
+    check(out.returncode == 0, f"{' '.join(args)} exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    log(f"[examples] {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+    for line in out.stderr.splitlines():
+        if "numNodes" in line:
+            log(f"[examples]   stderr: {line}")
+    return out.stdout
+
+
+def accuracies(stdout: str) -> tuple[dict | None, list[float]]:
+    """The last parity line (or None) and every accuracy an epoch line or
+    the parity line reports."""
+    parity, accs = None, []
+    for line in stdout.splitlines():
+        if line.startswith("{"):
+            parity = json.loads(line)
+            accs += [v for k, v in parity.items() if k.endswith("_acc")]
+        elif line.startswith("epoch "):
+            accs += [float(v) for v in re.findall(r"accuracy ([-\w.]+)",
+                                                  line)]
+    return parity, accs
+
+
+def phase_examples(torch):
+    for args in EXAMPLES:
+        stdout = run_example(args)
+        parity, accs = accuracies(stdout)
+        if parity is not None:
+            log(f"[examples]   {json.dumps(parity)}")
+        else:
+            log("[examples]   " + " | ".join(
+                ln for ln in stdout.splitlines() if ln.startswith("epoch")))
+        check(accs and all(math.isfinite(a) and a > CHANCE for a in accs),
+              f"{' '.join(args)}: accuracies {accs} not all finite and above "
+              f"chance ({CHANCE})")
+        if "--parity" in args:
+            check(parity is not None, f"{' '.join(args)}: no parity line")
+        if "--numNodes" in args:
+            check(parity["nodes"] == torch.cuda.device_count(),
+                  f"--numNodes 4 on {torch.cuda.device_count()} card(s) ran "
+                  f"{parity['nodes']} node(s)")
+
+
+def phase_entry(torch):
+    from distlearn_tpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    check(args[1].device.type == "cuda", "entry() did not run on the card")
+    card = fn(*args)
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    cpu = cpu_fn(*cpu_args)
+    torch.cuda.synchronize()
+    diff = max_abs(torch, card, cpu.to(card.device))
+    log(f"[entry] graft_entry.entry() on the card: log-probs {tuple(card.shape)}"
+        f", max diff against the CPU route {diff:.3e} (tol "
+        f"{CPU_REF_LOGP_TOL:.0e})")
+    check(bool(torch.isfinite(card).all()) and diff <= CPU_REF_LOGP_TOL,
+          "entry() on the card disagrees with its CPU route")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2245,6 +2613,8 @@ def main() -> int:
                                 group=dist.new_group(backend="gloo"))
             sgd = phase_sgd(torch, tree, cpu_tree)
             ea = phase_ea(torch, tree)
+            graph_sgd = phase_graph_sgd(torch, tree)
+            graph_ea = phase_graph_ea(torch, tree)
         finally:
             dist.destroy_process_group()
         phase_async_trajectory(torch)
@@ -2258,6 +2628,8 @@ def main() -> int:
             trained = phase_train_lm(torch, tree)
         finally:
             dist.destroy_process_group()
+        phase_examples(torch)
+        phase_entry(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -2298,7 +2670,10 @@ def main() -> int:
          **bwd_rows["dq"]},
     ]
     log(f"[report] total {time.perf_counter() - t_start:.1f} s; "
-        f"sgd {sgd['steps_per_s']:.2f} steps/s at batch {SGD_BATCH}; "
+        f"sgd {sgd['steps_per_s']:.2f} steps/s at batch {SGD_BATCH}; graph "
+        f"sgd (K={GRAPH_K}) {graph_sgd['graph']:.2f} against eager "
+        f"{graph_sgd['eager']:.2f} steps/s in one call, replay idle "
+        f"{graph_sgd['idle']:.1%}, EA replay idle {graph_ea['idle']:.1%}; "
         f"AsyncEA {async_run['syncs_per_s']:.2f} syncs/s; served LM TTFT p50 "
         f"{served['ttft_ms']:.2f} ms, TPOT p50 {served['tpot_ms']:.2f} ms, "
         f"{served['tokens_per_s']:.1f} tokens/s; LM training "

@@ -13,7 +13,9 @@ Run each role as its own process, on the card unless ``--device cpu``:
 
 Every role builds the SAME model from the SAME seed (ref Model.lua:17) and
 the server's initial broadcast makes the clients' start exact (ref
-AsyncEA.lua:150-160).  Each role is also a function of its parsed flags
+AsyncEA.lua:150-160).  Both models are convnets, which travel in the JAX
+package's layout (``CONVNET_WIRE``), so any role can be the JAX package's
+example instead.  Each role is also a function of its parsed flags
 (:func:`run_server`, :func:`run_client`, :func:`run_tester`), so a caller
 can run the trio as threads of one process.
 """
@@ -29,6 +31,7 @@ import torch
 from distlearn_tpu_torch.data import (PermutationSampler, make_dataset,
                                       synthetic_cifar10, synthetic_mnist)
 from distlearn_tpu_torch.models import cifar_convnet, mnist_cnn
+from distlearn_tpu_torch.models.convert import CONVNET_WIRE
 from distlearn_tpu_torch.models.core import loss_fn
 from distlearn_tpu_torch.parallel.async_ea import (AsyncEAClient,
                                                    AsyncEAServer,
@@ -103,7 +106,8 @@ def run_server(opt) -> dict:
     print_server(f"serving {opt.numNodes} clients, {num_syncs} syncs, "
                  f"tester={opt.tester}")
     srv = AsyncEAServer(opt.host, opt.port, opt.numNodes,
-                        with_tester=opt.tester, device=opt.device)
+                        with_tester=opt.tester, device=opt.device,
+                        layout=CONVNET_WIRE)
     served = tests = 0
     try:
         srv.init_server(params)
@@ -142,7 +146,7 @@ def run_client(opt) -> dict:
     dev = resolve_device(opt.device)
     client = AsyncEAClient(opt.host, opt.port, node=opt.nodeIndex,
                            tau=opt.communicationTime, alpha=opt.alpha,
-                           codec=_codec(opt), device=dev)
+                           codec=_codec(opt), device=dev, layout=CONVNET_WIRE)
     losses, step_ms, sync_ms = [], [], []
     try:
         params = client.init_client(params)
@@ -202,7 +206,7 @@ def run_tester(opt) -> dict:
     # "legacy" (or raw against old fleets) keeps the pre-packed wire
     codec = None if opt.wireCodec in ("legacy", "raw") else opt.wireCodec
     tester = AsyncEATester(opt.host, opt.port, opt.numNodes, codec=codec,
-                           device=dev)
+                           device=dev, layout=CONVNET_WIRE)
     rounds = []
     try:
         for round_i in range(1, opt.numTests + 1):

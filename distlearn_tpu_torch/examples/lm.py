@@ -26,7 +26,6 @@ from __future__ import annotations
 import contextlib
 import os
 import signal
-import socket
 import sys
 
 import numpy as np
@@ -39,7 +38,7 @@ from distlearn_tpu_torch.obs import trace as obs_trace
 from distlearn_tpu_torch.serve import DecodeEngine, ServeServer
 from distlearn_tpu_torch.utils.flags import parse_flags
 from distlearn_tpu_torch.utils.logging import print_server, root_print
-from distlearn_tpu_torch.utils.platform import resolve_device
+from distlearn_tpu_torch.utils.platform import rank_device, resolve_device
 
 _A11 = "waits for ROADMAP A11 (tp, sequence, pipeline and expert " \
     "parallelism of LM training)"
@@ -192,16 +191,6 @@ def _corpus(opt) -> np.ndarray:
     return toks
 
 
-def _rank_device(opt, rank: int) -> str:
-    return "cpu" if opt.device == "cpu" else f"cuda:{rank}"
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def train(opt, rank: int = 0, init_method: str | None = None):
     """``opt.steps`` SGD steps of this rank on its rows of the corpus;
     returns ``(params, compute_dtype, corpus)`` with the trained params (the
@@ -209,16 +198,17 @@ def train(opt, rank: int = 0, init_method: str | None = None):
     ranks starts here and is destroyed before returning."""
     import torch.distributed as dist
 
-    from distlearn_tpu_torch.parallel.mesh import init_mesh
+    from distlearn_tpu_torch.parallel.mesh import (init_mesh,
+                                                   local_init_method)
     from distlearn_tpu_torch.train.lm import (build_lm_mixed_step,
                                               build_lm_step,
                                               init_lm_mixed_state)
     from distlearn_tpu_torch.utils.profiling import StepTimer, trace
 
     log = root_print(rank)
-    device = _rank_device(opt, rank)
-    tree = init_mesh(rank, opt.dp, device=device, init_method=init_method
-                     or f"tcp://localhost:{_free_port()}")
+    device = rank_device(torch.device(opt.device), rank)
+    tree = init_mesh(rank, opt.dp, device=device,
+                     init_method=init_method or local_init_method())
     try:
         lm = _model(opt)
         params = _init(lm, opt, tree.device)
@@ -317,10 +307,11 @@ def main(argv=None) -> int:
     http = obs.start_http_server(opt.obsPort) if opt.obsPort else None
     if opt.steps > 0 and opt.dp > 1:
         import torch.multiprocessing as mp
+
+        from distlearn_tpu_torch.parallel.mesh import local_init_method
         resolve_device(opt.device)      # no card and no --device cpu: raise
-        mp.start_processes(_rank_main, args=(
-            opt, f"tcp://localhost:{_free_port()}"), nprocs=opt.dp,
-            start_method="spawn")
+        mp.start_processes(_rank_main, args=(opt, local_init_method()),
+                           nprocs=opt.dp, start_method="spawn")
     else:
         if opt.steps > 0:
             params, cd, corpus = train(opt)

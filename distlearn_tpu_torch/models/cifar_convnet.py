@@ -7,7 +7,10 @@
 
 4,328,970 parameters.  Input NHWC ``[N, 32, 32, 3]``; the flatten before the
 linear layer takes (h, w, c) order, as the JAX model's NHWC reshape does, so
-JAX weights load unchanged apart from their layout.
+JAX weights load unchanged apart from their layout.  ``compute_dtype``
+(e.g. ``torch.bfloat16``) runs the convolutions, batchnorm, pooling and the
+linear layer in that dtype over ``dtype`` params; the log-softmax returns to
+``dtype``, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from distlearn_tpu_torch.utils.platform import resolve_device
 _CHANNELS = (64, 128, 256, 512)
 
 
-def cifar_convnet(dtype=torch.float32, dropout_rate: float = 0.5) -> Model:
+def cifar_convnet(dtype=torch.float32, compute_dtype=None,
+                  dropout_rate: float = 0.5) -> Model:
     def init(seed: int = 0, device=None):
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
@@ -42,7 +46,8 @@ def cifar_convnet(dtype=torch.float32, dropout_rate: float = 0.5) -> Model:
         h = x.to(dtype).permute(0, 3, 1, 2)   # NHWC -> NCHW, channels-last memory
         new_state = {}
         for i in range(1, len(_CHANNELS) + 1):
-            h = nn.conv2d(params[f"conv{i}"], h, padding=2)
+            h = nn.conv2d(params[f"conv{i}"], h, padding=2,
+                          compute_dtype=compute_dtype)
             h, new_state[f"bn{i}"] = nn.batchnorm(
                 params[f"bn{i}"], state[f"bn{i}"], h, train=train, eps=1e-3,
                 tree=tree, weight=bn_weight)
@@ -50,7 +55,7 @@ def cifar_convnet(dtype=torch.float32, dropout_rate: float = 0.5) -> Model:
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)   # (h, w, c) order
         if train and rng is not None and dropout_rate > 0:
             h = nn.dropout(rng, h, dropout_rate, train=True)
-        logits = nn.dense(params["linear"], h)
+        logits = nn.dense(params["linear"], h, compute_dtype=compute_dtype)
         return nn.log_softmax(logits.to(dtype)), new_state
 
     return Model(init=init, apply=apply, name="cifar_convnet",

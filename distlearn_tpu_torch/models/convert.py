@@ -6,9 +6,14 @@ batchnorm scale/bias and running statistics) keeps its shape.  The
 transformer LM keeps the JAX layouts unchanged (:func:`lm_from_jax`,
 :func:`lm_to_jax`).  The JAX side is nested dicts of numpy arrays
 (``jax.device_get`` of its pytrees), so this module needs no JAX.
+
+:data:`CONVNET_WIRE` is the convnets' layout on the AsyncEA wire: the JAX
+package's, so that a JAX peer and a port peer exchange the same leaves.
 """
 
 from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +36,17 @@ def _leaf_to_jax(name: str, t) -> np.ndarray:
     elif name == "w" and a.ndim == 2:        # [out, in] -> [in, out]
         a = a.T
     return np.ascontiguousarray(a)
+
+
+def _permute_leaf(name: str, t: torch.Tensor, to_jax: bool) -> torch.Tensor:
+    """The device-side twin of :func:`_leaf` / :func:`_leaf_to_jax`: a
+    permuted contiguous copy of a conv or dense weight on its own device,
+    any other leaf as it is.  Exact (a permutation moves no bits)."""
+    if name == "w" and t.ndim == 4:
+        return t.permute((2, 3, 1, 0) if to_jax else (3, 2, 0, 1)).contiguous()
+    if name == "w" and t.ndim == 2:
+        return t.t().contiguous()
+    return t
 
 
 def _walk(tree, leaf):
@@ -82,3 +98,20 @@ def lm_to_jax(tree):
             return np.ascontiguousarray(t.numpy())
         return np.ascontiguousarray(np.asarray(t))
     return _walk(tree, leaf)
+
+
+class WireLayout(NamedTuple):
+    """How a model's parameter tree travels on the AsyncEA wire:
+    ``to_wire(tree)`` from the port's layout into the wire's, and
+    ``from_wire(tree)`` back, both on the leaves' own device."""
+    to_wire: Callable[[Any], Any]
+    from_wire: Callable[[Any], Any]
+
+
+#: The convnets (``mnist_cnn``, ``cifar_convnet``) on the wire in the JAX
+#: package's layout: conv kernels HWIO, dense weights ``[in, out]``.  The
+#: transformer LM needs none: it keeps the JAX layouts already.
+CONVNET_WIRE = WireLayout(
+    to_wire=lambda tree: _walk(tree, lambda k, t: _permute_leaf(k, t, True)),
+    from_wire=lambda tree: _walk(tree,
+                                 lambda k, t: _permute_leaf(k, t, False)))

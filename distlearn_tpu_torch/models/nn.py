@@ -8,6 +8,11 @@ in the ``channels_last`` memory format, so the convolutions run channels-last
 at no copy.  Weights are stored in PyTorch's layouts: conv ``OIHW``, dense
 ``[out, in]`` (:mod:`distlearn_tpu_torch.models.convert` moves JAX weights).
 
+``compute_dtype`` (``dense``, ``conv2d``): params stay in their dtype
+(float32 masters) while the input and the weight are cast to the compute
+dtype, the bias added in the output's dtype, as in the JAX package
+(``torch.bfloat16`` runs the convolutions and matmuls on the tensor cores).
+
 Batchnorm is written by hand: the JAX package's sync batchnorm averages
 ``E[x]`` and ``E[x²]`` across nodes, optionally weighted by a contributor
 mask, which ``torch.nn.SyncBatchNorm`` does not do.
@@ -38,8 +43,11 @@ def dense_init(gen, in_features: int, out_features: int, dtype=torch.float32):
             "b": _uniform_fanin(gen, (out_features,), in_features, dtype)}
 
 
-def dense(params, x):
-    return F.linear(x, params["w"], params["b"])
+def dense(params, x, compute_dtype=None):
+    if compute_dtype is None:
+        return F.linear(x, params["w"], params["b"])
+    y = F.linear(x.to(compute_dtype), params["w"].to(compute_dtype))
+    return y + params["b"].to(y.dtype)
 
 
 def conv2d_init(gen, in_ch: int, out_ch: int, kh: int, kw: int,
@@ -49,9 +57,13 @@ def conv2d_init(gen, in_ch: int, out_ch: int, kh: int, kw: int,
             "b": _uniform_fanin(gen, (out_ch,), fan_in, dtype)}
 
 
-def conv2d(params, x, padding: int = 0):
+def conv2d(params, x, padding: int = 0, compute_dtype=None):
     """x: NCHW (channels-last in memory on the main path); weight OIHW."""
-    return F.conv2d(x, params["w"], params["b"], padding=padding)
+    if compute_dtype is None:
+        return F.conv2d(x, params["w"], params["b"], padding=padding)
+    y = F.conv2d(x.to(compute_dtype), params["w"].to(compute_dtype),
+                 padding=padding)
+    return y + params["b"].to(y.dtype).view(1, -1, 1, 1)
 
 
 def max_pool2d(x):

@@ -37,6 +37,18 @@ unless ``device="cpu"`` is asked for) and the host sees only wire bytes:
   bytes (int8 for the int8 codec) and the amax slots cross back, in one
   copy and one synchronize.
 
+Layout on the wire.  Each role takes a ``layout``
+(:class:`~distlearn_tpu_torch.models.convert.WireLayout`, ``None`` when the
+port's layout is the wire's, as for the transformer LM): the convnets travel
+in the JAX package's layout (:data:`~distlearn_tpu_torch.models.convert.
+CONVNET_WIRE`), so JAX and port peers share one center.  The layout changes
+at each role's boundary only, as a permuted copy on the device: the server
+keeps its center in the wire layout (converted on ``init_server`` and on
+the center ``sync_server`` returns), the client converts the fetched center
+into its own layout and the delta into the wire's before the encode (its
+error-feedback residual stays in the wire layout), the tester converts its
+fetch.
+
 Not ported yet (ROADMAP A9(c)/(d)): the concurrent server, stripes
 (``shards > 1``), overlap, rejoin, elastic membership, HA and the slice
 client.  The server answers ``Rejoin?``, ``Join?`` and ``Leave?`` the way
@@ -55,6 +67,7 @@ import torch
 from distlearn_tpu_torch import obs
 from distlearn_tpu_torch.comm import (Conn, ProtocolError, Server, connect,
                                       wire)
+from distlearn_tpu_torch.models.convert import WireLayout
 from distlearn_tpu_torch.obs import trace as obs_trace
 from distlearn_tpu_torch.ops import wire_kernels
 from distlearn_tpu_torch.ops.fused_update import cast_scalar
@@ -126,6 +139,14 @@ def _leaves(tree: PyTree) -> list[torch.Tensor]:
 
 def _rebuild(tree: PyTree, leaves: list) -> PyTree:
     return tree_unflatten(tree_flatten(tree)[1], leaves)
+
+
+def _to_wire(layout: WireLayout | None, tree: PyTree) -> PyTree:
+    return tree if layout is None else layout.to_wire(tree)
+
+
+def _from_wire(layout: WireLayout | None, tree: PyTree) -> PyTree:
+    return tree if layout is None else layout.from_wire(tree)
 
 
 def _expect(conn: Conn, want: str):
@@ -202,8 +223,10 @@ class AsyncEAServer:
 
     def __init__(self, host: str, port: int, num_nodes: int,
                  with_tester: bool = False, accept_timeout: float = 120.0,
-                 handshake_timeout: float | None = 30.0, device=None):
+                 handshake_timeout: float | None = 30.0, device=None,
+                 layout: WireLayout | None = None):
         self.device = resolve_device(device)
+        self.layout = layout
         self.num_nodes = num_nodes
         # Per-handshake IO timeout on the dedicated channels: a client that
         # dies or hangs mid-sync is EVICTED and the server keeps serving the
@@ -250,9 +273,9 @@ class AsyncEAServer:
             "center += delta apply time (host or device path)")
 
     def init_server(self, params: PyTree):
-        """Clone params as the center on the server's device, broadcast it
-        to every client (ref lua :150-160)."""
-        leaves = _leaves(params)
+        """Clone params as the center on the server's device, in the wire
+        layout, and broadcast it to every client (ref lua :150-160)."""
+        leaves = _leaves(_to_wire(self.layout, params))
         self._leaf_meta = [(tuple(t.shape),
                             wire_kernels.numpy_dtype(t.dtype))
                            for t in leaves]
@@ -433,7 +456,8 @@ class AsyncEAServer:
                     timeout: float | None = None) -> PyTree:
         """One full server-side sync round (ref ``syncServer``, lua
         :230-237): admit one client, send center, receive delta, apply it,
-        and return a copy of the center shaped like ``params``.
+        and return a copy of the center shaped like ``params`` (in the
+        port's layout).
 
         A client that fails mid-handshake (EOF, hang past
         ``handshake_timeout``, protocol desync, config skew) is evicted and
@@ -492,7 +516,8 @@ class AsyncEAServer:
                 self._h_handshake.observe(time.perf_counter() - t0)
             self._apply_delta(payload)
             print_server(f"received delta from client #{cid}")
-            return _rebuild(params, [t.clone() for t in self.center])
+            return _from_wire(self.layout, _rebuild(
+                params, [t.clone() for t in self.center]))
 
     def test_net(self) -> bool:
         """Push the center to the tester (ref ``testNet``, lua :239-258).
@@ -547,17 +572,19 @@ class AsyncEAClient:
     error-feedback residuals, 1-bit-SGD style); ``None`` speaks the legacy
     per-leaf wire.  Against an old server the client falls back to the
     legacy frames.  ``params`` are pytrees of tensors on the client's
-    device.
+    device, in the port's layout; ``layout`` names the wire's.
     """
 
     def __init__(self, host: str, port: int, node: int, tau: int,
-                 alpha: float, codec: str | None = "raw", device=None):
+                 alpha: float, codec: str | None = "raw", device=None,
+                 layout: WireLayout | None = None):
         if node < 1:
             raise ValueError("node is 1-based (reference convention)")
         if codec is not None and codec not in wire.CODECS:
             raise ValueError(f"unknown wire codec {codec!r} "
                              f"(supported: {', '.join(wire.CODECS)})")
         self.device = resolve_device(device)
+        self.layout = layout
         self.node = node
         self.tau = int(tau)
         self.alpha = float(alpha)
@@ -607,8 +634,16 @@ class AsyncEAClient:
                                self.device)
         for h, a in zip(self._slab.host_leaves, got):
             h[...] = a
-        self.center = self._slab.to_device()
+        self.center = self._center(params, self._slab.to_device())
         return _rebuild(params, [c.clone() for c in self.center])
+
+    def _center(self, params: PyTree, wire_leaves: list[torch.Tensor]
+                ) -> list[torch.Tensor]:
+        """The fetched center's leaves in the port's layout (the slab's own
+        views when the layouts agree)."""
+        if self.layout is None:
+            return wire_leaves
+        return _leaves(self.layout.from_wire(_rebuild(params, wire_leaves)))
 
     def sync_client(self, params: PyTree) -> tuple[PyTree, bool]:
         """Every ``tau``-th call: full sync handshake (ref ``syncClient``,
@@ -631,7 +666,7 @@ class AsyncEAClient:
         with obs.span("async_ea.fetch_center", shard=0):
             self.conn.send_msg(CENTER_Q)
             self.conn.recv_tensors(out=self._slab.host_leaves)
-            self._slab.to_device()
+            self.center = self._center(params, self._slab.to_device())
         # calculateUpdateDiff (lua :109-119): the elastic move on the
         # device.  Deltas go over the wire in the CENTER's dtype (the
         # server rejects dtype skew), so a client whose params drifted
@@ -644,6 +679,9 @@ class AsyncEAClient:
                 d.mul_(cast_scalar(self.alpha, d.dtype))
                 deltas.append(d)
             new_leaves = [p - d for p, d in zip(leaves, deltas)]
+            if self.layout is not None:
+                deltas = _leaves(self.layout.to_wire(_rebuild(params,
+                                                              deltas)))
             _sync(self.device)
         payload = None
         if packed:
@@ -681,14 +719,16 @@ class AsyncEATester:
 
     ``codec`` opts into the packed wire for center fetches (the
     advertisement rides the tester's own ``Center?``, so leave it ``None``
-    against an old server)."""
+    against an old server).  ``layout`` names the wire's layout."""
 
     def __init__(self, host: str, port: int, num_nodes: int,
-                 codec: str | None = None, device=None):
+                 codec: str | None = None, device=None,
+                 layout: WireLayout | None = None):
         if codec is not None and codec not in wire.CODECS:
             raise ValueError(f"unknown wire codec {codec!r} "
                              f"(supported: {', '.join(wire.CODECS)})")
         self.device = resolve_device(device)
+        self.layout = layout
         self.codec = codec
         # test channel on port+numNodes+1 (EASGD_tester.lua:64)
         self.conn = connect(host, port + num_nodes + 1)
@@ -705,8 +745,8 @@ class AsyncEATester:
             self.conn.send_msg(CENTER_Q)
         got = self.conn.recv_tensors(n=len(_leaves(params)))
         print_tester("received center for evaluation")
-        return _rebuild(params, [torch.from_numpy(a).to(self.device)
-                                 for a in got])
+        return _from_wire(self.layout, _rebuild(
+            params, [torch.from_numpy(a).to(self.device) for a in got]))
 
     def finish_test(self):
         """Ack the round so the server resumes (ref lua :287-292)."""

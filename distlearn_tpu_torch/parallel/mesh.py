@@ -11,6 +11,7 @@ nothing here finds a cluster by itself.
 
 from __future__ import annotations
 
+import socket
 from typing import Any
 
 import torch
@@ -86,6 +87,14 @@ class MeshTree:
         parts = [torch.empty_like(x) for _ in range(self.num_nodes)]
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts)
+
+
+def local_init_method() -> str:
+    """A ``tcp://localhost:<port>`` rendezvous on a port free a moment ago,
+    for ranks that all run on this host."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return f"tcp://localhost:{s.getsockname()[1]}"
 
 
 def init_mesh(rank: int = 0, world_size: int = 1,

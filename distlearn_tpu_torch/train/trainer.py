@@ -14,28 +14,72 @@ and one hand-written kernel launch per bucket (:mod:`..ops.fused_update`).
 * :func:`build_ea_steps` — AllReduceEA: a collective-free local step and the
   elastic round; the caller runs the round every ``tau`` steps
   (lua/AllReduceEA.lua:31).
+* :func:`build_sgd_scan_step` and :func:`build_ea_cycle` — K chained SGD
+  steps, or one EASGD cycle (tau local steps and the round), per call: on
+  the card one CUDA graph replay, the counterpart of the JAX package's
+  ``lax.scan`` in one XLA program; on the CPU the same steps in a loop.
 
 No step waits on the host: losses and counts stay on the device.  The
-dropout generator in the state is advanced in place by each step.
+dropout generator in the state is advanced in place by each step.  Every
+step made here counts its calls and times their host dispatch
+(``train_steps_total``, ``train_step_dispatch_seconds``) unless
+``DISTLEARN_OBS=0``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from distlearn_tpu_torch import obs
 from distlearn_tpu_torch.models.core import Model, loss_fn
 from distlearn_tpu_torch.ops import flatten as flatten_lib
 from distlearn_tpu_torch.ops import fused_update
 from distlearn_tpu_torch.parallel import allreduce_ea, allreduce_sgd
 from distlearn_tpu_torch.parallel.mesh import MeshTree
+from distlearn_tpu_torch.train.graphs import GraphedProgram
 from distlearn_tpu_torch.utils import metrics as metrics_lib
 from distlearn_tpu_torch.utils.tree import (tree_flatten, tree_map,
                                             tree_unflatten)
 
 PyTree = Any
+
+
+class _TimedStep:
+    """Telemetry around a built step: times each call's host dispatch (the
+    wall time to enqueue its work, which the graphed steps exist to
+    shorten, not the device's compute) and counts the calls; other
+    attributes are the step's own."""
+
+    def __init__(self, fn, name: str):
+        self._fn = fn
+        lat = obs.histogram(
+            "train_step_dispatch_seconds",
+            "host-side dispatch wall time per step call", labels=("step",))
+        cnt = obs.counter("train_steps_total", "step calls",
+                          labels=("step",))
+        self._h = lat.labels(step=name)
+        self._c = cnt.labels(step=name)
+
+    def __call__(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = self._fn(*a, **kw)
+        self._c.inc()
+        self._h.observe(time.perf_counter() - t0)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+
+def _timed(fn, name: str):
+    """``fn`` with telemetry, or ``fn`` itself when telemetry is off."""
+    if not obs.enabled():
+        return fn
+    return _TimedStep(fn, name)
 
 
 class TrainState(NamedTuple):
@@ -120,6 +164,20 @@ def build_sgd_step(model: Model, tree: MeshTree, lr: float,
     bucket instead of one of each per parameter.  ``max_bucket_bytes``
     caps a bucket.
     """
+    _body = _make_sgd_body(model, tree, lr, fused, max_bucket_bytes)
+    if with_contrib:
+        def step(ts, x, y, contrib):
+            return _body(ts, x, y, contrib)
+    else:
+        def step(ts, x, y):
+            return _body(ts, x, y, None)
+    return _timed(step, "sgd")
+
+
+def _make_sgd_body(model: Model, tree: MeshTree, lr: float,
+                   fused: bool | None, max_bucket_bytes: int | None):
+    """The body of one AllReduceSGD step, ``(ts, x, y, contrib) -> (ts,
+    loss)`` (shared by the per-call and the scanned steps)."""
     use_fused = fused_update.fused_enabled(fused, tree.device)
 
     def _body(ts: TrainState, x, y, contrib):
@@ -149,13 +207,58 @@ def build_sgd_step(model: Model, tree: MeshTree, lr: float,
             mean_loss = total / torch.clamp(n, min=1).to(loss.dtype)
         return TrainState(params, mstate, sync, cm, ts.rng), mean_loss
 
-    if with_contrib:
-        def step(ts, x, y, contrib):
-            return _body(ts, x, y, contrib)
-    else:
-        def step(ts, x, y):
-            return _body(ts, x, y, None)
-    return step
+    return _body
+
+
+def build_sgd_scan_step(model: Model, tree: MeshTree, lr: float,
+                        fused: bool | None = None,
+                        max_bucket_bytes: int | None = None,
+                        with_contrib: bool = False,
+                        dataset=None) -> Callable:
+    """K chained AllReduceSGD steps per call: ``steps(ts, xs, ys) -> (ts,
+    losses)`` with ``xs``/``ys`` this node's K batches stacked on a leading
+    ``[K]`` axis and ``losses`` shaped ``[K]`` (JAX ``build_sgd_scan_step``,
+    ``train/trainer.py:261``).  The same steps as K calls of
+    :func:`build_sgd_step`'s, bit for bit.
+
+    On the card the K steps (forward, backward, the sync-batchnorm and
+    gradient allreduces, the B1 update per bucket) are one CUDA graph,
+    captured at the first call of each K and replayed once a call: the host
+    launches one graph for K steps instead of every kernel of each.  The
+    returned state is the graph's own buffers and stays valid until the
+    next call (see :mod:`~distlearn_tpu_torch.train.graphs`).  On the CPU
+    the steps run in a loop.
+
+    ``with_contrib=True`` adds a last argument, this node's ``[K]`` 0/1
+    flags, one per chained step (the per-call step's ``contrib``).
+    ``dataset``, a :class:`~distlearn_tpu_torch.data.DeviceDataset` on this
+    node's device, replaces ``xs, ys`` with ``idxs`` ``[K, B]``: each
+    step's batch is gathered inside the graph, and a call moves only the
+    index vectors to the card.
+    """
+    body = _make_sgd_body(model, tree, lr, fused, max_bucket_bytes)
+
+    want = (1 if dataset is not None else 2) + with_contrib
+
+    def batch_k(batch, k):
+        """Step k's ``(x, y, contrib)``."""
+        c = batch[-1][k] if with_contrib else None
+        if dataset is None:
+            return batch[0][k], batch[1][k], c
+        idx = torch.as_tensor(batch[0][k], device=dataset.device)
+        return (*dataset.take(idx), c)
+
+    def program(ts: TrainState, *batch):
+        if len(batch) != want:
+            raise TypeError(f"expected {want} batch arguments, got "
+                            f"{len(batch)}")
+        losses = []
+        for k in range(batch[0].shape[0]):
+            ts, loss = body(ts, *batch_k(batch, k))
+            losses.append(loss)
+        return ts, torch.stack(losses)
+
+    return _timed(GraphedProgram(program, tree.device), "sgd_scan")
 
 
 def build_sync_step(tree: MeshTree) -> Callable:
@@ -169,7 +272,7 @@ def build_sync_step(tree: MeshTree) -> Callable:
                                                             ts.sync, tree)
         return ts._replace(params=params, sync=sync)
 
-    return step
+    return _timed(step, "sync")
 
 
 def build_eval_step(model: Model, tree: MeshTree) -> Callable:
@@ -186,7 +289,7 @@ def build_eval_step(model: Model, tree: MeshTree) -> Callable:
         cm = metrics_lib.update_confusion(cm, log_probs, y)
         return cm, tree.all_reduce(loss)[0] / tree.num_nodes
 
-    return step
+    return _timed(step, "eval")
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +355,16 @@ def build_ea_steps(model: Model, tree: MeshTree, lr: float, alpha: float,
     ``momentum > 0`` makes the local optimizer heavy-ball SGD, EAMSGD
     (arXiv:1412.6651 §3): ``v = mu*v + g; p -= lr*v``.
     """
+    local_step, ea_round = _make_ea_bodies(model, tree, lr, alpha, fused,
+                                           max_bucket_bytes, momentum)
+    return _timed(local_step, "ea_local"), _timed(ea_round, "ea_round")
+
+
+def _make_ea_bodies(model: Model, tree: MeshTree, lr: float, alpha: float,
+                    fused: bool | None, max_bucket_bytes: int | None,
+                    momentum: float = 0.0) -> tuple[Callable, Callable]:
+    """The (local_step, ea_round) bodies shared by the per-call and the
+    cycle steps."""
     use_fused = fused_update.fused_enabled(fused, tree.device)
 
     def local_step(ts: EATrainState, x, y):
@@ -269,3 +382,32 @@ def build_ea_steps(model: Model, tree: MeshTree, lr: float, alpha: float,
         return ts._replace(params=params, center=center)
 
     return local_step, ea_round
+
+
+def build_ea_cycle(model: Model, tree: MeshTree, lr: float, alpha: float,
+                   fused: bool | None = None,
+                   max_bucket_bytes: int | None = None,
+                   momentum: float = 0.0) -> Callable:
+    """One EASGD cycle per call — ``tau`` collective-free local steps, then
+    the elastic round: ``cycle(ts, xs, ys) -> (ts, losses)`` with
+    ``xs``/``ys`` stacked on a leading ``[tau]`` axis and ``losses`` this
+    node's ``[tau]`` (JAX ``build_ea_cycle``, ``train/trainer.py:481``).
+    The same as tau :func:`build_ea_steps` local steps and one round, bit
+    for bit.
+
+    On the card the cycle is one CUDA graph replayed once a call (one B2
+    launch per bucket in it), as :func:`build_sgd_scan_step`; the returned
+    state stays valid until the next call.  On the CPU the steps run in a
+    loop.
+    """
+    local_step, ea_round = _make_ea_bodies(model, tree, lr, alpha, fused,
+                                           max_bucket_bytes, momentum)
+
+    def program(ts: EATrainState, xs, ys):
+        losses = []
+        for k in range(xs.shape[0]):
+            ts, loss = local_step(ts, xs[k], ys[k])
+            losses.append(loss)
+        return ea_round(ts), torch.stack(losses)
+
+    return _timed(GraphedProgram(program, tree.device), "ea_cycle")

@@ -24,3 +24,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def available_nodes(device: torch.device) -> int | None:
+    """How many one-device nodes ``device``'s kind offers: the visible
+    cards for CUDA, no limit (``None``) for CPU processes."""
+    return torch.cuda.device_count() if device.type == "cuda" else None
+
+
+def rank_device(device: torch.device, rank: int) -> torch.device:
+    """Rank ``rank``'s device: ``cuda:<rank>`` on the cards (one card a
+    rank), the CPU for CPU ranks."""
+    return torch.device("cuda", rank) if device.type == "cuda" \
+        else torch.device("cpu")

@@ -5,7 +5,10 @@ real localhost sockets with the roles as threads, all on the CPU:
 1. trajectories: 50 rounds of the port's server and client in each codec
    end on the center of tests/test_async_ea_wire.py::_run_ea, bit for bit;
 2. mixed fleets: a JAX server with a port client and a port server with a
-   JAX client, 50 int8 rounds, bit for bit the all-JAX run;
+   JAX client, 50 int8 rounds on layout-neutral leaves, and int8 and raw
+   rounds of the full-width CIFAR-10 convnet with the port's roles on the
+   JAX package's wire layout (``CONVNET_WIRE``), bit for bit the all-JAX
+   run;
 3. the slice's sync math at full width: the CIFAR-10 convnet's 18 leaves
    from the JAX init, 5 int8 rounds, equal to the JAX pair after the
    layout change;
@@ -39,7 +42,8 @@ from distlearn_tpu_torch.comm import ProtocolError  # noqa: E402
 from distlearn_tpu_torch.data import synthetic_mnist  # noqa: E402
 from distlearn_tpu_torch.examples import easgd  # noqa: E402
 from distlearn_tpu_torch.models import mnist_cnn  # noqa: E402
-from distlearn_tpu_torch.models.convert import from_jax, to_jax  # noqa: E402
+from distlearn_tpu_torch.models.convert import (CONVNET_WIRE,  # noqa: E402
+                                                from_jax, to_jax)
 from distlearn_tpu_torch.parallel import async_ea as pea  # noqa: E402
 from distlearn_tpu_torch.train import trainer  # noqa: E402
 from distlearn_tpu_torch.utils.logging import set_verbose  # noqa: E402
@@ -107,16 +111,17 @@ def _run_threads(*fns):
 # ---------------------------------------------------------------------------
 # Roles of either package behind one call shape
 
-def _server(pkg, port, num_nodes=1, **kw):
+def _server(pkg, port, num_nodes=1, layout=None, **kw):
     if pkg == "port":
-        return pea.AsyncEAServer(HOST, port, num_nodes, device="cpu", **kw)
+        return pea.AsyncEAServer(HOST, port, num_nodes, device="cpu",
+                                 layout=layout, **kw)
     return jea.AsyncEAServer(HOST, port, num_nodes, **kw)
 
 
-def _client(pkg, port, node=1, tau=1, alpha=0.5, codec="raw"):
+def _client(pkg, port, node=1, tau=1, alpha=0.5, codec="raw", layout=None):
     if pkg == "port":
         return pea.AsyncEAClient(HOST, port, node=node, tau=tau, alpha=alpha,
-                                 codec=codec, device="cpu")
+                                 codec=codec, device="cpu", layout=layout)
     return jea.AsyncEAClient(HOST, port, node=node, tau=tau, alpha=alpha,
                              codec=codec)
 
@@ -132,28 +137,37 @@ def _tree(pkg, tree_np):
 
 
 def _run_pair(server_pkg, client_pkg, init_np, drift, rounds, codec,
-              alpha=0.5):
+              alpha=0.5, port_init_np=None, port_drift=None, layout=None):
     """One client syncing every step (tau 1) for ``rounds`` rounds against
     a serial server, both starting from ``init_np``; ``drift(r, params)``
-    is the client's local move before sync r.  Returns (final center
-    leaves, final client params)."""
+    is the client's local move before sync r.  A port role starts from
+    ``port_init_np`` and drifts by ``port_drift`` where they are given (the
+    same values in the port's layout), on the wire ``layout``.  Returns
+    (final center leaves, final client params)."""
     port = _ports()
     out = {}
 
+    def own(pkg, tree, port_tree):
+        return port_tree if pkg == "port" and port_tree is not None else tree
+
     def client_fn():
-        c = _client(client_pkg, port, alpha=alpha, codec=codec)
-        p = c.init_client(_tree(client_pkg, init_np))
+        c = _client(client_pkg, port, alpha=alpha, codec=codec,
+                    layout=layout)
+        p = c.init_client(_tree(client_pkg,
+                                own(client_pkg, init_np, port_init_np)))
+        move = own(client_pkg, drift, port_drift)
         for r in range(rounds):
-            p, synced = c.sync_client(drift(r, p))
+            p, synced = c.sync_client(move(r, p))
             assert synced
         out["params"] = p
         c.close()
 
     def server_fn():
-        srv = _server(server_pkg, port)
-        srv.init_server(_tree(server_pkg, init_np))
+        srv = _server(server_pkg, port, layout=layout)
+        start = _tree(server_pkg, own(server_pkg, init_np, port_init_np))
+        srv.init_server(start)
         for _ in range(rounds):
-            srv.sync_server(_tree(server_pkg, init_np))
+            srv.sync_server(start)
         out["center"] = [t.clone() if isinstance(t, torch.Tensor)
                          else t.copy() for t in srv.center]
         srv.close()
@@ -184,27 +198,94 @@ def test_fifty_round_trajectory_bitwise_vs_jax(codec):
 
 _MIXED_INIT = {"w": np.zeros((8, 5), np.float32),
                "b": np.zeros((3,), np.float32)}
+CONVNET_ROUNDS = 3
 
 
 def _mixed_drift(r, p):
     return {k: v + ((r % 5) + 0.25) for k, v in p.items()}
 
 
+def _convnet_case():
+    """The full-width CIFAR-10 convnet from JAX's seed-0 init and a seeded
+    drift a round, as numpy trees in JAX's layout, with the port's
+    layout beside them."""
+    jparams = jax.tree_util.tree_map(
+        np.asarray, jax.device_get(jax_cifar().init(random.PRNGKey(0))[0]))
+    rng = np.random.RandomState(11)
+    drifts = [jax.tree_util.tree_map(
+        lambda a: (0.01 * rng.randn(*a.shape)).astype(np.float32), jparams)
+        for _ in range(CONVNET_ROUNDS)]
+    port_drifts = [from_jax(d, {})[0] for d in drifts]
+    port_init = {k: {n: v.numpy() for n, v in d.items()}
+                 for k, d in from_jax(jparams, {})[0].items()}
+    return dict(
+        init_np=jparams,
+        drift=lambda r, p: jax.tree_util.tree_map(
+            lambda a, b: a + b, p, drifts[r]),
+        port_init_np=port_init,
+        port_drift=lambda r, p: {
+            k: {n: v + port_drifts[r][k][n] for n, v in d.items()}
+            for k, d in p.items()},
+        rounds=CONVNET_ROUNDS)
+
+
+def _mixed_case(model):
+    if model == "convnet":
+        return _convnet_case()
+    return dict(init_np=_MIXED_INIT, drift=_mixed_drift, rounds=50)
+
+
+def _run_mixed(model, server_pkg, client_pkg, codec):
+    layout = CONVNET_WIRE if model == "convnet" else None
+    return _run_pair(server_pkg, client_pkg, codec=codec, layout=layout,
+                     **_mixed_case(model))
+
+
 @pytest.fixture(scope="module")
-def all_jax_int8_run():
-    return _run_pair("jax", "jax", _MIXED_INIT, _mixed_drift, 50, "int8")
+def all_jax_run():
+    """The all-JAX fleet's (center, client params) per (model, codec),
+    each run once for the module."""
+    runs = {}
+
+    def get(model, codec):
+        if (model, codec) not in runs:
+            runs[model, codec] = _run_mixed(model, "jax", "jax", codec)
+        return runs[model, codec]
+    return get
+
+
+def _assert_params_bitwise(params, want_params):
+    if not isinstance(next(iter(tree_leaves(params))), np.ndarray):
+        params = to_jax(params)
+    _assert_bitwise(jax.tree_util.tree_leaves(params),
+                    jax.tree_util.tree_leaves(want_params))
 
 
 @pytest.mark.parametrize("server_pkg,client_pkg",
                          [("jax", "port"), ("port", "jax")])
-def test_mixed_fleet_int8_bitwise_vs_all_jax(all_jax_int8_run, server_pkg,
+def test_mixed_fleet_int8_bitwise_vs_all_jax(all_jax_run, server_pkg,
                                              client_pkg):
-    center, params = _run_pair(server_pkg, client_pkg, _MIXED_INIT,
-                               _mixed_drift, 50, "int8")
-    want_center, want_params = all_jax_int8_run
+    center, params = _run_mixed("tiny", server_pkg, client_pkg, "int8")
+    want_center, want_params = all_jax_run("tiny", "int8")
     _assert_bitwise(center, want_center)
     _assert_bitwise([params[k] for k in sorted(params)],
                     [want_params[k] for k in sorted(want_params)])
+
+
+@pytest.mark.parametrize("codec", ["int8", "raw"])
+@pytest.mark.parametrize("server_pkg,client_pkg",
+                         [("jax", "port"), ("port", "jax")])
+def test_mixed_convnet_fleet_bitwise_vs_all_jax(all_jax_run, server_pkg,
+                                                client_pkg, codec):
+    """The convnet's conv and dense weights travel in the JAX package's
+    layout (HWIO, ``[in, out]``), so a port client syncs against a JAX
+    server and JAX clients against a port server; the center and the
+    client's params equal the all-JAX fleet's bit for bit."""
+    center, params = _run_mixed("convnet", server_pkg, client_pkg, codec)
+    want_center, want_params = all_jax_run("convnet", codec)
+    assert len(center) == 18
+    _assert_bitwise(center, want_center)
+    _assert_params_bitwise(params, want_params)
 
 
 # ---------------------------------------------------------------------------
@@ -237,42 +318,6 @@ def test_convnet_int8_rounds_bitwise_vs_jax_after_layout_change():
         jcenter)
     _assert_bitwise(jax.tree_util.tree_leaves(to_jax(pclient)),
                     jax.tree_util.tree_leaves(jclient))
-
-
-def test_mixed_convnet_fleet_fails_on_the_layout():
-    """A known limit of the port: the two packages keep the convnet's conv
-    and dense weights in different layouts (HWIO/[in, out] against
-    OIHW/[out, in]), so a port client training its own params against a
-    JAX server's center cannot form the elastic delta; the client raises
-    and the server evicts it, its center untouched."""
-    jparams = jax.tree_util.tree_map(
-        np.asarray, jax.device_get(jax_cifar().init(random.PRNGKey(0))[0]))
-    tparams = from_jax(jparams, {})[0]
-    port = _ports()
-    box = {}
-
-    def client_fn():
-        c = _client("port", port, codec="int8")
-        c.init_client(tparams)
-        try:
-            c.sync_client(tparams)
-        except RuntimeError as e:
-            box["client_error"] = str(e)
-        c.close()
-
-    def server_fn():
-        srv = _server("jax", port, handshake_timeout=5.0)
-        srv.init_server(jparams)
-        with pytest.raises((TimeoutError, RuntimeError)):
-            srv.sync_server(jparams, timeout=10.0)
-        box["evicted"] = set(srv.evicted)
-        box["center"] = [t.copy() for t in srv.center]
-        srv.close()
-
-    _run_threads(server_fn, client_fn)
-    assert "size of tensor" in box["client_error"]
-    assert box["evicted"] == {1}
-    _assert_bitwise(box["center"], jax.tree_util.tree_leaves(jparams))
 
 
 # ---------------------------------------------------------------------------

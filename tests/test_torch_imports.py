@@ -16,7 +16,8 @@ import torch.distributed as dist  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "distlearn_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
-     ROOT / "tests" / "torch_lm_dist_worker.py"]
+     ROOT / "tests" / "torch_lm_dist_worker.py",
+     ROOT / "tests" / "torch_scan_dist_worker.py"]
 
 
 def _imported_modules(path: Path):
@@ -49,7 +50,11 @@ def test_port_sources_found():
                 "serve/client.py", "serve/server.py",
                 "utils/checkpoint.py", "examples/lm.py",
                 "examples/lm_client.py", "train/lm.py",
-                "utils/profiling.py"):
+                "utils/profiling.py", "train/graphs.py",
+                "data/device_dataset.py", "data/prefetch.py",
+                "examples/common.py", "examples/mnist.py",
+                "examples/mnist_ea.py", "examples/cifar10.py",
+                "graft_entry.py"):
         assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "distlearn_tpu_torch/ops/csrc/flash_attention.cu").exists()
