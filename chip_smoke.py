@@ -130,7 +130,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    parity line printed, every accuracy finite and above chance.
 14. entry  — ``graft_entry.entry()`` on the card against its CPU route
    within phase 4's card-against-CPU log-prob tolerance.
-15. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+15. host    — the reference's process-per-node path: the native reduce
+   and the SIMD C host codec built (no numpy fallback), the codec bit for
+   bit B3's plain twin; ``examples/client_remote.py`` as 4 processes
+   sharing ``cuda:0`` (tau 4, 2 epochs of 4096 examples, global batch
+   128), over the tree and then the ring: the nodes' final digests agree,
+   each rank's B2 launches equal its elastic rounds (> 0), the loss falls;
+   4 spawned rank processes on ``cuda:0``: the convnet's 18 leaves (17.3
+   MB float32) as tensors on the card through the tree and the ring, bit
+   for bit the same round with numpy leaves, with the median of 10
+   rounds' staging, host round and return and the NIC bytes (the tree's
+   root, a ring rank); ``TreeAllReduceSGD`` with 3, 4, 5 and 6 steps,
+   every rank's params equal after ``synchronize_parameters``; an int8
+   tree round bit for bit the numpy route's; then
+   ``parallel.init.initialize`` as one NCCL process and 3
+   ``build_sgd_step`` steps of the toy model, the loss finite.
+16. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -2579,6 +2594,357 @@ def phase_entry(torch):
           "entry() on the card disagrees with its CPU route")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the process-per-node path over the TCP tree and ring
+# ---------------------------------------------------------------------------
+
+HOST_NODES = 4
+CLIENT_REMOTE = ["--numNodes", str(HOST_NODES), "--communicationTime", "4",
+                 "--numEpochs", "2", "--numExamples", "4096",
+                 "--batchSize", "128"]
+HOST_ROUNDS = 10              # timed device-tensor allreduces a topology
+HOST_SGD_STEPS = (3, 4, 5, 6)  # rank i's TreeAllReduceSGD steps
+HOST_EA_STEPS = (2, 4, 6, 8)   # rank i's local steps an epoch, TreeAllReduceEA
+HOST_EA_TAU, HOST_EA_EPOCHS = 2, 2
+HOST_TIMEOUT_S = 300
+HOST_DEVICE = "cuda"           # the rank processes' device (cuda:0)
+
+
+def run_client_remote(backend: str) -> list[dict]:
+    """``examples/client_remote.py`` as HOST_NODES processes on the card;
+    each rank's digest, elastic rounds, B2 launches and epoch losses."""
+    port = free_port_window(1)
+    cmd = [sys.executable, "-m", "distlearn_tpu_torch.examples.client_remote",
+           *CLIENT_REMOTE, "--backend", backend, "--port", str(port),
+           "--device", HOST_DEVICE]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--nodeIndex", str(i + 1)], cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(HOST_NODES)]
+    ranks = []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=HOST_TIMEOUT_S)
+            check(p.returncode == 0, f"client_remote --backend {backend} "
+                  f"node {i + 1} exited {p.returncode}: {err[-2000:]}")
+            digest = re.search(r"final params digest (\w+)", out)
+            counts = re.search(r"elastic rounds (\d+), fused_elastic "
+                               r"launches (\d+)", out)
+            check(digest and counts, f"client_remote node {i + 1} printed "
+                  f"no digest or counts: {out[-1000:]}")
+            ranks.append({"digest": digest.group(1),
+                          "rounds": int(counts.group(1)),
+                          "launches": int(counts.group(2)),
+                          "losses": [float(v) for v in re.findall(
+                              r"mean loss ([-\w.]+)", out)]})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"[host] client_remote --backend {backend} x{HOST_NODES} on "
+        f"{HOST_DEVICE}:"
+        f" {time.perf_counter() - t0:.1f} s; digests "
+        f"{[r['digest'] for r in ranks]}; elastic rounds / B2 launches "
+        f"{[(r['rounds'], r['launches']) for r in ranks]}; node 1's epoch "
+        f"losses {ranks[0]['losses']}")
+    return ranks
+
+
+def host_worker(rank: int, n: int, ports: tuple, device: str, q) -> None:
+    """One rank of the device-tensor checks (a spawned process on
+    ``device``, ``cuda:0`` on the card): the convnet's 18 leaves through
+    the tree and the ring against the numpy route, timed; one int8-codec
+    tree round against the numpy route; TreeAllReduceSGD with uneven steps
+    and TreeAllReduceEA with uneven rounds and ``synchronize_center``, each
+    run twice over the tree on the same seeds, with tensors on ``device``
+    and with numpy arrays (the JAX package's arithmetic)."""
+    try:
+        import hashlib
+
+        import numpy as np
+        import torch
+        from distlearn_tpu_torch.comm.ring import LocalhostRing
+        from distlearn_tpu_torch.comm.tree import LocalhostTree
+        from distlearn_tpu_torch.ops import fused_update as fu
+        from distlearn_tpu_torch.parallel.host_algorithms import (
+            TreeAllReduceEA, TreeAllReduceSGD)
+        from distlearn_tpu_torch.utils.flags import EA_FLAGS
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def raw(leaves) -> list[bytes]:
+            return [(x.cpu().numpy() if isinstance(x, torch.Tensor)
+                     else x).tobytes() for x in leaves]
+
+        def on_dev(leaves) -> bool:
+            return all(isinstance(x, torch.Tensor) and x.device == dev
+                       for x in leaves)
+
+        def card_leaf(a):
+            return torch.from_numpy(a).to(dev)
+
+        def host_leaf(a):
+            return a
+
+        def sgd_run(h, leaf):
+            r = np.random.RandomState(2000 + rank)
+            sgd = TreeAllReduceSGD(h)
+            params = sgd.synchronize_parameters(
+                [leaf(np.zeros_like(a)) for a in host])
+            for _ in range(HOST_SGD_STEPS[rank]):
+                g = [leaf(r.randn(*a.shape).astype(np.float32))
+                     for a in host]
+                g, _ = sgd.sum_and_normalize_gradients(g)
+                params = [p - 0.01 * gi for p, gi in zip(params, g)]
+            return sgd.synchronize_parameters(params)
+
+        def ea_run(h, leaf):
+            # client_remote's alpha; each local step subtracts the same
+            # float32 drift in both runs, so only the sync differs
+            r = np.random.RandomState(3000 + rank)
+            ea = TreeAllReduceEA(h, tau=HOST_EA_TAU,
+                                 alpha=EA_FLAGS["alpha"][0])
+            params = ea.synchronize_parameters([leaf(a.copy()) for a in host])
+            for _ in range(HOST_EA_EPOCHS):
+                for _ in range(HOST_EA_STEPS[rank]):
+                    params = [p - leaf((r.randn(*a.shape) * 0.01).astype(
+                        np.float32)) for p, a in zip(params, host)]
+                    params = ea.average_parameters(params)
+                params = ea.synchronize_center(params)
+            return params, ea.center, ea.rounds
+
+        rng = np.random.RandomState(1000 + rank)
+        host = [rng.randn(*s).astype(np.float32) for s in convnet_shapes()]
+        card = [card_leaf(a) for a in host]
+        res = {"rank": rank}
+        for name, make, port in (("tree", LocalhostTree, ports[0]),
+                                 ("ring", LocalhostRing, ports[1])):
+            h = make(rank, n, port)
+            want, m = h.all_reduce(host)
+            splits = []
+            for i in range(HOST_ROUNDS + 1):         # the first is warm-up
+                nic = h.nic_bytes()
+                sync()
+                t0 = time.perf_counter()
+                got, m = h.all_reduce(card)
+                sync()
+                wall = time.perf_counter() - t0
+                stage, rnd, _ = h.last_split
+                if i:
+                    splits.append((stage, rnd, wall - stage - rnd,
+                                   h.nic_bytes() - nic))
+            same = all(g.device == dev and g.dtype == torch.float32
+                       for g in got) and raw(got) == raw(want)
+            kept = raw(card) == raw(host)
+            res[name] = {"bits": same and kept and m == n, "splits": splits}
+            if name == "tree":
+                want8, _ = h.all_reduce_ex(host, codec="int8")[:2]
+                got8, _ = h.all_reduce_ex(card, codec="int8")[:2]
+                res["int8_bits"] = raw(got8) == raw(want8)
+                params = sgd_run(h, card_leaf)
+                res["sgd_digest"] = hashlib.sha256(
+                    b"".join(raw(params))).hexdigest()
+                res["sgd_bits"] = (on_dev(params) and raw(params)
+                                   == raw(sgd_run(h, host_leaf)))
+                before = fu.fused_elastic.launches
+                params, center, rounds = ea_run(h, card_leaf)
+                launches = fu.fused_elastic.launches - before
+                want_p, want_c, want_rounds = ea_run(h, host_leaf)
+                res["ea"] = {
+                    "bits": (on_dev(params) and on_dev(center)
+                             and raw(params) == raw(want_p)
+                             and raw(center) == raw(want_c)),
+                    "rounds": rounds, "numpy_rounds": want_rounds,
+                    "launches": launches}
+            h.close()
+        q.put(("ok", res))
+    except Exception as e:  # noqa: BLE001 — reported by the parent
+        import traceback
+        q.put(("err", {"rank": rank, "error": repr(e),
+                       "trace": traceback.format_exc()[-2000:]}))
+
+
+def run_host_workers() -> list[dict]:
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    ports = (free_port_window(1), free_port_window(1))
+    procs = [ctx.Process(target=host_worker,
+                         args=(i, HOST_NODES, ports, HOST_DEVICE, q))
+             for i in range(HOST_NODES)]
+    for p in procs:
+        p.start()
+    try:
+        results = [q.get(timeout=HOST_TIMEOUT_S) for _ in procs]
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errs = [r for kind, r in results if kind == "err"]
+    check(not errs, f"a host-collective rank failed: {errs[:1]}")
+    return sorted((r for _, r in results), key=lambda r: r["rank"])
+
+
+def toy_model(torch):
+    """The toy linear classifier of tests/test_multihost.py::_spmd_worker."""
+    from distlearn_tpu_torch.models.core import Model
+
+    def init(seed=0, device=None):
+        g = torch.Generator().manual_seed(seed)
+        params = {"w": torch.randn(16, 10, generator=g) * 0.1,
+                  "b": torch.zeros(10)}
+        return {k: v.to(device) for k, v in params.items()}, {}
+
+    def apply(params, state, x, train=True, rng=None, tree=None,
+              bn_weight=None):
+        logits = x.reshape(x.shape[0], -1) @ params["w"] + params["b"]
+        return torch.log_softmax(logits, dim=-1), state
+
+    return Model(init=init, apply=apply, name="toy", input_shape=(4, 4, 1),
+                 num_classes=10)
+
+
+def phase_host(torch) -> dict:
+    import numpy as np
+    import torch.distributed as dist
+    from distlearn_tpu_torch.comm import native
+    from distlearn_tpu_torch.models import mnist_cnn
+    from distlearn_tpu_torch.ops import flatten as flatten_lib
+    from distlearn_tpu_torch.ops import fused_update as fu
+    from distlearn_tpu_torch.ops import wire_kernels as wk
+    from distlearn_tpu_torch.ops import wire_native
+    from distlearn_tpu_torch.parallel import init as pinit
+    from distlearn_tpu_torch.train import build_sgd_step, init_train_state
+    from distlearn_tpu_torch.utils.flags import EA_FLAGS
+
+    # the host libraries, built from the checkout: no quiet numpy fallback
+    check(native.available(), "comm/native.py did not build src/comm/"
+          "distcomm.cpp (the transport and the tree's reduction)")
+    check(wire_native.available(), "ops/wire_native.py is unavailable: "
+          f"{wire_native.why_unavailable()}")
+    rng = np.random.RandomState(5)
+    delta = [rng.randn(*s).astype(np.float32) * 1e-3
+             for s in convnet_shapes()]
+    for d in delta:
+        q, r = np.empty(d.shape, np.int8), np.empty_like(d)
+        scale = wk.quantize_ef_into(d, q, r)       # the C codec
+        pq, ps, pr = wk.quantize_ef_plain(torch.from_numpy(d))
+        check(scale == ps and np.array_equal(q, pq.numpy())
+              and r.tobytes() == pr.numpy().tobytes(),
+              "the SIMD host codec disagrees with B3's plain twin")
+    log("[host] native reduce and the SIMD C host codec built; the codec "
+        "bit for bit B3's plain twin over the convnet's 18 leaves")
+
+    # B2 at the bucket client_remote gives it (mnist_cnn's, padded) and at
+    # client_remote's alpha, against its plain twin
+    # B2 counts only launches on the card: the CPU rehearsal's twin none
+    b2_per_round = 1 if HOST_DEVICE == "cuda" else 0
+    alpha = EA_FLAGS["alpha"][0]
+    params = mnist_cnn().init(0, device=HOST_DEVICE)[0]
+    spec = flatten_lib.make_bucket_spec(params)
+    for p in flatten_lib.pack_buckets(spec, params):
+        gen = torch.Generator(device=p.device).manual_seed(11)
+        c = p + 0.01 * torch.randn(p.shape, generator=gen, device=p.device)
+        (got_p, got_d), (want_p, want_d) = (fu.fused_elastic(p, c, alpha),
+                                            fu.elastic_plain(p, c, alpha))
+        check(torch.equal(got_p, want_p) and torch.equal(got_d, want_d),
+              f"fused_elastic differs from elastic_plain at mnist_cnn's "
+              f"bucket (n={p.numel()}, alpha {alpha})")
+    log(f"[host] B2 bit for bit its plain twin at mnist_cnn's buckets "
+        f"{[b.padded for b in spec.buckets]}, alpha {alpha}")
+
+    out = {}
+    for backend in ("tree", "ring"):
+        ranks = run_client_remote(backend)
+        check(len({r["digest"] for r in ranks}) == 1,
+              f"client_remote --backend {backend}: the nodes' final params "
+              "differ")
+        check(all(r["launches"] == b2_per_round * r["rounds"]
+                  and r["rounds"] > 0 for r in ranks),
+              f"client_remote --backend {backend}: B2 did not launch once "
+              "an elastic round in every rank")
+        losses = ranks[0]["losses"]
+        check(len(losses) == 2 and all(map(math.isfinite, losses))
+              and losses[1] < losses[0],
+              f"client_remote --backend {backend}: loss did not fall "
+              f"({losses})")
+        out[f"client_remote_{backend}"] = ranks
+
+    t0 = time.perf_counter()
+    ranks = run_host_workers()
+    log(f"[host] {HOST_NODES} rank processes on {HOST_DEVICE}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, who in (("tree", 0), ("ring", 0)):
+        check(all(r[name]["bits"] for r in ranks),
+              f"the device-tensor {name} allreduce is not bit for bit the "
+              "numpy route's (or touched its inputs)")
+        splits = ranks[who][name]["splits"]
+        ms = [p50([s[i] for s in splits]) * 1e3 for i in range(3)]
+        nic = p50([s[3] for s in splits])
+        log(f"[host] {name}: 18 leaves (17.3 MB f32) x {HOST_NODES} ranks, "
+            f"bit for bit the numpy route; rank {who}'s median of "
+            f"{HOST_ROUNDS}: stage {ms[0]:.3f} ms, host round {ms[1]:.3f} "
+            f"ms, return {ms[2]:.3f} ms; NIC bytes {int(nic)}")
+        out[name] = {"stage_ms": ms[0], "round_ms": ms[1],
+                     "return_ms": ms[2], "nic_bytes": int(nic)}
+    check(all(r["int8_bits"] for r in ranks),
+          "an int8-codec tree round with tensors on the card differs from "
+          "the numpy route")
+    check(all(r["sgd_bits"] for r in ranks)
+          and len({r["sgd_digest"] for r in ranks}) == 1,
+          "TreeAllReduceSGD: a rank's params on the card differ from its "
+          "numpy run, or ranks differ after synchronize_parameters")
+    for r in ranks:
+        ea = r["ea"]
+        check(ea["bits"], f"TreeAllReduceEA rank {r['rank']}: params or "
+              "center on the card differ from its numpy run")
+        check(ea["rounds"] == ea["numpy_rounds"] > 0
+              and ea["launches"] == b2_per_round * ea["rounds"],
+              f"TreeAllReduceEA rank {r['rank']}: {ea['rounds']} elastic "
+              f"rounds (numpy run {ea['numpy_rounds']}), "
+              f"{ea['launches']} B2 launches")
+    log(f"[host] int8 tree round bit for bit the numpy route; "
+        f"TreeAllReduceSGD with {HOST_SGD_STEPS} steps: params bit for bit "
+        "the numpy run's on every rank, equal across ranks; "
+        f"TreeAllReduceEA with {HOST_EA_STEPS} steps (tau {HOST_EA_TAU}) x "
+        f"{HOST_EA_EPOCHS} epochs and synchronize_center: params and center "
+        "bit for bit the numpy run's on every rank; elastic rounds / B2 "
+        f"launches {[(r['ea']['rounds'], r['ea']['launches']) for r in ranks]}")
+
+    info = pinit.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                            device=HOST_DEVICE)
+    try:
+        tree = pinit.global_mesh_tree()
+        check(HOST_DEVICE == "cpu" or (dist.get_backend() == "nccl"
+                                       and tree.device.type == "cuda"),
+              "parallel.init.initialize did not join NCCL on the card")
+        model = toy_model(torch)
+        ts = init_train_state(model, tree, 0, 10)
+        step = build_sgd_step(model, tree, lr=0.1)
+        rs = np.random.RandomState(7)
+        bx = pinit.host_local_batch(tree, rs.randn(8, 4, 4, 1).astype(
+            np.float32))
+        by = pinit.host_local_batch(tree, rs.randint(0, 10, (8,)))
+        for _ in range(3):
+            ts, loss = step(ts, bx, by)
+        loss = float(loss)
+    finally:
+        dist.destroy_process_group()
+    check(math.isfinite(loss), f"toy model loss {loss} after 3 steps")
+    log(f"[host] parallel.init.initialize: {info.num_processes} process on "
+        f"{info.device}, 3 build_sgd_step steps, loss {loss:.4f}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2630,6 +2996,7 @@ def main() -> int:
             dist.destroy_process_group()
         phase_examples(torch)
         phase_entry(torch)
+        host = phase_host(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -2678,7 +3045,12 @@ def main() -> int:
         f"{served['ttft_ms']:.2f} ms, TPOT p50 {served['tpot_ms']:.2f} ms, "
         f"{served['tokens_per_s']:.1f} tokens/s; LM training "
         f"{trained['modes']['none']['steps_per_s']:.2f} steps/s, MFU "
-        f"{trained['modes']['none']['mfu']:.3f}")
+        f"{trained['modes']['none']['mfu']:.3f}; host tree sync stage / "
+        f"round / return {host['tree']['stage_ms']:.3f} / "
+        f"{host['tree']['round_ms']:.3f} / {host['tree']['return_ms']:.3f} "
+        f"ms, ring {host['ring']['stage_ms']:.3f} / "
+        f"{host['ring']['round_ms']:.3f} / {host['ring']['return_ms']:.3f} "
+        "ms")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,20 @@
-"""Host transport of the port (copies of ``distlearn_tpu/comm``): the
-packed wire codec, the framed TCP transport and its error types.  Tree,
-ring, collective backends and fault injection are not ported yet."""
+"""Host communication of the port (counterparts of ``distlearn_tpu/comm``):
+the packed wire codec, the framed TCP transport and its error types, the
+tree and ring collectives over it (numpy leaves, or torch tensors staged
+through a pinned frame), their shared base, and deterministic fault
+injection.  The collective backends (``HostBackend``, ``MeshBackend``,
+``HybridBackend``) come with ROADMAP A9(d)."""
 
 from distlearn_tpu_torch.comm import errors, transport, wire
+from distlearn_tpu_torch.comm.backend import HostCollectiveBase
 from distlearn_tpu_torch.comm.errors import PeerClosed
+from distlearn_tpu_torch.comm.faults import FaultInjected, FaultPlan
+from distlearn_tpu_torch.comm.ring import LocalhostRing, Ring
 from distlearn_tpu_torch.comm.transport import (Conn, ProtocolError, Server,
                                                 connect)
+from distlearn_tpu_torch.comm.tree import LocalhostTree, Tree, tree_map_spawn
 
 __all__ = ["errors", "transport", "wire", "PeerClosed", "Conn",
-           "ProtocolError", "Server", "connect"]
+           "ProtocolError", "Server", "connect", "Ring", "LocalhostRing",
+           "Tree", "LocalhostTree", "tree_map_spawn", "FaultPlan",
+           "FaultInjected", "HostCollectiveBase"]

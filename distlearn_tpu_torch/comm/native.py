@@ -78,8 +78,19 @@ def _load():
         lib.dc_recv_exact.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                       ctypes.c_uint64]
         lib.dc_recv_exact.restype = ctypes.c_int
+        for fn in _reducers(lib).values():
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64,
+                           ctypes.c_int]
+            fn.restype = None
         _lib = lib
         return _lib
+
+
+def _reducers(lib) -> dict:
+    return {np.dtype(np.float32): lib.dc_reduce_float,
+            np.dtype(np.float64): lib.dc_reduce_double,
+            np.dtype(np.int32): lib.dc_reduce_int32_t,
+            np.dtype(np.int64): lib.dc_reduce_int64_t}
 
 
 def available() -> bool:
@@ -131,3 +142,17 @@ def recv_exact(fd: int, buf: memoryview, n: int) -> None:
     lib = _load()
     addr = ctypes.addressof(ctypes.c_char.from_buffer(buf))
     _check_rc(lib.dc_recv_exact(fd, addr, n), "dc_recv_exact")
+
+
+def reduce_inplace(dst: np.ndarray, src: np.ndarray, op: str = "sum") -> None:
+    """Native elementwise reduction ``dst op= src`` (the tree-reduce inner
+    loop, ``dc_reduce_*``); other dtypes, non-contiguous arrays and a
+    missing library take numpy's ufuncs, which give the same values."""
+    opc = {"sum": 0, "max": 1, "min": 2}[op]
+    lib = _load()
+    fn = None if lib is None else _reducers(lib).get(dst.dtype)
+    if fn is None or src.dtype != dst.dtype or src.size != dst.size \
+            or not (dst.flags.c_contiguous and src.flags.c_contiguous):
+        (np.add, np.maximum, np.minimum)[opc](dst, src, out=dst)
+        return
+    fn(dst.ctypes.data, src.ctypes.data, dst.size, opc)

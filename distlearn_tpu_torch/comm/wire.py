@@ -118,14 +118,17 @@ class FrameBuffer:
     :meth:`device_stage` holds the frame's twin on a device: the port's
     tensor route writes wire bytes there and moves the whole frame in one
     copy.  Every buffer belongs to the one role that owns the
-    FrameBuffer."""
+    FrameBuffer.  :attr:`busy` is the event of the last asynchronous copy
+    out of the region (``ops/staging.py::unstage``), which a host write
+    must wait for."""
 
-    __slots__ = ("buf", "host", "pinned", "stage")
+    __slots__ = ("buf", "host", "pinned", "stage", "busy")
 
     def __init__(self, nbytes: int = 0, pinned: bool = False):
         self.pinned = bool(pinned)
         self.host = None
         self.stage = None
+        self.busy = None
         self.buf = self._alloc(nbytes)
 
     def _alloc(self, nbytes: int) -> np.ndarray:

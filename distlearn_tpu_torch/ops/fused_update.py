@@ -161,6 +161,19 @@ def sgd_update_buckets(spec: flatten_lib.BucketSpec, params: PyTree,
     return flatten_lib.unpack_buckets(spec, new)
 
 
+def elastic_move_buckets(params: PyTree, center: PyTree, alpha: float,
+                         max_bucket_bytes: int | None = None
+                         ) -> tuple[flatten_lib.BucketSpec, list, list, list]:
+    """The elastic move (lua/AllReduceEA.lua:35-39) on flat buckets: one
+    :func:`fused_elastic` launch a bucket.  Returns ``(spec, new_p,
+    delta, center)``, the last three lists of flat buckets of ``spec``."""
+    spec = flatten_lib.make_bucket_spec(params, max_bucket_bytes)
+    c_flats = flatten_lib.pack_buckets(spec, center)
+    moved = [fused_elastic(p, c, alpha) for p, c in
+             zip(flatten_lib.pack_buckets(spec, params), c_flats)]
+    return spec, [m[0] for m in moved], [m[1] for m in moved], c_flats
+
+
 def elastic_round_buckets(params: PyTree, center: PyTree, alpha: float,
                           tree, max_bucket_bytes: int | None = None
                           ) -> tuple[PyTree, PyTree]:
@@ -169,14 +182,10 @@ def elastic_round_buckets(params: PyTree, center: PyTree, alpha: float,
     sums the deltas over the nodes of ``tree`` (a
     :class:`~distlearn_tpu_torch.parallel.mesh.MeshTree`), and the center
     moves by the sum.  Returns ``(new_params, new_center)``."""
-    spec = flatten_lib.make_bucket_spec(params, max_bucket_bytes)
-    p_flats = flatten_lib.pack_buckets(spec, params)
-    c_flats = flatten_lib.pack_buckets(spec, center)
-    new_p, new_c = [], []
-    for p, c in zip(p_flats, c_flats):
-        np_, d = fused_elastic(p, c, alpha)
+    spec, new_p, deltas, c_flats = elastic_move_buckets(
+        params, center, alpha, max_bucket_bytes)
+    for d in deltas:
         dist.all_reduce(d, group=tree.group)
-        new_p.append(np_)
-        new_c.append(c + d)
     return (flatten_lib.unpack_buckets(spec, new_p),
-            flatten_lib.unpack_buckets(spec, new_c))
+            flatten_lib.unpack_buckets(
+                spec, [c + d for c, d in zip(c_flats, deltas)]))

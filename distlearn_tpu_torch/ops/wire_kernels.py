@@ -8,9 +8,10 @@ Two routes, chosen by what the caller holds:
 * **Host route** (numpy arrays): copied from the JAX package —
   :func:`quantize_ef_into`, :func:`fp16_ef_into`, :func:`dequant_add` and
   :func:`fp16_add`, cache-blocked numpy, bitwise equal to the reference
-  codec ``comm/wire.py::_encode_leaf``.  (The JAX package's SIMD C codec,
-  ``ops/wire_native.py``, is bitwise equal to this route and is not ported
-  yet.)
+  codec ``comm/wire.py::_encode_leaf``.  Where the SIMD C codec of
+  :mod:`wire_native` is built, :func:`quantize_ef_into` and
+  :func:`dequant_add` call it for float32 leaves, as the JAX package's
+  route does; it is bitwise equal to the numpy loops.
 * **Tensor route** (torch tensors): the two Pallas TPU kernels become
   hand-written CUDA kernels for Hopper (``ops/csrc/wire_kernels.cu``):
 
@@ -61,7 +62,7 @@ import torch
 
 from distlearn_tpu_torch import obs
 from distlearn_tpu_torch.comm import wire
-from distlearn_tpu_torch.ops import _build
+from distlearn_tpu_torch.ops import _build, wire_native
 from distlearn_tpu_torch.ops.fused_update import cast_scalar
 
 __all__ = [
@@ -130,12 +131,20 @@ def quantize_ef_into(d: np.ndarray, q: np.ndarray, r: np.ndarray) -> float:
     flat = d.reshape(-1)
     qf = q.reshape(-1)
     rf = r.reshape(-1)
-    scale = _scale_of(_amax_blocked(flat) if flat.size else 0.0)
+    native = wire_native.usable_quant(d, q, r) and flat.size
+    if native:
+        amax = wire_native.amax_checked(flat)
+    else:
+        amax = _amax_blocked(flat) if flat.size else 0.0
+    scale = _scale_of(amax)
     if scale == 0.0:
         qf[...] = 0
         rf[...] = flat          # q decodes to 0 => the whole delta carries
         return scale
     st = d.dtype.type(scale)
+    if native:
+        wire_native.quant_ef_f32(flat, st, qf, rf)
+        return scale
     for lo in range(0, flat.size, _CHUNK):
         c = flat[lo:lo + _CHUNK]
         s = _chunk_scratch(d.dtype)[:c.size]
@@ -172,6 +181,10 @@ def dequant_add(t: np.ndarray, wirebuf: np.ndarray, scale: float | None,
     wf = wirebuf.reshape(-1)
     of = out.reshape(-1)
     st = t.dtype.type(scale) if scale is not None else None
+    if (st is not None and tf.size
+            and wire_native.usable_apply(t, wirebuf, out)
+            and wire_native.dequant_add_f32(tf, wf, st, of)):
+        return out
     for lo in range(0, tf.size, _CHUNK):
         wc = wf[lo:lo + _CHUNK]
         s = _chunk_scratch(t.dtype)[:wc.size]

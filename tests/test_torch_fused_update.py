@@ -126,6 +126,28 @@ def test_elastic_round_buckets_matches_jax(tree, max_bucket_bytes):
                                        atol=ATOL)
 
 
+@pytest.mark.parametrize("max_bucket_bytes", [None, 64])
+def test_elastic_move_buckets_matches_numpy(max_bucket_bytes):
+    """One B2 call a bucket gives numpy's ``(p - c) * alpha; p - delta``
+    bit for bit on every leaf, without the buckets' padding."""
+    rng = np.random.RandomState(3)
+    shapes = {"a": (3, 5), "b": (7,), "c": (2, 2, 3)}
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    center = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    spec, new_p, delta, c_flats = tfu.elastic_move_buckets(
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        {k: torch.from_numpy(v) for k, v in center.items()}, 0.2,
+        max_bucket_bytes)
+    assert len(new_p) == len(delta) == len(c_flats) == len(spec.buckets)
+    assert len(spec.buckets) == (1 if max_bucket_bytes is None else 3)
+    got_p = tflat.unpack_buckets(spec, new_p)
+    got_d = tflat.unpack_buckets(spec, delta)
+    for k in shapes:
+        d = (params[k] - center[k]) * np.float32(0.2)
+        assert got_d[k].numpy().tobytes() == d.tobytes()
+        assert got_p[k].numpy().tobytes() == (params[k] - d).tobytes()
+
+
 def test_bucket_spec_roundtrip_mixed_dtypes():
     """Counterpart of tests/test_fused_wiring.py's mixed-dtype roundtrip."""
     tree = {"a": torch.arange(6, dtype=torch.float32).reshape(2, 3),

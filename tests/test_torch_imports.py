@@ -54,7 +54,10 @@ def test_port_sources_found():
                 "data/device_dataset.py", "data/prefetch.py",
                 "examples/common.py", "examples/mnist.py",
                 "examples/mnist_ea.py", "examples/cifar10.py",
-                "graft_entry.py"):
+                "graft_entry.py", "comm/backend.py", "comm/tree.py",
+                "comm/ring.py", "comm/faults.py", "ops/wire_native.py",
+                "ops/staging.py", "parallel/host_algorithms.py",
+                "parallel/init.py", "examples/client_remote.py"):
         assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "distlearn_tpu_torch/ops/csrc/flash_attention.cu").exists()
@@ -139,3 +142,15 @@ def test_lm_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
         assert st.params["embed"].device.type == "cpu"
     finally:
         dist.destroy_process_group()
+
+
+def test_host_layer_entry_points_raise_without_gpu(no_gpu):
+    """The process-per-node example and the process-group bootstrap run on
+    the card unless the CPU is asked for."""
+    from distlearn_tpu_torch.examples import client_remote
+    from distlearn_tpu_torch.parallel.init import initialize
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        client_remote.main(["--numNodes", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize("127.0.0.1:1", 1, 0)
+    assert not dist.is_initialized()
