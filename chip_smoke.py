@@ -77,6 +77,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    client; 16 syncs applied, 5 tester pushes, finite losses, and the B3/B4
    launch counts the design implies (one amax, one quantize and one B4
    launch a sync).  Prints where a sync's time goes.
+8a. async concurrent — the rest of AsyncEA on the card: (a) a concurrent
+   server striped 4 ways (conv4 split into 4 chunks) and one client, 20
+   int8 and 5 raw rounds of phase 7's drift, center and params bit for bit
+   the CPU route's, raw bit for bit the one-stripe run, B3 (amax,
+   quantize) and B4 launched once a stripe a sync; 3 int8 rounds at S = 3
+   (conv4 chunks at offsets that are not multiples of 4) bit for bit the
+   CPU route's; (b) the example's roles as threads: an elastic S = 4
+   concurrent server, 3 founding clients (overlapped pushes) of the
+   full-width convnet at batch 128, tau 4, int8, client 2 dropping its
+   channels after 3 syncs and rejoining, client 3 leaving after 4, a
+   capacity-2 client joining: every counted sync applied once, client 2's
+   ledger at its last sync on every stripe, the live weights summing to
+   3, finite losses, B3 4 + 4 launches a sync and B4 one a weight-1
+   stripe apply; (c) HA: checkpoints every 2 syncs, the primary stopped
+   after 5, a standby promoted (its center the checkpoint's bit for bit,
+   epoch 1), the clients failing over (the missed sync replayed once: the
+   primary's final center bit for bit) and syncing again, a stale center
+   refused; (d) syncs/s and the client sync split for the serial server
+   and the concurrent one (S = 1, 4, 4 with overlap) with the same 2
+   clients, and B3/B4 at two stripes' shapes (CUDA events, L2 flushed,
+   busy time, plain twins, the ``torch.add`` loop, the bound).
 9. flash   — kernel B5a (causal flash-attention forward) against its plain
    twin and the xla route at the serving shape (B=1, H=16, D=64) for L =
    128, 256, 1024, 2048, at B=4, H=8, D=128, L=1024 and at B=2, H=4, D=32,
@@ -198,6 +219,11 @@ SGD_SHORT = (1, 3, 4 * SGD_CHUNK - 1, 4 * SGD_CHUNK + 5)
 ASYNC_CLIENTS, ASYNC_BATCH, ASYNC_TAU, ASYNC_ALPHA = 2, 128, 4, 0.2
 ASYNC_SYNCS_PER_CLIENT, ASYNC_TEST_TIME = 8, 4
 TRAJ_ROUNDS = (("int8", 20), ("raw", 5))
+# phase 8a: 4 stripes (S = 3 cuts conv4 at element offsets that are not
+# multiples of 4); 3 founding clients, client 2 cut after 3 syncs, client 3
+# leaving after 4, a capacity-2 joiner
+ASYNC8A_SHARDS, ASYNC8A_RAGGED_SHARDS, ASYNC8A_CLIENTS = 4, 3, 3
+ASYNC8A_CUT_AFTER, ASYNC8A_LEAVE_AFTER, ASYNC8A_JOIN_CAPACITY = 3, 4, 2.0
 CONVNET_LEAVES, CONVNET_PARAMS, CONV4 = 18, 4_328_970, 3_276_800
 RAGGED_LEAF = CONV4 - 1021               # not a multiple of 4
 B3_SENTINEL_Q, B3_SENTINEL_R = 0x55, -7.5  # what B3 must leave unwritten
@@ -1699,6 +1725,507 @@ def phase_async_train(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8a: the concurrent server — stripes, overlap, rejoin, elastic, HA
+# ---------------------------------------------------------------------------
+
+def applies_by_path(obs) -> dict:
+    """The server's center applies so far, by path ('fused' = weight 1,
+    B4 over the int8 leaves; 'scaled' = a capacity weight, plain ops)."""
+    for fam in obs.REGISTRY.snapshot():
+        if fam["name"] == "async_ea_center_applies_total":
+            return {s["labels"]["path"]: s["value"] for s in fam["samples"]}
+    return {}
+
+
+def spawn_concurrent(device, num_clients, shards, codec, params0,
+                     centers=None, tau=1):
+    """A concurrent server (S = ``shards``) and ``num_clients`` clients on
+    ``device``, the convnet on the JAX package's wire layout; started
+    together (both constructors wait for the other side).  Returns
+    ``(server, clients, params)`` with the server serving."""
+    from distlearn_tpu_torch.models.convert import CONVNET_WIRE
+    from distlearn_tpu_torch.parallel import async_ea
+    port = free_port_window(num_clients + shards + 2)
+    box = {}
+
+    def dial(i):
+        box[i] = async_ea.AsyncEAClient(
+            "127.0.0.1", port, node=i + 1, tau=tau, alpha=ASYNC_ALPHA,
+            codec=codec, device=device, layout=CONVNET_WIRE,
+            centers=centers)
+
+    def serve():
+        box["srv"] = async_ea.AsyncEAServerConcurrent(
+            "127.0.0.1", port, num_clients, shards=shards, device=device,
+            layout=CONVNET_WIRE, accept_timeout=120.0)
+
+    run_threads(serve, *[lambda i=i: dial(i) for i in range(num_clients)])
+    srv, clients = box["srv"], [box[i] for i in range(num_clients)]
+    ps = [None] * num_clients
+
+    def init(i):
+        ps[i] = clients[i].init_client(params0)
+
+    # the initial broadcast (the whole center to each client) outgrows the
+    # socket buffers: the clients receive while the server sends
+    run_threads(lambda: srv.init_server(params0),
+                *[lambda i=i: init(i) for i in range(num_clients)])
+    srv.start()
+    return srv, clients, ps
+
+
+def settle(srv, timeout=120.0):
+    """Wait until nothing is in flight on ``srv`` and its sync count holds
+    still over two polls."""
+    deadline = time.monotonic() + timeout
+    last = -1
+    while time.monotonic() < deadline:
+        with srv._lock:
+            quiet = srv._inflight == 0
+        if quiet:
+            n = srv.syncs_completed
+            if n == last:
+                return
+            last = n
+        else:
+            last = -1
+        time.sleep(0.05)
+    raise SmokeFailure("the concurrent server did not settle")
+
+
+def run_async_concurrent(torch, device, codec, rounds, shards):
+    """One tau-1 client on a concurrent server with ``shards`` stripes, on
+    ``device``, phase 7's seeded drift.  Returns the final center (wire
+    layout) and client params on the host."""
+    from distlearn_tpu_torch.models import cifar_convnet
+    from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
+    params0 = cifar_convnet().init(0, device="cpu")[0]
+    srv, (cl,), (p,) = spawn_concurrent(device, 1, shards, codec, params0)
+    try:
+        try:
+            for r in range(rounds):
+                g = torch.Generator().manual_seed(1000 + r)
+                p = tree_map(lambda v: v + (0.01 * torch.randn(
+                    tuple(v.shape), generator=g)).to(v.device), p)
+                p, synced = cl.sync_client(p)
+                check(synced, "a tau-1 client did not sync")
+        finally:
+            cl.close()
+        check_wait(lambda: srv.drained, 60, "the concurrent server to drain")
+        center = [t.cpu() for t in srv._center_clone()]
+    finally:
+        srv.stop()
+        srv.close()
+    return center, [t.cpu() for t in tree_leaves(p)], list(srv.splits)
+
+
+def check_wait(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def trees_bitwise(torch, a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_async_concurrent_trajectory(torch):
+    """8a(a): the concurrent, striped trajectory on the card against the
+    CPU route and the one-stripe run."""
+    from distlearn_tpu_torch.ops import wire_kernels as wk
+    S = ASYNC8A_SHARDS
+    card = {}
+    for codec, rounds in TRAJ_ROUNDS:
+        reset_wire_counts(wk)
+        t0 = time.perf_counter()
+        card[codec] = run_async_concurrent(torch, "cuda", codec, rounds, S)
+        t_card = time.perf_counter() - t0
+        launches = (*b3_launches(wk), b4_launches(wk))
+        cpu = run_async_concurrent(torch, "cpu", codec, rounds, S)
+        for what, i in (("center", 0), ("client params", 1)):
+            check(len(card[codec][i]) == CONVNET_LEAVES and trees_bitwise(
+                torch, card[codec][i], cpu[i]),
+                f"8a {codec}: the card's {what} at S={S} differs from the "
+                "CPU route's")
+        want = (S * rounds,) * 3 if codec == "int8" else (0, 0, 0)
+        check(launches == want,
+              f"8a: {rounds} {codec} rounds at S={S} launched (amax, "
+              f"quantize, dequant_add) = {launches}; expected {want} (one "
+              "of each per stripe per int8 sync)")
+        log(f"[async8a] {rounds} {codec} rounds, concurrent S={S} "
+            f"(splits {card[codec][2]}), card against the CPU route: "
+            f"center and client params bitwise equal; (amax, quantize, "
+            f"dequant_add) launches {launches}; card {t_card:.2f} s")
+    one = run_async_concurrent(torch, "cuda", "raw", TRAJ_ROUNDS[1][1], 1)
+    check(trees_bitwise(torch, one[0], card["raw"][0])
+          and trees_bitwise(torch, one[1], card["raw"][1]),
+          f"8a: raw rounds at S={S} differ from S=1 on the card")
+    one8 = run_async_concurrent(torch, "cuda", "int8", TRAJ_ROUNDS[0][1], 1)
+    diff = max(max_abs(torch, x, y) for x, y in zip(one8[0],
+                                                    card["int8"][0]))
+    log(f"[async8a] raw: S={S} bitwise equal to S=1 on the card (striping "
+        f"is transport only); int8: S={S} against S=1 max abs center "
+        f"difference {diff:.3e} (each conv4 chunk carries its own scale)")
+    reset_wire_counts(wk)
+    r3, rounds3 = ASYNC8A_RAGGED_SHARDS, 3
+    ragged = run_async_concurrent(torch, "cuda", "int8", rounds3, r3)
+    launches = (*b3_launches(wk), b4_launches(wk))
+    cpu = run_async_concurrent(torch, "cpu", "int8", rounds3, r3)
+    check(ragged[2][15] == 3 and trees_bitwise(torch, ragged[0], cpu[0])
+          and trees_bitwise(torch, ragged[1], cpu[1])
+          and launches == (r3 * rounds3,) * 3,
+          f"8a: int8 at S={r3} (conv4 in chunks at offsets that are not "
+          f"multiples of 4): card against CPU or launches {launches}")
+    log(f"[async8a] {rounds3} int8 rounds at S={r3} (conv4 cut at element "
+        "offsets 1092267 and 2184534): card bitwise the CPU route; "
+        f"launches {launches}")
+
+
+def phase_async_fleet(torch):
+    """8a(b): the example's roles as threads on an elastic, striped,
+    concurrent server on the card, with a cut-and-rejoin, a leave and a
+    capacity-2 join."""
+    from distlearn_tpu_torch import obs
+    from distlearn_tpu_torch.examples import easgd
+    from distlearn_tpu_torch.obs import trace as obs_trace
+    from distlearn_tpu_torch.ops import wire_kernels as wk
+
+    S, n = ASYNC8A_SHARDS, ASYNC8A_CLIENTS
+    steps = ASYNC_SYNCS_PER_CLIENT * ASYNC_TAU
+    port = free_port_window(n + S + 2)
+    common = ["--numNodes", str(n), "--port", str(port), "--model", "cifar",
+              "--wireCodec", "int8", "--device", "cuda",
+              "--batchSize", str(ASYNC_BATCH),
+              "--communicationTime", str(ASYNC_TAU),
+              "--alpha", str(ASYNC_ALPHA), "--learningRate", str(LR),
+              "--numEpochs", "1", "--numExamples",
+              str(n * steps * ASYNC_BATCH), "--shards", str(S),
+              "--overlapSync"]
+    out = {}
+    serving = threading.Event()
+
+    def served(srv):
+        out["srv"] = srv
+        serving.set()
+
+    def join_later():
+        # the joiner dials once the founders have synced twice each: the
+        # applies before it joins carry weight 1 (B4), those after it a
+        # capacity weight (the plain ops)
+        check(serving.wait(ROLE_TIMEOUT_S), "the server never served")
+        check_wait(lambda: out["srv"].syncs_completed >= 2 * n,
+                   ROLE_TIMEOUT_S, "the founders' first syncs")
+
+    def role(name, kind, extra, wait=False):
+        def run():
+            opt = easgd.parse_role(kind, common + extra)
+            if kind == "server":
+                out[name] = easgd.run_server(opt, on_serving=served)
+            else:
+                out[name] = easgd.run_client(
+                    opt, before_dial=join_later if wait else None)
+        return run
+
+    obs_trace.clear()
+    torch.cuda.synchronize()
+    reset_wire_counts(wk)
+    before = applies_by_path(obs)
+    t0 = time.perf_counter()
+    run_threads(
+        role("server", "server", ["--concurrent", "--elastic",
+                                  "--numSyncs", "100000",
+                                  "--syncTimeout", "30"]),
+        role("c1", "client", ["--nodeIndex", "1"]),
+        role("c2", "client", ["--nodeIndex", "2", "--cutAfter",
+                              str(ASYNC8A_CUT_AFTER)]),
+        role("c3", "client", ["--nodeIndex", "3", "--leaveAfterSyncs",
+                              str(ASYNC8A_LEAVE_AFTER)]),
+        role("c4", "client", ["--nodeIndex", "4", "--joinFleet",
+                              "--capacity", str(ASYNC8A_JOIN_CAPACITY)],
+             wait=True))
+    wall = time.perf_counter() - t0
+    amax, quant = b3_launches(wk)
+    b4 = b4_launches(wk)
+    after = applies_by_path(obs)
+    applied = {k: after.get(k, 0) - before.get(k, 0)
+               for k in ("fused", "scaled")}
+    srv = out["server"]
+    clients = [out[f"c{i}"] for i in range(1, n + 2)]
+    syncs = sum(c["syncs"] for c in clients)
+    check(srv["served"] == syncs, f"8a: the server applied {srv['served']} "
+          f"syncs, the clients counted {syncs}")
+    check(out["c2"]["recoveries"] == 1 and out["c2"]["syncs"] ==
+          ASYNC_SYNCS_PER_CLIENT - 1, f"8a: client 2 (cut after "
+          f"{ASYNC8A_CUT_AFTER}): {out['c2']['syncs']} syncs, "
+          f"{out['c2']['recoveries']} recoveries")
+    check(srv["ledger"].get(2) == [out["c2"]["seq"]] * S,
+          f"8a: client 2's ledger {srv['ledger'].get(2)}, its last sync "
+          f"seq {out['c2']['seq']}")
+    check(out["c3"]["left"] and out["c3"]["syncs"] == ASYNC8A_LEAVE_AFTER,
+          f"8a: client 3 left={out['c3']['left']} after "
+          f"{out['c3']['syncs']} syncs")
+    for i, c in enumerate(clients, start=1):
+        if c["failures"]:
+            log(f"[async8a] client {i}'s failed syncs: {c['failures']}")
+    check(out["c4"]["node"] == n + 1 and out["c4"]["syncs"] ==
+          ASYNC_SYNCS_PER_CLIENT, f"8a: joiner cid {out['c4']['node']}, "
+          f"{out['c4']['syncs']} syncs, {len(out['c4']['losses'])} steps, "
+          f"failures {out['c4']['failures']}")
+    check(srv["members"] == [1, 2, n + 1] and srv["evicted"] == [],
+          f"8a: members {srv['members']}, evicted {srv['evicted']}")
+    weights = srv["weights"]
+    check(abs(sum(weights.values()) - n) < 1e-9,
+          f"8a: live capacity weights {weights} do not sum to {n}")
+    losses = [v for c in clients for v in c["losses"]]
+    check(all(math.isfinite(v) for v in losses), "8a: non-finite loss")
+    check(amax == quant == S * syncs,
+          f"8a: B3 (amax, quantize) = ({amax}, {quant}); expected {S} of "
+          f"each per sync ({S * syncs})")
+    check(b4 == applied["fused"] > 0 and applied["scaled"] > 0
+          and applied["fused"] + applied["scaled"] == S * syncs,
+          f"8a: B4 launched {b4} times; center applies {applied} (expected "
+          f"one B4 launch per weight-1 stripe apply, {S} applies a sync)")
+    log(f"[async8a] elastic fleet on the card (S={S}, int8, overlap, tau "
+        f"{ASYNC_TAU}, batch {ASYNC_BATCH}, full-width CIFAR-10 convnet): "
+        f"{syncs} syncs applied = the clients' count; client 2 cut after "
+        f"{ASYNC8A_CUT_AFTER} syncs and rejoined (ledger {srv['ledger'][2]}"
+        f" = its last seq on every stripe), client 3 left after "
+        f"{ASYNC8A_LEAVE_AFTER}, client 4 joined (capacity "
+        f"{ASYNC8A_JOIN_CAPACITY}); live weights {weights} (sum {n}); "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; {wall:.2f} s wall")
+    log(f"[async8a] launches: amax {amax}, quantize_ef {quant} ({S} each a "
+        f"sync), dequant_add {b4} = the weight-1 stripe applies "
+        f"({applied['fused']}; {applied['scaled']} capacity-weighted "
+        "applies took the plain ops)")
+    return {"launches": {"amax": amax, "quantize_ef": quant,
+                         "dequant_add": b4}, "syncs": syncs}
+
+
+def phase_async_ha(torch):
+    """8a(c): checkpoints every 2 syncs, the primary stopped, a standby on
+    the card promoted; failover with a replay; the epoch fence."""
+    import tempfile
+
+    from distlearn_tpu_torch.models import cifar_convnet
+    from distlearn_tpu_torch.models.convert import CONVNET_WIRE
+    from distlearn_tpu_torch.parallel import async_ea, ha
+    from distlearn_tpu_torch.utils.checkpoint import latest_step
+    from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
+    S = ASYNC8A_SHARDS
+    params0 = cifar_convnet().init(0, device="cpu")[0]
+    standby_port = free_port_window(2 + S + 2)
+    ckdir = tempfile.mkdtemp(prefix="distlearn_ha_")
+    srv, clients, ps = spawn_concurrent(
+        "cuda", 2, S, "int8", params0, centers=[("127.0.0.1", standby_port)])
+    standby = zombie = None
+
+    def drift(p, r):
+        g = torch.Generator().manual_seed(2000 + r)
+        return tree_map(lambda v: v + (0.01 * torch.randn(
+            tuple(v.shape), generator=g)).to(v.device), p)
+
+    try:
+        srv.enable_checkpoint(ckdir, every=2)
+        for r in range(2):
+            for i, cl in enumerate(clients):
+                ps[i], _ = cl.sync_client(drift(ps[i], r))
+                settle(srv)
+        srv._ckpt.wait()
+        check(latest_step(ckdir) == 4, f"8a: newest checkpoint "
+              f"{latest_step(ckdir)}, expected 4 (every 2 syncs)")
+        at_ckpt = [t.cpu() for t in srv._center_clone()]
+        ps[0], _ = clients[0].sync_client(drift(ps[0], 2))
+        settle(srv)
+        final = [t.cpu() for t in srv._center_clone()]
+        srv.stop()
+        srv.close()
+        standby = async_ea.AsyncEAServerConcurrent(
+            "127.0.0.1", standby_port, 2, shards=S, standby=True,
+            device="cuda", layout=CONVNET_WIRE)
+        ha.promote(standby, ckdir, params0)
+        restored, _ = ha.restore_center(ckdir, params0, layout=CONVNET_WIRE)
+        got = [t.cpu() for t in standby._center_clone()]
+        check(standby.epoch == 1 and trees_bitwise(torch, got, at_ckpt)
+              and trees_bitwise(torch, got, [t.cpu() for t in tree_leaves(
+                  CONVNET_WIRE.to_wire(restored))]),
+              "8a: the promoted center is not the checkpoint's bit for bit")
+        standby.start()
+        for cl, p in zip(clients, ps):
+            cl.failover(p, retries=20, retry_interval=0.05,
+                        handshake_timeout=30.0)
+        settle(standby)
+        replayed = [t.cpu() for t in standby._center_clone()]
+        check(trees_bitwise(torch, replayed, final)
+              and standby._applied_seq == {1: [3] * S, 2: [2] * S},
+              "8a: after the failover replay the promoted center is not the "
+              f"primary's final one (ledger {standby._applied_seq})")
+        for i, cl in enumerate(clients):
+            ps[i], synced = cl.sync_client(drift(ps[i], 3))
+            check(synced, "8a: a client did not sync after failover")
+        settle(standby)
+        check(standby.syncs_completed == 7, f"8a: the promoted center "
+              f"counts {standby.syncs_completed} syncs, expected 7")
+        zport = free_port_window(2 + S + 2)
+        zombie = async_ea.AsyncEAServerConcurrent(
+            "127.0.0.1", zport, 2, shards=S, standby=True, device="cuda",
+            layout=CONVNET_WIRE)
+        zombie.init_server(params0)         # epoch 0: behind the fleet
+        zombie.start()
+        clients[1]._centers = [("127.0.0.1", zport)]
+        try:
+            clients[1].failover(ps[1], retries=3, retry_interval=0.05,
+                                handshake_timeout=10.0)
+        except ConnectionError:
+            pass
+        else:
+            raise SmokeFailure("8a: a client failed over to a stale center")
+        check(clients[1]._centers == [], "8a: the stale center was not "
+              "dropped from the dial list")
+        log(f"[async8a] HA on the card: checkpoints every 2 syncs (newest "
+            f"step 4), primary stopped after 5; standby (S={S}) promoted to "
+            "epoch 1, its center the checkpoint's bit for bit; failover "
+            "replayed client 1's missing sync once (center = the primary's "
+            "final one bit for bit), both clients synced again (7 syncs); a "
+            "stale epoch-0 center refused and dropped from the dial list")
+    finally:
+        for cl in clients:
+            cl.close()
+        for s in (srv, standby, zombie):    # stop() again is a no-op
+            if s is not None:
+                s.stop()
+                s.close()
+
+
+def timed_trio(torch, server_extra, client_extra):
+    """The example's server and 2 clients as threads on the card (int8,
+    tau 4, batch 128, 8 syncs a client, no tester).  Returns syncs/s over
+    the clients' training loops, the client sync p50 and span p50s."""
+    from distlearn_tpu_torch import obs
+    from distlearn_tpu_torch.examples import easgd
+    from distlearn_tpu_torch.obs import trace as obs_trace
+    steps = ASYNC_SYNCS_PER_CLIENT * ASYNC_TAU
+    port = free_port_window(ASYNC_CLIENTS + ASYNC8A_SHARDS + 2)
+    common = ["--numNodes", str(ASYNC_CLIENTS), "--port", str(port),
+              "--model", "cifar", "--wireCodec", "int8", "--device", "cuda",
+              "--batchSize", str(ASYNC_BATCH),
+              "--communicationTime", str(ASYNC_TAU),
+              "--alpha", str(ASYNC_ALPHA), "--learningRate", str(LR),
+              "--numEpochs", "1",
+              "--numExamples", str(ASYNC_CLIENTS * steps * ASYNC_BATCH)]
+    out = {}
+
+    def role(name, kind, extra):
+        return lambda: out.__setitem__(name, easgd.ROLES[kind](
+            easgd.parse_role(kind, common + extra)))
+
+    obs_trace.clear()
+    torch.cuda.synchronize()
+    run_threads(role("server", "server", server_extra),
+                *[role(f"c{i}", "client", ["--nodeIndex", str(i)]
+                       + client_extra)
+                  for i in range(1, ASYNC_CLIENTS + 1)])
+    cs = [out[f"c{i}"] for i in range(1, ASYNC_CLIENTS + 1)]
+    syncs = sum(c["syncs"] for c in cs)
+    check(out["server"]["served"] == syncs == ASYNC_CLIENTS *
+          ASYNC_SYNCS_PER_CLIENT, f"8a timing: {out['server']['served']} "
+          f"served, {syncs} synced")
+    spans: dict[str, list[float]] = {}
+    for rec in obs.spans():
+        spans.setdefault(rec["name"], []).append(rec["dur"] * 1e3)
+    return {"syncs_per_s": syncs / max(c["train_s"] for c in cs),
+            "sync_p50": p50([t for c in cs for t in c["sync_ms"]]),
+            "parts": {k: p50(spans.get(k, [])) for k in (
+                "async_ea.wait", "async_ea.fetch_center", "async_ea.delta",
+                "async_ea.encode", "async_ea.push_delta", "async_ea.apply",
+                "async_ea.handshake")}}
+
+
+def phase_async_numbers(torch, card):
+    """8a(d): the serial and the concurrent server (S = 1, 4) with the
+    same 2 clients; B3 and B4 at one stripe's shape."""
+    from distlearn_tpu_torch.parallel.async_ea import _split_views
+    from distlearn_tpu_torch.comm import wire
+    from distlearn_tpu_torch.ops import wire_kernels as wk
+    S = ASYNC8A_SHARDS
+    rows = {}
+    for label, srv_extra, cl_extra in (
+            ("serial", [], []),
+            ("concurrent S=1", ["--concurrent"], []),
+            (f"concurrent S={S}", ["--concurrent", "--shards", str(S)], []),
+            (f"concurrent S={S} + overlap",
+             ["--concurrent", "--shards", str(S)], ["--overlapSync"])):
+        r = rows[label] = timed_trio(torch, srv_extra, cl_extra)
+        pt = r["parts"]
+        log(f"[async8a] {label}: {ASYNC_CLIENTS} clients x "
+            f"{ASYNC_SYNCS_PER_CLIENT} syncs, {r['syncs_per_s']:.3f} syncs/s "
+            f"(over the clients' training loops), client sync p50 "
+            f"{r['sync_p50']:.3f} ms = wait {pt['async_ea.wait']:.3f} + fetch "
+            f"{pt['async_ea.fetch_center']:.3f} + move "
+            f"{pt['async_ea.delta']:.3f} + encode {pt['async_ea.encode']:.3f}"
+            f" + push {pt['async_ea.push_delta']:.3f} (p50 of each span; "
+            f"striped: one fetch, encode and push span a stripe); server "
+            f"apply p50 {pt['async_ea.apply']:.3f} ms (a stripe, or a whole "
+            f"delta at S=1), handshake p50 {pt['async_ea.handshake']:.3f} ms")
+    # B3 and B4 at one stripe's shape: the S = 4 plan of the convnet
+    dev = torch.device("cuda")
+    shapes = convnet_shapes()
+    sizes = [math.prod(sh) for sh in shapes]
+    splits = wire.plan_splits([4 * n for n in sizes], sizes, S)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    full = [torch.randn(sh, generator=gen, device=dev) * 0.01
+            for sh in shapes]
+    centers_full = [torch.randn(sh, generator=gen, device=dev)
+                    for sh in shapes]
+    vleaves = _split_views(full, splits)
+    vcenters = _split_views(centers_full, splits)
+    stripes = wire.plan_stripes([4 * v.numel() for v in vleaves], S)
+    rate, part = hbm_rate(card)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    for idx in (0, max(range(len(stripes)), key=lambda i: sum(
+            v.numel() for v in vleaves[stripes[i][0]:stripes[i][1]]))):
+        lo, hi = stripes[idx]
+        xs, cs = vleaves[lo:hi], vcenters[lo:hi]
+        qs = [torch.empty(x.shape, dtype=torch.int8, device=dev) for x in xs]
+        rs = [torch.empty_like(x) for x in xs]
+        scales = wk.scales_of(wk.quantize_ef_leaves_cuda(xs, qs, rs)[1].cpu())
+        n = sum(x.numel() for x in xs)
+        bound = max(9 * n / rate, 6 * n / FP32_FLOPS) * 1e3
+        b3 = time_ms(torch, lambda: wk.scales_of(
+            wk.quantize_ef_leaves_cuda(xs, qs, rs)[1].cpu()), flush)
+        b3p = time_ms(torch, lambda: wk.quantize_ef_leaves_plain(xs, qs, rs),
+                      flush)
+        b4 = time_ms(torch, lambda: wk.dequant_add_leaves_cuda(
+            cs, qs, scales, outs=cs), flush)
+        b4p = time_ms(torch, lambda: wk.dequant_add_leaves_plain(
+            cs, qs, scales), flush)
+
+        def lib():
+            for c, q, s in zip(cs, qs, scales):
+                torch.add(c, q, alpha=s)
+        b4l = time_ms(torch, lib, flush)
+        busy3 = device_ms(torch, lambda: wk.quantize_ef_leaves_cuda(
+            xs, qs, rs))
+        busy4 = device_ms(torch, lambda: wk.dequant_add_leaves_cuda(
+            cs, qs, scales, outs=cs))
+        log(f"[async8a] stripe {idx} of S={S} ({hi - lo} virtual leaves, "
+            f"n={n}): B3 {b3:.5f} ms (busy {busy3:.5f}) | plain {b3p:.5f} ms "
+            f"| B4 {b4:.5f} ms (busy {busy4:.5f}) | plain {b4p:.5f} ms | "
+            f"torch.add loop {b4l:.5f} ms | bound {bound:.5f} ms each (9 "
+            f"bytes an element at {rate / 1e12:.2f} TB/s, {part})")
+    del flush
+    return rows
+
+
+def phase_async_concurrent(torch, card):
+    phase_async_concurrent_trajectory(torch)
+    fleet = phase_async_fleet(torch)
+    phase_async_ha(torch)
+    phase_async_numbers(torch, card)
+    return fleet
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: kernel B5a against its plain twin and the xla route
 # ---------------------------------------------------------------------------
 
@@ -2985,6 +3512,9 @@ def main() -> int:
             dist.destroy_process_group()
         phase_async_trajectory(torch)
         async_run = phase_async_train(torch)
+        t8a = time.perf_counter()
+        phase_async_concurrent(torch, card)
+        log(f"[async8a] phase 8a took {time.perf_counter() - t8a:.1f} s")
         kernel_rows["flash_attention"] = phase_flash(torch, card)
         served = phase_serve_lm(torch)
         bwd_rows = phase_flash_backward(torch, card)

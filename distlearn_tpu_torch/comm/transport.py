@@ -29,6 +29,10 @@ byte-moving hot path (frame assembly, big-buffer send/recv loops) dispatches
 to the native library when built (distlearn_tpu_torch.comm.native), falling back to
 pure-Python socket IO.  ``recv_tensor(out=...)`` reuses a preallocated buffer
 — the reference's ``client:recv(buffer)`` semantics (lua/AsyncEA.lua:100-103).
+One departure from the copy: the native loops take the socket's descriptor
+at each call, so IO on a closed conn raises ``OSError(EBADF)`` instead of
+reaching whatever socket the process has opened under the same number
+since (the JAX package's ``Conn`` caches the number at construction).
 """
 
 from __future__ import annotations
@@ -131,7 +135,6 @@ class Conn:
     def __init__(self, sock: socket.socket):
         self.sock = sock
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        self._fd = sock.fileno()
         self.bytes_sent = 0
         self.bytes_received = 0
         self.throttle_bps: float | None = None
@@ -165,6 +168,16 @@ class Conn:
         self._h_ctrl = lat.labels(kind="control")
         self._h_tensor = lat.labels(kind="tensor")
         self._h_serve = lat.labels(kind="serve")
+
+    def _fd(self) -> int:
+        """The socket's descriptor for the native IO loops, read at each
+        call: once this conn is closed its number may already belong to
+        another socket of the process, and IO through a cached number
+        would land there (roles running as threads of one process)."""
+        fd = self.sock.fileno()
+        if fd < 0:
+            raise OSError(errno.EBADF, "connection is closed")
+        return fd
 
     def _pace(self, nbytes: int, t0: float):
         if self.throttle_bps:
@@ -215,7 +228,7 @@ class Conn:
         t0 = time.perf_counter()
         try:
             if native.available() and not self.force_py_io:
-                native.send_frame(self._fd, kind, payload)
+                native.send_frame(self._fd(), kind, payload)
             else:
                 self._sendv([_HDR.pack(kind, len(payload)), payload])
         except (BlockingIOError, InterruptedError) as e:
@@ -279,7 +292,7 @@ class Conn:
         try:
             if native.available() and not self.force_py_io:
                 try:
-                    native.recv_exact(self._fd, buf, n)
+                    native.recv_exact(self._fd(), buf, n)
                 except PeerClosed as e:
                     if mid_frame:
                         raise ConnectionResetError(
@@ -433,7 +446,7 @@ class Conn:
         try:
             if native.available() and not self.force_py_io:
                 # zero-copy: numpy buffer goes straight into the writev
-                native.send_tensor_frame(self._fd, ord("T"), meta, arr)
+                native.send_tensor_frame(self._fd(), ord("T"), meta, arr)
                 self.bytes_sent += nbytes
                 self._m_sent.inc(nbytes)
                 self._pace(nbytes, t0)

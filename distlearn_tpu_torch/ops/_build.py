@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -70,11 +71,23 @@ def build_all(sources=SOURCES) -> dict[str, str]:
     return logs
 
 
+#: one build at a time in a process: threads of one process (roles run as
+#: threads) would share a build's temporary file
+_BUILD_LOCK = threading.Lock()
+
+
+def built(source: str) -> Path:
+    """The path of ``source``'s library, built first if needed; threads
+    calling at once wait for one build."""
+    with _BUILD_LOCK:
+        build_all((source,))
+    return library_path(source)
+
+
 @functools.cache
 def load(source: str) -> ctypes.CDLL:
     """The built library of ``source`` (building it first if needed)."""
-    build_all((source,))
-    return ctypes.CDLL(str(library_path(source)))
+    return ctypes.CDLL(str(built(source)))
 
 
 @functools.cache

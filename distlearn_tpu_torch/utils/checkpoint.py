@@ -13,8 +13,9 @@ other: bfloat16 tensors are written as 2-byte raw leaves recorded as
 
 Leaves may be tensors (any device) or numpy arrays.  A restore returns
 each leaf in the kind of its template leaf: a CPU tensor for a tensor
-template, a numpy array for a numpy one.  Sharded checkpoints and the
-background checkpointer wait for the training slices (ROADMAP A7/A11).
+template, a numpy array for a numpy one.  :class:`AsyncCheckpointer` writes
+in the background (the AsyncEA center's HA checkpoints).  Sharded
+checkpoints wait for the training slices (ROADMAP A7/A11).
 """
 
 from __future__ import annotations
@@ -174,3 +175,56 @@ def restore_checkpoint(directory: str, like: PyTree, step: int | None = None
                     "explicitly)")
             new_leaves.append(arr)
     return tree_unflatten(tree_flatten(like)[1], new_leaves), meta
+
+
+class AsyncCheckpointer:
+    """Non-blocking checkpointing, the JAX package's ``AsyncCheckpointer``:
+    :meth:`save` copies the leaves to host arrays at call time (later
+    updates cannot tear the snapshot) and writes the npz on a worker
+    thread; one write is in flight at a time (a second :meth:`save` waits
+    for the first); :meth:`wait` blocks until the last write is on disk
+    and re-raises any failure of the worker."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        import threading
+        self.directory = directory
+        self.keep = keep
+        self._threading = threading
+        self._thread = None
+        self._err: list[BaseException] = []
+
+    def save(self, step: int, tree: PyTree,
+             metadata: dict | None = None) -> None:
+        self.wait()                      # backpressure + surface prior error
+
+        def snapshot(x):
+            if isinstance(x, torch.Tensor):
+                return x.detach().cpu().clone()
+            return np.array(x)
+
+        leaves, treedef = tree_flatten(tree)
+        host_tree = tree_unflatten(treedef, [snapshot(x) for x in leaves])
+
+        def write():
+            try:
+                save_checkpoint(self.directory, step, host_tree,
+                                metadata=metadata, keep=self.keep)
+            except BaseException as e:  # noqa: BLE001 — re-raised in wait()
+                self._err.append(e)
+
+        self._thread = self._threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._err:
+            raise self._err.pop(0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.wait()
+        return False

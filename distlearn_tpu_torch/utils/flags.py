@@ -61,14 +61,19 @@ EA_FLAGS = {
     "alpha": (0.2, "elastic moving rate"),
 }
 
-# The JAX package's --overlapSync, --shards and --save wait for the
-# concurrent server, stripes and checkpoints (ROADMAP A9(c)/(d)).
 ASYNC_FLAGS = {
     "host": ("127.0.0.1", "server host"),
     "port": (8080, "server base port"),
     "verbose": (False, "protocol logging (colorPrint parity)"),
     "testTime": (10, "server-side syncs between test pushes"),
+    "save": ("", "checkpoint directory (empty = no checkpointing)"),
     "wireCodec": ("raw", "sync wire codec: raw (packed fp32), fp16, int8 "
                          "(quantized deltas with error feedback), or "
                          "legacy (per-leaf frames, pre-packed peers)"),
+    "overlapSync": (False, "overlap local steps with the delta transmit "
+                           "(background sender, depth-1 queue)"),
+    "shards": (1, "server: stripe the center across this many shard "
+                  "channels (clients sync stripes in parallel); "
+                  "client: 0 opts out of sharded syncs even when the "
+                  "server advertises a stripe plan"),
 }

@@ -596,11 +596,9 @@ def test_server_evicts_skewed_client_before_apply(delta):
     assert torch.equal(box["center"], init["w"])            # untouched
 
 
-@pytest.mark.parametrize("request_q", ["Rejoin?", "Join?", "Leave?",
-                                       "Shard?"])
-def test_unserved_requests_evict(request_q):
-    """The serial port server serves Enter? only: a rejoin, join or leave
-    request evicts the client it names, the center untouched."""
+def _unserved_request(pkg, request_q):
+    """One fixed-fleet serial server of ``pkg`` facing a client that sends
+    ``request_q`` for itself instead of ``Enter?``."""
     port = _ports()
     box = {}
 
@@ -614,17 +612,34 @@ def test_unserved_requests_evict(request_q):
         d.close()
 
     def server_fn():
-        srv = _server("port", port, handshake_timeout=5.0)
-        srv.init_server(_params())
+        srv = _server(pkg, port, handshake_timeout=5.0)
+        init = _tree(pkg, {k: v.numpy() for k, v in _params().items()})
+        srv.init_server(init)
         with pytest.raises((TimeoutError, RuntimeError)):
-            srv.sync_server(_params(), timeout=5.0)
-        box["evicted"] = set(srv.evicted)
-        box["center"] = [t.clone() for t in srv.center]
+            srv.sync_server(init, timeout=5.0)
+        box["evicted"], box["members"] = set(srv.evicted), set(srv.members)
+        box["center"] = [np.array(t) for t in srv.center]
         srv.close()
 
     _run_threads(server_fn, client_fn)
-    assert box["evicted"] == {1} and box["eof"]
-    assert all(not t.any() for t in box["center"])
+    return box
+
+
+@pytest.mark.parametrize("request_q", ["Rejoin?", "Join?", "Leave?",
+                                       "Shard?"])
+def test_unserved_requests_evict(request_q):
+    """A request that admits no sync on a fixed-fleet serial server: a
+    rejoin from a client that is not evicted, a join to a server that is
+    not elastic or a shard hello on the broadcast channel drops the peer,
+    a leave retires the client — as the JAX package's server answers each
+    of them — and the center stays untouched."""
+    got = _unserved_request("port", request_q)
+    want = _unserved_request("jax", request_q)
+    assert got["eof"] and want["eof"]
+    assert (got["evicted"], got["members"]) == (want["evicted"],
+                                                want["members"])
+    assert got["members"] == (set() if request_q == "Leave?" else {1})
+    assert all(not t.any() for t in got["center"])
 
 
 def test_server_rejects_unsupported_codec_loudly():

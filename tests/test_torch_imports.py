@@ -57,7 +57,8 @@ def test_port_sources_found():
                 "graft_entry.py", "comm/backend.py", "comm/tree.py",
                 "comm/ring.py", "comm/faults.py", "ops/wire_native.py",
                 "ops/staging.py", "parallel/host_algorithms.py",
-                "parallel/init.py", "examples/client_remote.py"):
+                "parallel/init.py", "examples/client_remote.py",
+                "parallel/ha.py"):
         assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "distlearn_tpu_torch/ops/csrc/flash_attention.cu").exists()
@@ -154,3 +155,22 @@ def test_host_layer_entry_points_raise_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize("127.0.0.1:1", 1, 0)
     assert not dist.is_initialized()
+
+
+def test_async_fleet_entry_points_raise_without_gpu(no_gpu):
+    """The concurrent and striped AsyncEA roles, a joiner and an HA
+    standby run on the card unless the CPU is asked for; a concurrent
+    standby on the CPU builds (no client is awaited) and closes."""
+    from distlearn_tpu_torch.parallel.async_ea import (
+        AsyncEAClient, AsyncEAServer, AsyncEAServerConcurrent)
+    from tests.net_util import reserve_port_window
+    port = reserve_port_window(8)
+    for cls in (AsyncEAServer, AsyncEAServerConcurrent):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls("127.0.0.1", port, 1, shards=4, standby=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AsyncEAClient.join("127.0.0.1", port, {"w": torch.zeros(2)}, 1, 0.5)
+    srv = AsyncEAServerConcurrent("127.0.0.1", port, 1, shards=4,
+                                  standby=True, device="cpu")
+    assert srv.device.type == "cpu" and srv.evicted == {1}
+    srv.close()

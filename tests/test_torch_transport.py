@@ -166,3 +166,37 @@ def test_fin_on_frame_boundary_is_clean_eof():
     with pytest.raises(PeerClosed):
         rx.recv_msg()
     rx.close()
+
+
+@pytest.mark.parametrize("py_io", [False, True], ids=["native", "python"])
+def test_closed_conn_never_reaches_a_reused_descriptor(py_io):
+    """IO on a closed conn raises, even after the process opened another
+    socket under the same descriptor number: the fleet roles run as
+    threads of one process, and a cut client that sends on its closed
+    channel must not write into another client's (seen on the card as a
+    worker reading a foreign ``Enter?``)."""
+    tx, rx = _pair("port", "port")
+    tx.force_py_io = py_io
+    fd = tx.sock.fileno()
+    tx.close()
+    rx.close()
+    a, b = _socks()
+    pair = [a, b]
+    while fd not in (a.fileno(), b.fileno()) and len(pair) < 64:
+        a, b = _socks()                     # until the number is reused
+        pair += [a, b]
+    try:
+        assert fd in (a.fileno(), b.fileno())
+        peer = b if a.fileno() == fd else a
+        with pytest.raises(OSError):
+            tx.send_msg({"q": "Enter?", "clientID": 2})
+        with pytest.raises(OSError):
+            tx.send_tensors([np.ones(4, np.float32)], packed=False)
+        with pytest.raises(OSError):
+            tx.recv_msg()
+        peer.setblocking(False)
+        with pytest.raises(BlockingIOError):
+            peer.recv(1)                    # nothing reached the new socket
+    finally:
+        for s in pair:
+            s.close()

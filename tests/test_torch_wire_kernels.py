@@ -336,9 +336,10 @@ def test_dequant_add_leaves_plain_vs_jax_on_one_frame():
 def test_server_apply_matches_the_jax_codec():
     """The port server's apply (one B4 call for the int8 leaves, raw leaves
     added) on the CPU route, of a frame the JAX package's codec encoded:
-    the center equals JAX's host decode-and-add bit for bit."""
-    from distlearn_tpu_torch import obs
+    the center equals JAX's host decode-and-add bit for bit.  The server
+    is a standby (it awaits no client), seeded through ``init_server``."""
     from distlearn_tpu_torch.parallel import async_ea as pea
+    from tests.net_util import reserve_port_window
     rng = np.random.default_rng(3)
     sizes = CONVNET_SIZES + [17]
     center = [rng.standard_normal(n).astype(np.float32) for n in sizes[:-1]]
@@ -346,28 +347,27 @@ def test_server_apply_matches_the_jax_codec():
     delta = [(rng.standard_normal(n) * 0.01).astype(np.float32)
              for n in sizes[:-1]] + [np.full(17, 3, np.int32)]
     ref = jwire.encode_leaves(delta, "int8")
-    srv = pea.AsyncEAServer.__new__(pea.AsyncEAServer)
-    srv.device = torch.device("cpu")
-    srv._rx = wire.FrameBuffer()
-    srv._obs_on = False
-    srv._c_syncs = obs.counter("test_async_ea_syncs_total", "applied")
-    srv._slab = pea._LeafSlab([(a.shape, a.dtype) for a in center],
-                              srv.device)
-    srv.center = srv._slab.leaves
-    for c, a in zip(srv.center, center):
-        c.copy_(torch.from_numpy(a))
-    nbytes = sum(b.nbytes for b in ref.bufs)
-    srv._rx.reserve(nbytes)
-    frame = srv._rx.host_tensor(nbytes).numpy()
-    frame[:] = np.concatenate([np.asarray(b).reshape(-1).view(np.uint8)
-                               for b in ref.bufs])
-    srv._apply_delta(wire.PackedPayload(ref.manifest, ref.bufs, "int8",
-                                        nbytes, 0, frame=frame))
-    for c, a, e, b in zip(srv.center, center, ref.manifest["leaves"],
-                          ref.bufs):
-        want = (jwk.dequant_add(a, b, e["scale"]) if e["enc"] == "int8"
-                else a + b)
-        np.testing.assert_array_equal(_bits(c.numpy()), _bits(want))
+    srv = pea.AsyncEAServer("127.0.0.1", reserve_port_window(4), 1,
+                            standby=True, device="cpu")
+    try:
+        srv.init_server({f"{i:02d}": torch.from_numpy(a.copy())
+                         for i, a in enumerate(center)})
+        rx = srv._frame("rx")
+        nbytes = sum(b.nbytes for b in ref.bufs)
+        rx.reserve(nbytes)
+        frame = rx.host_tensor(nbytes).numpy()
+        frame[:] = np.concatenate([np.asarray(b).reshape(-1).view(np.uint8)
+                                   for b in ref.bufs])
+        srv._apply_delta(wire.PackedPayload(ref.manifest, ref.bufs, "int8",
+                                            nbytes, 0, frame=frame), rx)
+        assert srv.syncs_completed == 1
+        for c, a, e, b in zip(srv.center, center, ref.manifest["leaves"],
+                              ref.bufs):
+            want = (jwk.dequant_add(a, b, e["scale"]) if e["enc"] == "int8"
+                    else a + b)
+            np.testing.assert_array_equal(_bits(c.numpy()), _bits(want))
+    finally:
+        srv.close()
 
 
 @pytest.mark.parametrize("n_leaves,tables", [(1, 1), (18, 1), (64, 1),
@@ -718,3 +718,44 @@ def test_amax_slots_on_the_cpu():
     assert wk.scales_of(slots[:3]) == [0.0, 2.0 / 127.0, 3.0 / 127.0]
     with pytest.raises(ValueError, match="non-finite"):
         wk.scales_of(slots)
+
+
+def test_concurrent_first_use_builds_once(tmp_path, monkeypatch):
+    """Threads that reach a kernel's first use at once (the AsyncEA roles
+    running as threads, each encoding its first delta) wait for ONE build:
+    they would otherwise share its temporary file, and all but one fail.
+    A stand-in ``nvcc`` that takes a while and counts its runs."""
+    import threading
+
+    from distlearn_tpu_torch.ops import _build
+    runs = tmp_path / "runs"
+    bindir = tmp_path / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    nvcc = bindir / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo run >> {runs}\n"
+        "sleep 0.3\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then echo lib > \"$2\"; fi\n"
+        "  shift\n"
+        "done\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    got, errs = [], []
+
+    def first_use():
+        try:
+            got.append(_build.built("wire_kernels.cu"))
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errs.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert errs == [] and len(got) == 4 and len(set(got)) == 1
+    assert got[0].read_text() == "lib\n"
+    assert runs.read_text().count("run") == 1
