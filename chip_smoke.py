@@ -166,7 +166,37 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    tree round bit for bit the numpy route's; then
    ``parallel.init.initialize`` as one NCCL process and 3
    ``build_sgd_step`` steps of the toy model, the loss finite.
-16. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+16. backends — A9(d): (a) ``MeshBackend``, 4 rows of the convnet's 18
+   leaves on the card, sum, rider and a contrib mask bit for bit the CPU
+   route; (b) ``HybridBackend`` as 2 host processes sharing ``cuda:0``, 2
+   rows each, over the tree and the ring (raw, dyadic rows): every row bit
+   for bit a 4-row ``MeshBackend``, the median stage, host round and return
+   of 10 rounds; int8 over the tree bit for bit the CPU route (the host
+   codec); (c) ``examples/sync_backends.py`` with ``--backend mesh``,
+   ``host`` and ``hybrid`` on the card: one digest; (d) the slice client,
+   4 rows of the full-width convnet against a serial server on the card,
+   int8, 8 syncs: one push a sync, B3 one amax and one quantize launch a
+   sync and B4 one a server apply, center and rows bit for bit the CPU
+   route; a raw sync moves the center by the row-sum of the deltas, bit
+   for bit.
+17. resnet — A10, ResNet-50 v1.5 at full width (1000 classes, 224^2,
+   global batch 256, 16-MiB buckets) on one NCCL rank: (a) float32 (TF32
+   off) and (b) bfloat16 compute: 10 ``build_sgd_step`` steps, the loss
+   finite, B1 launched 8 times a step, then ``build_sync_step``; fused
+   against plain from the same weights and batches (phase 4's tolerance);
+   the card against the CPU route at batch 2, 64^2 in float64 (phase 4's
+   card-against-CPU tolerances; float32 is ill-conditioned there, see
+   RESNET_CPU_BATCH); (c) steps/s, images/s, peak memory and MFU (analytic
+   FLOPs over 67 TFLOP/s float32, 989 TFLOP/s bfloat16; fails above 1) and
+   one profiled step (busy, idle share, convolution, reduction, elementwise
+   and B1 shares); (d) ``build_optax_step`` with momentum and adam and
+   ``build_zero_optax_step`` with adam, 5 steps each, ZeRO-1 at n = 1
+   against the full adam step (bit for bit, or rtol 1e-6 and atol 1e-7;
+   the log says which); (e) the ``resnet50`` example as its own process,
+   plain and ``--bf16 --deviceData`` (run together), every loss finite; (f)
+   B1 at the largest bucket (CUDA events, L2 flushed) beside its plain twin,
+   ``torch.add`` and the bound.
+18. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -693,11 +723,14 @@ KERNEL_CLASSES = (            # (class, substrings of a kernel's name)
 )
 
 
-def profile_step(torch, run):
+def profile_step(torch, run, classes=KERNEL_CLASSES,
+                 other="elementwise/reduce"):
     """Run ``run()`` once under torch.profiler and log the device's busy
-    time by kernel class and the top kernels beside the wall time.  A
-    profiler fault is logged and does not fail the run.  Returns what
-    ``run()`` returned and the busy milliseconds (None if not profiled)."""
+    time by kernel class (``classes``, the rest ``other``) and the top
+    kernels beside the wall time.  A profiler fault is logged and does not
+    fail the run.  Returns what ``run()`` returned, the busy and wall
+    milliseconds (busy None if not profiled) and ``{class: [busy ms,
+    launches]}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -712,23 +745,25 @@ def profile_step(torch, run):
         log(f"[profile] torch.profiler failed: {exc!r}")
         out = run()
         torch.cuda.synchronize()
-        return out, None
+        return out, None, None, {}
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    by_class: dict[str, float] = {}
+    by_class: dict[str, list] = {}
     for e in kernels:
-        cls = next((c for c, keys in KERNEL_CLASSES
-                    if any(k in e.key for k in keys)), "elementwise/reduce")
-        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
+        cls = next((c for c, keys in classes
+                    if any(k in e.key for k in keys)), other)
+        ms_n = by_class.setdefault(cls, [0.0, 0])
+        ms_n[0] += e.self_device_time_total / 1e3
+        ms_n[1] += e.count
     log(f"[profile] one step: {wall_ms:.3f} ms wall (profiler on), kernels "
         f"busy {busy_ms:.3f} ms, device idle {1 - busy_ms / wall_ms:.1%}; "
-        + ", ".join(f"{c} {t:.3f} ms" for c, t in
-                    sorted(by_class.items(), key=lambda kv: -kv[1])))
+        + ", ".join(f"{c} {v[0]:.3f} ms in {v[1]} launches" for c, v in
+                    sorted(by_class.items(), key=lambda kv: -kv[1][0])))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  "
             f"x{e.count:<4d} {e.key[:100]}")
-    return out, busy_ms
+    return out, busy_ms, wall_ms, by_class
 
 
 def phase_sgd(torch, tree, cpu_tree):
@@ -774,7 +809,7 @@ def phase_sgd(torch, tree, cpu_tree):
 
     # where the time goes: one profiled step
     x, y = batches[0]
-    ts, busy_ms = profile_step(torch, lambda: step(ts, x, y)[0])
+    ts, busy_ms, _, _ = profile_step(torch, lambda: step(ts, x, y)[0])
     if busy_ms is not None:
         med_ms = statistics.median(times[1:]) * 1e3
         log(f"[sgd] device idle {1 - busy_ms / med_ms:.1%} of the median "
@@ -3298,18 +3333,20 @@ def host_worker(rank: int, n: int, ports: tuple, device: str, q) -> None:
                        "trace": traceback.format_exc()[-2000:]}))
 
 
-def run_host_workers() -> list[dict]:
+def run_workers(target, n: int, args: tuple, timeout: float, what: str
+                ) -> list[dict]:
+    """``target(i, *args, q)`` in ``n`` spawned processes; each puts one
+    ``("ok", result)`` or ``("err", traceback)`` on ``q``.  Returns the
+    results by ``result["rank"]``; a failed process fails the run."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    ports = (free_port_window(1), free_port_window(1))
-    procs = [ctx.Process(target=host_worker,
-                         args=(i, HOST_NODES, ports, HOST_DEVICE, q))
-             for i in range(HOST_NODES)]
+    procs = [ctx.Process(target=target, args=(i, *args, q))
+             for i in range(n)]
     for p in procs:
         p.start()
     try:
-        results = [q.get(timeout=HOST_TIMEOUT_S) for _ in procs]
+        results = [q.get(timeout=timeout) for _ in procs]
     finally:
         for p in procs:
             p.join(timeout=30)
@@ -3317,7 +3354,7 @@ def run_host_workers() -> list[dict]:
                 p.kill()
                 p.join()
     errs = [r for kind, r in results if kind == "err"]
-    check(not errs, f"a host-collective rank failed: {errs[:1]}")
+    check(not errs, f"a {what} failed: {errs[:1]}")
     return sorted((r for _, r in results), key=lambda r: r["rank"])
 
 
@@ -3407,7 +3444,10 @@ def phase_host(torch) -> dict:
         out[f"client_remote_{backend}"] = ranks
 
     t0 = time.perf_counter()
-    ranks = run_host_workers()
+    ports = (free_port_window(1), free_port_window(1))
+    ranks = run_workers(host_worker, HOST_NODES,
+                        (HOST_NODES, ports, HOST_DEVICE), HOST_TIMEOUT_S,
+                        "host-collective rank")
     log(f"[host] {HOST_NODES} rank processes on {HOST_DEVICE}: "
         f"{time.perf_counter() - t0:.1f} s")
     for name, who in (("tree", 0), ("ring", 0)):
@@ -3472,6 +3512,583 @@ def phase_host(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the collective backends and the AsyncEA slice client (A9(d))
+# ---------------------------------------------------------------------------
+
+BACKEND_ROWS = 4          # MeshBackend's rows and the slice client's
+HYBRID_HOSTS, HYBRID_LOCAL, HYBRID_ROUNDS = 2, 2, 10
+BACKEND_DEVICE = "cuda"   # phase 16's device (the hybrid processes' cuda:0)
+BACKEND_TIMEOUT_S = 300
+SLICE_SYNCS = 8
+
+
+def backend_rows(torch, rows, seed, dyadic):
+    """``rows`` rows of each of the convnet's 18 leaves on the host:
+    multiples of 1/8 in [-8, 8) (every sum of up to 4 rows exact in
+    float32), or seeded normals."""
+    g = torch.Generator().manual_seed(seed)
+    if dyadic:
+        return [torch.randint(-64, 64, (rows,) + s, generator=g).float()
+                * 0.125 for s in convnet_shapes()]
+    return [torch.randn((rows,) + s, generator=g) for s in convnet_shapes()]
+
+
+def hybrid_worker(rank: int, ports: tuple, device: str, q) -> None:
+    """One host of the hybrid checks (a spawned process, its L rows on
+    ``device``): the convnet's 18 leaves (dyadic) over the tree and the
+    ring against a ``MeshBackend`` of all H x L rows, timed; one int8 tree
+    round on ``device`` against the same round on the CPU (the host codec's
+    route)."""
+    try:
+        import torch
+        from distlearn_tpu_torch.comm.backend import (HybridBackend,
+                                                      MeshBackend)
+        dev = torch.device(device)
+        H, L = HYBRID_HOSTS, HYBRID_LOCAL
+        lo = rank * L
+        rows = backend_rows(torch, H * L, 21, dyadic=True)
+        want, _ = MeshBackend(H * L, device=dev).all_reduce(
+            [r.to(dev) for r in rows])
+        mine = [r[lo:lo + L].to(dev) for r in rows]
+        res = {"rank": rank}
+        for transport, port in (("tree", ports[0]), ("ring", ports[1])):
+            b = HybridBackend(rank, H, "127.0.0.1", port, num_devices=L,
+                              device=dev, transport=transport)
+            try:
+                ok, splits = True, []
+                for _ in range(HYBRID_ROUNDS):
+                    red, n, rider = b.all_reduce_ex(mine, rider=1)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    splits.append(b.last_split)
+                    ok = ok and n == H * L and rider == H * L and all(
+                        torch.equal(x, w[:L]) for x, w in zip(red, want))
+                res[transport] = {"bits": ok, "splits": splits,
+                                  "nic": b.host_leg.nic_bytes()}
+            finally:
+                b.close()
+        noisy = [r[lo:lo + L] * 1e-2 for r in
+                 backend_rows(torch, H * L, 22, dyadic=False)]
+        got = {}
+        for tag, d, port in (("card", dev, ports[2]),
+                             ("cpu", torch.device("cpu"), ports[3])):
+            b = HybridBackend(rank, H, "127.0.0.1", port, num_devices=L,
+                              device=d, codec="int8")
+            try:
+                red, _ = b.all_reduce([x.to(d) for x in noisy])
+                got[tag] = [x.cpu() for x in red]
+            finally:
+                b.close()
+        res["int8_bits"] = all(torch.equal(a, b) for a, b in
+                               zip(got["card"], got["cpu"]))
+        res["int8_lossy"] = not all(torch.equal(a, b.sum(0).expand_as(a))
+                                    for a, b in zip(got["cpu"], noisy))
+        q.put(("ok", res))
+    except BaseException:  # noqa: BLE001 — the parent fails the phase
+        import traceback
+        q.put(("err", traceback.format_exc()))
+
+
+def run_slice_pair(torch, device, codec, syncs):
+    """A serial server and one tau-1 slice client of BACKEND_ROWS rows of
+    the full-width convnet (``MeshBackend`` on ``device``), on the JAX
+    package's wire layout, each sync's per-row drift drawn on the host from
+    a fixed seed.  Returns the center, the rows, the rows and center after
+    the first sync's drift, and the client's pushes."""
+    from distlearn_tpu_torch.comm.backend import MeshBackend
+    from distlearn_tpu_torch.models import cifar_convnet
+    from distlearn_tpu_torch.models.convert import CONVNET_WIRE
+    from distlearn_tpu_torch.parallel import async_ea
+    from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
+    params0 = cifar_convnet().init(0, device="cpu")[0]
+    port = free_port_window(3)
+    out = {"centers": []}
+
+    def drift(r, p):
+        g = torch.Generator().manual_seed(2000 + r)
+        return tree_map(lambda v: v + (0.01 * torch.randn(
+            tuple(v.shape), generator=g)).to(v.device), p)
+
+    def server_fn():
+        srv = async_ea.AsyncEAServer("127.0.0.1", port, 1, device=device,
+                                     layout=CONVNET_WIRE)
+        try:
+            srv.init_server(params0)
+            for _ in range(syncs):
+                got = srv.sync_server(params0)
+                out["centers"].append([t.cpu() for t in tree_leaves(got)])
+            out["center"] = [t.cpu() for t in srv.center]
+        finally:
+            srv.close()
+
+    def client_fn():
+        c = async_ea.AsyncEAClient(
+            "127.0.0.1", port, node=1, tau=1, alpha=ASYNC_ALPHA, codec=codec,
+            device=device, layout=CONVNET_WIRE,
+            slice_backend=MeshBackend(BACKEND_ROWS, device=device))
+        pushes = [0]
+        send = c.conn.send_packed
+
+        def counted(payload):
+            pushes[0] += 1
+            return send(payload)
+        c.conn.send_packed = counted
+        try:
+            p = c.init_client(params0)
+            check(all(x.shape[0] == BACKEND_ROWS for x in tree_leaves(p)),
+                  "the slice client's params are not [rows, ...]")
+            for r in range(syncs):
+                p = drift(r, p)
+                if r == 0:
+                    out["first_rows"] = [t.cpu() for t in tree_leaves(p)]
+                p, synced = c.sync_client(p)
+                check(synced, "a tau-1 slice client did not sync")
+            out["params"] = [t.cpu() for t in tree_leaves(p)]
+            out["pushes"] = pushes[0]
+        finally:
+            c.close()
+
+    run_threads(server_fn, client_fn)
+    out["params0"] = tree_leaves(params0)
+    return out
+
+
+def phase_backends(torch) -> dict:
+    from distlearn_tpu_torch.comm.backend import MeshBackend
+    from distlearn_tpu_torch.examples import sync_backends
+    from distlearn_tpu_torch.ops import wire_kernels as wk
+    from distlearn_tpu_torch.ops.fused_update import cast_scalar
+    from distlearn_tpu_torch.utils import logging
+
+    # (a) MeshBackend: 4 rows of the convnet's 18 leaves, the card against
+    # the CPU route (seeded normals: the row order decides the bits)
+    rows = backend_rows(torch, BACKEND_ROWS, 20, dyadic=False)
+    card = MeshBackend(BACKEND_ROWS, BACKEND_DEVICE)
+    cpu = MeshBackend(BACKEND_ROWS, "cpu")
+    for contrib in (True, [1, 0, 1, 1]):
+        got, n, rider = card.all_reduce_ex(
+            [r.to(card.device) for r in rows], contrib=contrib, rider=3)
+        want, n2, rider2 = cpu.all_reduce_ex(rows, contrib=contrib, rider=3)
+        torch.cuda.synchronize()
+        check(n == n2 == (4 if contrib is True else 3)
+              and rider == rider2 == 3 * BACKEND_ROWS,
+              f"MeshBackend count/rider {n}/{rider} against {n2}/{rider2}")
+        check(all(bits_equal(torch, a.cpu(), b) for a, b in zip(got, want)),
+              f"MeshBackend on the card differs from the CPU route "
+              f"(contrib {contrib})")
+    log(f"[backends] (a) MeshBackend, {BACKEND_ROWS} rows of the convnet's "
+        f"{CONVNET_LEAVES} leaves on the card: sum, rider and a [1,0,1,1] "
+        "contrib mask bit for bit the CPU route")
+
+    # (b) HybridBackend: 2 host processes sharing the card
+    t0 = time.perf_counter()
+    ports = tuple(free_port_window(1) for _ in range(4))
+    ranks = run_workers(hybrid_worker, HYBRID_HOSTS, (ports, BACKEND_DEVICE),
+                        BACKEND_TIMEOUT_S, "hybrid host process")
+    hybrid = {}
+    for transport in ("tree", "ring"):
+        check(all(r[transport]["bits"] for r in ranks),
+              f"hybrid over the {transport}: a row differs from the "
+              f"{HYBRID_HOSTS * HYBRID_LOCAL}-row MeshBackend")
+        splits = ranks[0][transport]["splits"]
+        ms = [p50([s[i] for s in splits]) * 1e3 for i in range(3)]
+        hybrid[transport] = {"stage_ms": ms[0], "round_ms": ms[1],
+                             "return_ms": ms[2],
+                             "nic_bytes": ranks[0][transport]["nic"]}
+        log(f"[backends] (b) hybrid {HYBRID_HOSTS} hosts x {HYBRID_LOCAL} "
+            f"rows over the {transport} (raw, dyadic): every row bit for "
+            f"bit the {HYBRID_HOSTS * HYBRID_LOCAL}-row MeshBackend; host "
+            f"0's median of {HYBRID_ROUNDS}: stage {ms[0]:.3f} ms, host "
+            f"round {ms[1]:.3f} ms, return {ms[2]:.3f} ms; NIC bytes "
+            f"{hybrid[transport]['nic_bytes']}")
+    check(all(r["int8_bits"] and r["int8_lossy"] for r in ranks),
+          "hybrid int8 on the card differs from its CPU route (or did not "
+          "quantize)")
+    log(f"[backends] (b) hybrid int8 over the tree: the card bit for bit "
+        f"the CPU route (numpy host codec); {time.perf_counter() - t0:.1f} "
+        "s with the processes' start")
+
+    # (c) sync_backends: one digest for the three backends
+    digests = {}
+    for backend in ("mesh", "host", "hybrid"):
+        opt = sync_backends.parse_flags(
+            "", sync_backends.FLAGS,
+            ["--backend", backend, "--device", BACKEND_DEVICE])
+        line = sync_backends.run(opt)
+        digests[backend] = line.split("digest=")[1]
+        log(f"[backends] (c) {line}")
+    check(len(set(digests.values())) == 1,
+          f"sync_backends digests differ across backends: {digests}")
+
+    # (d) the slice client: 4 rows, int8, 8 syncs, the card against the CPU
+    logging.set_verbose(False)          # the roles' per-sync lines
+    reset_wire_counts(wk)
+    t0 = time.perf_counter()
+    got = run_slice_pair(torch, BACKEND_DEVICE, "int8", SLICE_SYNCS)
+    t_card = time.perf_counter() - t0
+    launches = (*b3_launches(wk), b4_launches(wk))
+    want = run_slice_pair(torch, "cpu", "int8", SLICE_SYNCS)
+    check(got["pushes"] == SLICE_SYNCS,
+          f"{SLICE_SYNCS} slice syncs made {got['pushes']} pushes")
+    check(launches == (SLICE_SYNCS,) * 3,
+          f"{SLICE_SYNCS} int8 slice syncs launched (amax, quantize, "
+          f"dequant_add) = {launches}; expected one of each a sync")
+    for what in ("center", "params"):
+        check(all(bits_equal(torch, a, b) for a, b in
+                  zip(got[what], want[what])),
+              f"slice client: the card's {what} differs from the CPU route")
+    # raw, one sync: the center moves by the row-sum of the row deltas
+    raw = run_slice_pair(torch, BACKEND_DEVICE, "raw", 1)
+    a = cast_scalar(ASYNC_ALPHA, torch.float32)
+    moved = []
+    for c0, p, c1 in zip(raw["params0"], raw["first_rows"],
+                         raw["centers"][0]):
+        d = (p - c0[None]) * a
+        acc = d[0].clone()
+        for r in range(1, BACKEND_ROWS):
+            acc += d[r]
+        moved.append(bits_equal(torch, c1, c0 + acc))
+    check(all(moved), "raw slice sync: the center did not move by the "
+          "row-sum of the row deltas")
+    logging.set_verbose(True)
+    log(f"[backends] (d) slice client, {BACKEND_ROWS} rows of the full-width "
+        f"convnet, int8, {SLICE_SYNCS} syncs: one push a sync, (amax, "
+        f"quantize, dequant_add) launches {launches}, center and rows bit "
+        f"for bit the CPU route; raw: the center moved by the row-sum of "
+        f"the deltas, bit for bit; card run {t_card:.2f} s")
+    return {"hybrid": hybrid, "slice_launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: ResNet-50 v1.5 and the optimizer steps (A10)
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 256, 224, 1000
+RESNET_DEVICE = "cuda"
+RESNET_STEPS, RESNET_LR = 10, 0.1
+RESNET_BUCKET_BYTES = 16 * 1024 * 1024
+RESNET_BUCKETS = (3_631_104, 3_875_840, 3_620_864, 3_407_872, 3_151_872,
+                  3_414_016, 3_407_872, 1_048_576)
+RESNET_WINDOWS, RESNET_WINDOW_STEPS, RESNET_OPTAX_STEPS = 3, 5, 5
+# The card against the port's CPU route, one forward and one plain SGD
+# step from the same weights and batch.  float64 at batch 2 and 64^2, to
+# RESNET_F64_TOL (only the summation order differs).  float32 (TF32 off)
+# at batch 2 and 128^2, 32 values a channel in stage 4's batchnorms, to
+# phase 4's CPU_REF_*; bfloat16 compute on the card against the CPU's
+# float32 route at the same size, to rtol = atol = FLASH_BF16_TOL (the
+# bfloat16 logits' ulp moves a log-prob by about 1e-2).
+RESNET_CPU_BATCH, RESNET_F64_SIZE, RESNET_F32_SIZE = 2, 64, 128
+RESNET_F64_TOL = 1e-10
+# ZeRO-1 at one rank against the full-state step: tests/test_optax_step.py's
+RESNET_ZERO_TOL = (1e-6, 1e-7)
+RESNET_EXAMPLE = ["resnet50", "--numExamples", "1280", "--stepsPerEpoch",
+                  "5", "--numEpochs", "1"]
+RESNET_CLASSES_OF = (         # (class, substrings of a kernel's name)
+    ("B1", ("sgd_chunk",)),
+    ("convolution", ("xmma", "implicit_gemm", "cudnn", "conv", "winograd",
+                     "dgrad", "wgrad", "fprop", "gemm", "cutlass")),
+    ("reduction (batchnorm statistics, pool)", ("reduce_kernel",
+                                                "Reduce")),
+    ("nccl", ("nccl",)),
+    ("copy/cat", ("CatArrayBatchedCopy", "copy")),
+)
+
+
+def resnet50_flops(image_size: int, num_classes: int, batch: int) -> float:
+    """Analytic FLOPs of a forward and backward step: 2 x the multiply-adds
+    of every conv and the fc, times 3 (the backward is twice the
+    forward)."""
+    out = lambda n, k, s, p: (n + 2 * p - k) // s + 1     # noqa: E731
+    h = out(image_size, 7, 2, 3)
+    macs = 3 * 64 * 49 * h * h
+    h = out(h, 3, 2, 1)
+    in_ch = 64
+    for si, (w, blocks) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3))):
+        for bi in range(blocks):
+            s = 2 if (bi == 0 and si > 0) else 1
+            h2 = out(h, 3, s, 1)
+            macs += in_ch * w * h * h + w * w * 9 * h2 * h2 \
+                + w * 4 * w * h2 * h2
+            if bi == 0:
+                macs += in_ch * 4 * w * h2 * h2
+            in_ch, h = 4 * w, h2
+    macs += in_ch * num_classes
+    return 3 * 2 * macs * batch
+
+
+def resnet_batches(torch, n, batch, size, classes, seed):
+    dev = RESNET_DEVICE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn((batch, size, size, 3), generator=g, device=dev),
+             torch.randint(0, classes, (batch,), generator=g, device=dev))
+            for _ in range(n)]
+
+
+def resnet_against_cpu(torch, tree, cpu_tree) -> None:
+    """Phase 17 (a)/(b): ResNet-50 on ``tree``'s device against the port's
+    CPU route in float64, float32 and bfloat16 compute, to the tolerances
+    set beside RESNET_CPU_BATCH."""
+    from distlearn_tpu_torch.models import resnet50
+    from distlearn_tpu_torch.train import trainer as tr
+    from distlearn_tpu_torch.utils.tree import tree_leaves
+
+    def card_and_cpu(dtype, size, compute_dtypes):
+        """(log-probs, params after one plain step) for each of
+        ``compute_dtypes`` on the card, then float32/float64 on the CPU."""
+        g = torch.Generator().manual_seed(3)
+        x = torch.randn((RESNET_CPU_BATCH, size, size, 3), generator=g,
+                        dtype=torch.float64).to(dtype)
+        y = torch.randint(0, RESNET_CLASSES, (RESNET_CPU_BATCH,),
+                          generator=g)
+        res = []
+        for t, cd in [(tree, c) for c in compute_dtypes] + [(cpu_tree,
+                                                             None)]:
+            m = resnet50(RESNET_CLASSES, dtype=dtype, compute_dtype=cd,
+                         image_size=size)
+            st = tr.init_train_state(m, t, 2, RESNET_CLASSES)
+            logp, _ = m.apply(st.params, st.model_state, x.to(t.device),
+                              train=True)
+            # the plain update: B1 takes float32 buckets only, and the
+            # step under test here is the model's, not the update's
+            st, _ = tr.build_sgd_step(m, t, RESNET_LR, fused=False)(
+                st, x.to(t.device), y.to(t.device))
+            res.append((logp.cpu(), [a.cpu() for a in
+                                     tree_leaves(st.params)]))
+        torch.cuda.synchronize()
+        return res
+
+    def diffs(a, b):
+        return (max_abs(torch, a[0], b[0]),
+                max(max_abs(torch, p, q) for p, q in zip(a[1], b[1])))
+
+    card64, cpu64 = card_and_cpu(torch.float64, RESNET_F64_SIZE, [None])
+    dlogp, dpar = diffs(card64, cpu64)
+    log(f"[resnet] (a) card vs CPU route at batch {RESNET_CPU_BATCH}, "
+        f"{RESNET_F64_SIZE}^2, float64: log-probs max diff {dlogp:.3e}, "
+        f"params after one step {dpar:.3e} (tol {RESNET_F64_TOL:.0e})")
+    check(dlogp <= RESNET_F64_TOL and dpar <= RESNET_F64_TOL,
+          "ResNet-50 in float64 on the card disagrees with the CPU route")
+    card32, card16, cpu32 = card_and_cpu(torch.float32, RESNET_F32_SIZE,
+                                         [None, torch.bfloat16])
+    del card64, cpu64
+    dlogp, dpar = diffs(card32, cpu32)
+    log(f"[resnet] (a) card vs CPU route at batch {RESNET_CPU_BATCH}, "
+        f"{RESNET_F32_SIZE}^2, float32 (TF32 off): log-probs max diff "
+        f"{dlogp:.3e} (tol {CPU_REF_LOGP_TOL:.0e}), params after one step "
+        f"{dpar:.3e} (tol {CPU_REF_PARAM_TOL:.0e})")
+    check(dlogp <= CPU_REF_LOGP_TOL and dpar <= CPU_REF_PARAM_TOL,
+          "ResNet-50 in float32 on the card disagrees with the CPU route")
+    tol = FLASH_BF16_TOL
+    close = torch.allclose(card16[0], cpu32[0], rtol=tol, atol=tol) and all(
+        torch.allclose(p, q, rtol=tol, atol=tol)
+        for p, q in zip(card16[1], cpu32[1]))
+    dlogp, dpar = diffs(card16, cpu32)
+    log(f"[resnet] (b) card's bfloat16 compute vs the CPU's float32 route "
+        f"at batch {RESNET_CPU_BATCH}, {RESNET_F32_SIZE}^2: log-probs max "
+        f"diff {dlogp:.3e}, params after one step {dpar:.3e} (rtol = atol "
+        f"= {tol})")
+    check(close, "ResNet-50's bfloat16 compute on the card is not within "
+          f"rtol = atol = {tol} of the CPU's float32 route")
+    del card32, card16, cpu32
+
+
+def phase_resnet(torch, tree, cpu_tree) -> dict:
+    from distlearn_tpu_torch.models import resnet50
+    from distlearn_tpu_torch.ops import flatten as flatten_lib
+    from distlearn_tpu_torch.ops import fused_update as fu
+    from distlearn_tpu_torch.train import optim
+    from distlearn_tpu_torch.train import trainer as tr
+    from distlearn_tpu_torch.utils.tree import tree_leaves
+    flops = resnet50_flops(RESNET_SIZE, RESNET_CLASSES, RESNET_BATCH)
+    batches = resnet_batches(torch, 2, RESNET_BATCH, RESNET_SIZE,
+                             RESNET_CLASSES, 0)
+    out = {"flops": flops}
+    for tag, cd, peak in (("float32", None, FP32_FLOPS),
+                          ("bfloat16", torch.bfloat16, BF16_FLOPS)):
+        model = resnet50(RESNET_CLASSES, compute_dtype=cd)
+        ts = tr.init_train_state(model, tree, 0, RESNET_CLASSES)
+        spec = flatten_lib.make_bucket_spec(ts.params, RESNET_BUCKET_BYTES)
+        check(tuple(b.padded for b in spec.buckets) == RESNET_BUCKETS,
+              f"ResNet-50's 16-MiB buckets {[b.padded for b in spec.buckets]}"
+              f" are not the JAX package's {RESNET_BUCKETS}")
+        step = tr.build_sgd_step(model, tree, RESNET_LR,
+                                 max_bucket_bytes=RESNET_BUCKET_BYTES)
+        # (a)/(b) 10 steps on the main path: B1 once a bucket a step
+        torch.cuda.synchronize()
+        reset_counts(fu)
+        losses = []
+        for i in range(RESNET_STEPS):
+            ts, loss = step(ts, *batches[i % 2])
+            losses.append(float(loss))
+        launches = fu.fused_sgd.launches
+        check(all(map(math.isfinite, losses)),
+              f"ResNet-50 {tag}: non-finite loss {losses}")
+        check(launches == RESNET_STEPS * len(RESNET_BUCKETS),
+              f"ResNet-50 {tag}: B1 launched {launches} times in "
+              f"{RESNET_STEPS} steps, expected {len(RESNET_BUCKETS)} a step")
+        ts = tr.build_sync_step(tree)(ts)
+        check(int(ts.sync.my_steps) == 0, "the sync step kept the counts")
+        log(f"[resnet] ({'a' if cd is None else 'b'}) {tag}: {RESNET_STEPS} "
+            f"build_sgd_step steps at batch {RESNET_BATCH}, {RESNET_SIZE}^2, "
+            f"{RESNET_CLASSES} classes, losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, B1 {launches} launches "
+            f"({len(RESNET_BUCKETS)} buckets a step); then build_sync_step")
+        # fused against plain from the same weights and batches
+        finals = {}
+        for fused in (True, False):
+            st = tr.init_train_state(model, tree, 1, RESNET_CLASSES)
+            st_step = tr.build_sgd_step(model, tree, RESNET_LR, fused=fused,
+                                        max_bucket_bytes=RESNET_BUCKET_BYTES)
+            for i in range(PARITY_STEPS):
+                st, _ = st_step(st, *batches[i % 2])
+            finals[fused] = st.params
+        torch.cuda.synchronize()
+        diff = max_tree_diff(torch, finals[True], finals[False])
+        del finals
+        log(f"[resnet]   fused vs plain after {PARITY_STEPS} steps: max "
+            f"param diff {diff:.3e} (tolerance {PARITY_TOL:.0e})")
+        check(diff <= PARITY_TOL, f"ResNet-50 {tag}: fused and plain SGD "
+              f"differ by {diff}")
+        # (c) steps/s, images/s, peak memory, MFU; one profiled step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        box = {"ts": ts}
+
+        def window():
+            for i in range(RESNET_WINDOW_STEPS):
+                box["ts"], _ = step(box["ts"], *batches[i % 2])
+        window()
+        sps = steps_per_s(torch, window, RESNET_WINDOW_STEPS,
+                          windows=RESNET_WINDOWS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        mfu = flops * sps / peak
+        check(mfu <= 1.0, f"ResNet-50 {tag}: MFU {mfu:.3f} > 1: the timing "
+              "or the FLOP count is wrong")
+        (box["ts"], _), busy, wall, by_class = profile_step(
+            torch, lambda: step(box["ts"], *batches[0]), RESNET_CLASSES_OF,
+            "elementwise (batchnorm normalize, ReLU, adds, casts)")
+        check(busy is not None and busy > 0,
+              "torch.profiler saw no device time in the step")
+        b1_ms, b1_n = by_class.get("B1", [0.0, 0])
+        check(b1_n == len(RESNET_BUCKETS),
+              f"the profiled step names B1 {b1_n} times, expected "
+              f"{len(RESNET_BUCKETS)}")
+        out[tag] = {"steps_per_s": sps, "images_per_s": sps * RESNET_BATCH,
+                    "mfu": mfu, "peak_gb": peak_gb, "busy_ms": busy,
+                    "wall_ms": wall, "launches": launches,
+                    "b1_ms": b1_ms, "classes": by_class}
+        log(f"[resnet] (c) {tag}: {sps:.3f} steps/s = "
+            f"{sps * RESNET_BATCH:.1f} images/s (median of {RESNET_WINDOWS} "
+            f"windows of {RESNET_WINDOW_STEPS} steps), MFU {mfu:.3f} "
+            f"({flops / 1e12:.3f} TFLOP a step, analytic, over "
+            f"{peak / 1e12:.0f} TFLOP/s), peak memory {peak_gb:.2f} GB; "
+            f"one profiled step {wall:.2f} ms wall (profiler on), device "
+            f"busy {busy:.2f} ms, idle {1 - busy / wall:.1%}; " + ", ".join(
+                f"{c} {v[0]:.2f} ms = {v[0] / busy:.1%} in {v[1]} launches"
+                for c, v in sorted(by_class.items(), key=lambda kv: -kv[1][0])))
+        del ts, box, step
+        torch.cuda.empty_cache()
+
+    resnet_against_cpu(torch, tree, cpu_tree)
+
+    # (d) the optimizer steps at full width, float32
+    model = resnet50(RESNET_CLASSES)
+    finals = {}
+    for name, tx, init, build in (
+            ("momentum", optim.sgd(0.01, momentum=0.9),
+             optim.init_optax_state, optim.build_optax_step),
+            ("adam", optim.adam(1e-4), optim.init_optax_state,
+             optim.build_optax_step),
+            ("adam-zero1", optim.adam(1e-4), optim.init_zero_state,
+             optim.build_zero_optax_step)):
+        st = init(model, tree, tx, 4, RESNET_CLASSES)
+        st_step = build(model, tree, tx)
+        losses = []
+        for i in range(RESNET_OPTAX_STEPS):
+            st, loss = st_step(st, *batches[i % 2])
+            losses.append(float(loss))
+        check(all(map(math.isfinite, losses)),
+              f"ResNet-50 {name}: non-finite loss {losses}")
+        log(f"[resnet] (d) {name}: {RESNET_OPTAX_STEPS} steps, losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        finals[name] = (tree_leaves(st.params), losses)
+        del st, st_step
+        torch.cuda.empty_cache()
+    (za, zl), (fa, fl) = finals["adam-zero1"], finals["adam"]
+    bitwise = zl == fl and all(torch.equal(a, b) for a, b in zip(za, fa))
+    rtol, atol = RESNET_ZERO_TOL
+    close = all(torch.allclose(a, b, rtol=rtol, atol=atol)
+                for a, b in zip(za, fa))
+    check(bitwise or close, "ZeRO-1 adam at one rank differs from the "
+          "full-state adam step beyond rtol 1e-6, atol 1e-7")
+    log(f"[resnet] (d) ZeRO-1 adam at n = 1 against build_optax_step's adam "
+        f"after {RESNET_OPTAX_STEPS} steps: "
+        + ("bit for bit" if bitwise else
+           f"within rtol {rtol:.0e}, atol {atol:.0e} (not bit for bit)"))
+    out["zero_bitwise"] = bitwise
+    del finals, batches
+    torch.cuda.empty_cache()
+
+    # (f) B1 at the largest bucket
+    rate, part = hbm_rate(torch.cuda.get_device_name(0))
+    n = max(RESNET_BUCKETS)
+    g = torch.Generator(device=RESNET_DEVICE).manual_seed(5)
+    p = torch.randn(n, generator=g, device=RESNET_DEVICE)
+    gr = torch.randn(n, generator=g, device=RESNET_DEVICE)
+    check(torch.equal(fu.fused_sgd(p, gr, RESNET_LR),
+                      fu.sgd_plain(p, gr, RESNET_LR)),
+          f"B1 differs from its plain twin at n={n}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=RESNET_DEVICE)
+    bound = max(12 * n / rate, 2 * n / FP32_FLOPS) * 1e3
+    b1 = {"ms": time_ms(torch, lambda: fu.fused_sgd(p, gr, RESNET_LR), flush),
+          "plain_ms": time_ms(torch, lambda: fu.sgd_plain(p, gr, RESNET_LR),
+                              flush),
+          "library_ms": time_ms(torch, lambda: torch.add(p, gr,
+                                                         alpha=-RESNET_LR),
+                                flush),
+          "bound_ms": bound}
+    step_bound = sum(12 * b / rate for b in RESNET_BUCKETS) * 1e3
+    del flush, p, gr
+    log(f"[resnet] (f) B1 at the largest bucket n={n}: {b1['ms']:.5f} ms | "
+        f"plain {b1['plain_ms']:.5f} ms | torch.add {b1['library_ms']:.5f} "
+        f"ms | bound {bound:.5f} ms ({12 * n / 1e6:.1f} MB at "
+        f"{rate / 1e12:.2f} TB/s, {part}), {bound / b1['ms']:.1%} of bound; "
+        f"the 8 buckets' bound {step_bound:.4f} ms a step")
+    out["b1"] = b1
+
+    # (e) the example as its own process, plain and --bf16 --deviceData
+    procs = []
+    for extra in ([], ["--bf16", "--deviceData"]):
+        args = RESNET_EXAMPLE + ["--device", RESNET_DEVICE] + extra
+        procs.append((args, subprocess.Popen(
+            [sys.executable, "-m", f"distlearn_tpu_torch.examples.{args[0]}",
+             *args[1:]], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    t0 = time.perf_counter()
+    for args, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for _, pr in procs:
+                pr.kill()
+                pr.communicate()
+            raise SmokeFailure(f"{' '.join(args)} timed out")
+        check(proc.returncode == 0, f"{' '.join(args)} exited "
+              f"{proc.returncode}: {stderr[-2000:]}")
+        losses = [float(v) for v in re.findall(r"epoch \d+: loss (\S+)",
+                                               stdout)]
+        check(losses and all(map(math.isfinite, losses)),
+              f"{' '.join(args)}: losses {losses}")
+        check("161 leaves, bucket 16 MiB" in stdout,
+              f"{' '.join(args)}: no 161-leaf line")
+        log(f"[resnet] (e) {' '.join(args)}: " + " | ".join(
+            ln for ln in stdout.splitlines() if ln.startswith("epoch")))
+    log(f"[resnet] (e) both example processes {time.perf_counter() - t0:.1f} "
+        "s (run together)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3527,6 +4144,19 @@ def main() -> int:
         phase_examples(torch)
         phase_entry(torch)
         host = phase_host(torch)
+        t16 = time.perf_counter()
+        backends = phase_backends(torch)
+        log(f"[backends] phase 16 took {time.perf_counter() - t16:.1f} s")
+        t17 = time.perf_counter()
+        tree = init_mesh(0, 1, init_method=f"tcp://localhost:{free_port()}",
+                         device="cuda")
+        try:
+            cpu_tree = MeshTree(device="cpu",
+                                group=dist.new_group(backend="gloo"))
+            resnet = phase_resnet(torch, tree, cpu_tree)
+        finally:
+            dist.destroy_process_group()
+        log(f"[resnet] phase 17 took {time.perf_counter() - t17:.1f} s")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -3580,7 +4210,21 @@ def main() -> int:
         f"{host['tree']['round_ms']:.3f} / {host['tree']['return_ms']:.3f} "
         f"ms, ring {host['ring']['stage_ms']:.3f} / "
         f"{host['ring']['round_ms']:.3f} / {host['ring']['return_ms']:.3f} "
-        "ms")
+        f"ms; hybrid tree stage / round / return "
+        f"{backends['hybrid']['tree']['stage_ms']:.3f} / "
+        f"{backends['hybrid']['tree']['round_ms']:.3f} / "
+        f"{backends['hybrid']['tree']['return_ms']:.3f} ms; slice client "
+        f"(amax, quantize, dequant_add) launches "
+        f"{backends['slice_launches']}; ResNet-50 float32 "
+        f"{resnet['float32']['images_per_s']:.1f} images/s (MFU "
+        f"{resnet['float32']['mfu']:.3f}, peak "
+        f"{resnet['float32']['peak_gb']:.2f} GB), bfloat16 "
+        f"{resnet['bfloat16']['images_per_s']:.1f} images/s (MFU "
+        f"{resnet['bfloat16']['mfu']:.3f}, peak "
+        f"{resnet['bfloat16']['peak_gb']:.2f} GB), B1 "
+        f"{resnet['float32']['launches']} launches in {RESNET_STEPS} steps, "
+        f"largest bucket {resnet['b1']['ms']:.5f} ms against bound "
+        f"{resnet['b1']['bound_ms']:.5f} ms")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -33,19 +33,6 @@ CKPT_FLAGS = {
     "resume": (False, "resume from the newest checkpoint in --save"),
 }
 
-_A10 = "waits for ROADMAP A10 (the optax optimizers and schedules)"
-
-
-def check_optimizer(opt) -> None:
-    """The examples train with the reference's SGD only: another
-    ``--optimizer`` or an ``--lrSchedule`` exits naming the ROADMAP item
-    that ports them."""
-    if getattr(opt, "optimizer", "sgd") != "sgd":
-        raise SystemExit(f"--optimizer {opt.optimizer} {_A10}")
-    if getattr(opt, "lrSchedule", "constant") != "constant":
-        raise SystemExit(f"--lrSchedule {opt.lrSchedule} {_A10}")
-
-
 def resolve_num_nodes(requested: int, device: torch.device) -> int:
     """Clamp ``--numNodes`` to the cards present, with the JAX package's
     warning: the reference time-slices processes on one GPU

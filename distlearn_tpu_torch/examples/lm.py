@@ -15,9 +15,8 @@ with ``--dp`` ranks: one process per rank over NCCL (``cuda:<rank>``) or
 gloo (``--device cpu``), ``--dp 1`` in this process.  ``--generate`` and
 ``--serve`` then run on rank 0 with the trained params (``--steps 0``: the
 seeded initialisation).  Sequence, tensor and pipeline parallelism
-(``--sp/--tp/--pp``), MoE, ZeRO, FSDP and the optax optimizers wait for
-ROADMAP A11 (and A10 for the optimizers), so those flags only accept their
-defaults here.  SIGTERM or Ctrl-C drains the in-flight requests, then
+(``--sp/--tp/--pp``), MoE, ZeRO, FSDP and the LM's optax optimizers wait for
+ROADMAP A11, so those flags only accept their defaults here.  SIGTERM or Ctrl-C drains the in-flight requests, then
 exits.
 """
 
@@ -82,7 +81,7 @@ FLAGS = {
                  "continuous-batching decode slots ('G'/'R' frames; drive "
                  "with distlearn_tpu_torch.examples.lm_client)"),
     "servePort": (0, "serving port (0 = ephemeral, printed at startup)"),
-    "optimizer": ("sgd", "sgd only (adam/adamw: ROADMAP A10, A11)"),
+    "optimizer": ("sgd", "sgd only (the LM's adam/adamw: ROADMAP A11)"),
     "accumSteps": (1, "gradient-accumulation microbatches per step "
                       "(memory lever; effective batch unchanged)"),
     "profile": ("", "torch.profiler trace of steps 6..10 into this "
@@ -109,7 +108,7 @@ def parse(argv=None):
             raise SystemExit(f"--{name}: {_A11}")
     if opt.optimizer != "sgd":
         raise SystemExit(f"--optimizer {opt.optimizer}: the optax LM steps "
-                         f"wait for ROADMAP A10 and A11; pass sgd")
+                         f"wait for ROADMAP A11; pass sgd")
     if opt.seqLayout != "contig":
         raise SystemExit(f"--seqLayout {opt.seqLayout}: {_A11}")
     if opt.rematMode not in ("", "full", "mlp"):

@@ -9,7 +9,13 @@ per-step gradient allreduce and normalise (mnist.lua:109) and SGD update
 sync (mnist.lua:129).
 
     python -m distlearn_tpu_torch.examples.mnist --numNodes 4 \\
-        [--device cpu] [--data mnist.npz] [--deviceData] [--parity]
+        [--device cpu] [--data mnist.npz] [--deviceData] [--parity] \\
+        [--optimizer momentum|adam|adam-zero1] \\
+        [--lrSchedule cosine|warmup-cosine]
+
+``--optimizer`` other than sgd trains with the port's optax-shaped
+optimizers (:mod:`~distlearn_tpu_torch.train.optim`); ``adam-zero1``
+shards Adam's state over the nodes (ZeRO-1).
 
 On the card each node is a rank with a GPU of its own (``--numNodes`` is
 clamped to the cards present); ``--device cpu`` runs gloo ranks.
@@ -27,8 +33,12 @@ from distlearn_tpu_torch.data import (DeviceDataset, PermutationSampler,
                                       synthetic_mnist)
 from distlearn_tpu_torch.examples import common
 from distlearn_tpu_torch.models import mnist_cnn
-from distlearn_tpu_torch.train import (build_sgd_step, build_sync_step,
-                                       init_train_state)
+from distlearn_tpu_torch.train import (build_optax_step, build_sgd_step,
+                                       build_sync_step,
+                                       build_zero_optax_step,
+                                       init_optax_state, init_train_state,
+                                       init_zero_state)
+from distlearn_tpu_torch.train import optim
 from distlearn_tpu_torch.utils import metrics
 from distlearn_tpu_torch.utils.flags import (NODE_FLAGS, TRAIN_FLAGS,
                                              parse_flags)
@@ -45,8 +55,12 @@ FLAGS = {
     "reportEvery": (100, "steps between confusion-matrix reports"),
     "parity": (False, "print a final JSON accuracy line"),
     "optimizer": ("sgd", "sgd (the reference's update, fused B1 on the "
-                         "card); others wait for ROADMAP A10"),
-    "lrSchedule": ("constant", "constant; schedules wait for ROADMAP A10"),
+                         "card) | momentum | adam | adam-zero1 (optimizer "
+                         "state sharded over the nodes)"),
+    "lrSchedule": ("constant", "constant | cosine | warmup-cosine — the "
+                               "schedule of the optax optimizers "
+                               "(--optimizer != sgd; the sgd path keeps the "
+                               "reference's fixed lr)"),
     "deviceData": (False, "dataset resident in device memory, batches "
                           "gathered on the device (see cifar10.py)"),
 }
@@ -73,9 +87,22 @@ def train(opt, tree) -> None:
                                     tree.node_index, tree.num_nodes)
 
     model = mnist_cnn()
-    ts = init_train_state(model, tree, opt.seed, nc)
-    step = build_sgd_step(model, tree, lr=opt.learningRate)
-    sync = build_sync_step(tree)
+    if opt.optimizer == "sgd":      # reference cadence (mnist.lua:112-116)
+        ts = init_train_state(model, tree, opt.seed, nc)
+        step = build_sgd_step(model, tree, lr=opt.learningRate)
+    else:
+        total_steps = max(1, opt.numEpochs * (ds.size // opt.batchSize))
+        tx = _optimizer(opt, total_steps)
+        if opt.optimizer == "adam-zero1":
+            ts = init_zero_state(model, tree, tx, opt.seed, nc)
+            step = build_zero_optax_step(model, tree, tx)
+        else:
+            ts = init_optax_state(model, tree, tx, opt.seed, nc)
+            step = build_optax_step(model, tree, tx)
+    # the winner-takes-all sync repairs uneven participation; these
+    # full-participation optax runs keep params replicated, so it is an
+    # identity for them (and their state is not a TrainState)
+    sync = build_sync_step(tree) if opt.optimizer == "sgd" else (lambda s: s)
     timer = StepTimer()
     global_step, final_acc = 0, 0.0
     for epoch in range(1, opt.numEpochs + 1):
@@ -106,10 +133,41 @@ def train(opt, tree) -> None:
     log("done")
 
 
+_SCHEDULES = ("constant", "cosine", "warmup-cosine")
+_OPTIMIZERS = ("sgd", "momentum", "adam", "adam-zero1")
+
+
+def _optimizer(opt, total_steps: int) -> optim.GradientTransformation:
+    """The ``--optimizer`` with its ``--lrSchedule`` over ``total_steps``."""
+    lr = opt.learningRate
+    if opt.lrSchedule == "cosine":
+        lr = optim.cosine_decay_schedule(opt.learningRate, total_steps)
+    elif opt.lrSchedule == "warmup-cosine":
+        lr = optim.warmup_cosine_decay_schedule(
+            0.0, opt.learningRate, warmup_steps=max(1, total_steps // 10),
+            decay_steps=total_steps)
+    if opt.optimizer == "momentum":
+        return optim.sgd(lr, momentum=0.9)
+    return optim.adam(lr)
+
+
+def _check_flags(opt) -> None:
+    if opt.lrSchedule not in _SCHEDULES:
+        raise SystemExit(f"unknown --lrSchedule {opt.lrSchedule!r} "
+                         f"(choose {', '.join(_SCHEDULES)})")
+    if opt.optimizer not in _OPTIMIZERS:
+        raise SystemExit(f"unknown --optimizer {opt.optimizer!r} "
+                         f"(choose {', '.join(_OPTIMIZERS)})")
+    if opt.optimizer == "sgd" and opt.lrSchedule != "constant":
+        raise SystemExit("--lrSchedule needs an optax optimizer "
+                         "(--optimizer momentum|adam|adam-zero1); the sgd "
+                         "path keeps the reference's fixed lr")
+
+
 def main(argv=None) -> int:
     opt = parse_flags("Train an MNIST handwritten digit classifier.", FLAGS,
                       argv)
-    common.check_optimizer(opt)
+    _check_flags(opt)
     device = resolve_device(opt.device)   # no card, no --device cpu: raise
     common.launch(train, opt, common.resolve_num_nodes(opt.numNodes, device))
     return 0

@@ -24,7 +24,7 @@ WAITING = {
     "lm over a dp x sp x tp mesh (ring attention, Megatron tp)":
         "ROADMAP A11",
     "zigzag sequence layout": "ROADMAP A11",
-    "ZeRO-1 with tp and sp": "ROADMAP A10/A11",
+    "ZeRO-1 with tp and sp": "ROADMAP A11",
     "ZeRO-3 / FSDP": "ROADMAP A11",
     "pipeline-parallel LM (GPipe)": "ROADMAP A11",
     "MoE over an expert axis": "ROADMAP A11",

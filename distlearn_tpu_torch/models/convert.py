@@ -35,7 +35,7 @@ def _leaf_to_jax(name: str, t) -> np.ndarray:
         a = a.transpose(2, 3, 1, 0)
     elif name == "w" and a.ndim == 2:        # [out, in] -> [in, out]
         a = a.T
-    return np.ascontiguousarray(a)
+    return np.ascontiguousarray(a).reshape(a.shape)   # 0-d stays 0-d
 
 
 def _permute_leaf(name: str, t: torch.Tensor, to_jax: bool) -> torch.Tensor:

@@ -51,23 +51,70 @@ def dense(params, x, compute_dtype=None):
 
 
 def conv2d_init(gen, in_ch: int, out_ch: int, kh: int, kw: int,
-                dtype=torch.float32):
+                dtype=torch.float32, bias: bool = True,
+                init: str = "uniform"):
+    """``init``: ``"uniform"`` (torch7's fan-in default) or ``"he"``
+    (Kaiming normal over the fan-out, the torchvision ResNet init).
+    ``bias=False`` for convs followed by batchnorm."""
     fan_in = in_ch * kh * kw
-    return {"w": _uniform_fanin(gen, (out_ch, in_ch, kh, kw), fan_in, dtype),
-            "b": _uniform_fanin(gen, (out_ch,), fan_in, dtype)}
+    if init == "he":
+        std = math.sqrt(2.0 / (out_ch * kh * kw))
+        w = torch.randn((out_ch, in_ch, kh, kw), generator=gen,
+                        dtype=dtype) * std
+    else:
+        w = _uniform_fanin(gen, (out_ch, in_ch, kh, kw), fan_in, dtype)
+    params = {"w": w}
+    if bias:
+        params["b"] = _uniform_fanin(gen, (out_ch,), fan_in, dtype)
+    return params
 
 
-def conv2d(params, x, padding: int = 0, compute_dtype=None):
-    """x: NCHW (channels-last in memory on the main path); weight OIHW."""
+def _pads(padding) -> tuple[tuple[int, int], tuple[int, int]]:
+    """``int``, ``"VALID"`` or ``((top, bottom), (left, right))`` as pad
+    pairs."""
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    (pt, pb), (pl, pr) = padding
+    return (int(pt), int(pb)), (int(pl), int(pr))
+
+
+def _pad_args(x, padding, value: float):
+    """``(x, (ph, pw))`` for a torch op's symmetric padding; an asymmetric
+    pad is applied to ``x`` with ``value`` first."""
+    (pt, pb), (pl, pr) = _pads(padding)
+    if pt == pb and pl == pr:
+        return x, (pt, pl)
+    return F.pad(x, (pl, pr, pt, pb), value=value), (0, 0)
+
+
+def conv2d(params, x, padding=0, compute_dtype=None, stride=1):
+    """x: NCHW (channels-last in memory on the main path); weight OIHW.
+    ``padding``: an int, ``"VALID"`` or ``((top, bottom), (left, right))``
+    zero pads; ``stride``: an int or ``(sh, sw)``.  The bias is optional
+    (``params["b"]``)."""
+    x, pad = _pad_args(x, padding, 0.0)
+    b = params.get("b")
     if compute_dtype is None:
-        return F.conv2d(x, params["w"], params["b"], padding=padding)
+        return F.conv2d(x, params["w"], b, stride=stride, padding=pad)
     y = F.conv2d(x.to(compute_dtype), params["w"].to(compute_dtype),
-                 padding=padding)
-    return y + params["b"].to(y.dtype).view(1, -1, 1, 1)
+                 stride=stride, padding=pad)
+    return y if b is None else y + b.to(y.dtype).view(1, -1, 1, 1)
 
 
-def max_pool2d(x):
-    return F.max_pool2d(x, kernel_size=2, stride=2)
+def max_pool2d(x, window=(2, 2), stride=(2, 2), padding="VALID"):
+    """Max over ``window`` at ``stride``; ``padding`` pads with -inf, as
+    ``lax.reduce_window`` does in the JAX package."""
+    x, pad = _pad_args(x, padding, -math.inf)
+    if pad == (0, 0):
+        return F.max_pool2d(x, kernel_size=window, stride=stride)
+    return F.max_pool2d(x, kernel_size=window, stride=stride, padding=pad)
+
+
+def avg_pool2d(x, window=(2, 2), stride=(2, 2)):
+    """Mean over ``window`` at ``stride``, no padding."""
+    return F.avg_pool2d(x, kernel_size=window, stride=stride)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -40,8 +41,9 @@ def init_state(params: PyTree) -> EAState:
 
 
 def elastic_round(params: PyTree, state: EAState, alpha: float,
-                  tree: MeshTree) -> tuple[PyTree, EAState]:
-    """One elastic-averaging round, per leaf (ref lua :35-45 / md :12-24)."""
+                  tree) -> tuple[PyTree, EAState]:
+    """One elastic-averaging round, per leaf (ref lua :35-45 / md :12-24),
+    over a :class:`MeshTree` or a collective backend."""
     delta = tree_map(lambda p, c: (p - c) * cast_scalar(alpha, p.dtype),
                      params, state.center)
     new_params = tree_map(lambda p, d: p - d, params, delta)
@@ -89,17 +91,31 @@ def synchronize_parameters(params: PyTree, state: EAState, tree: MeshTree
 
 class AllReduceEA:
     """The reference closure API, ``AllReduceEA(tree, tau, alpha)``
-    (lua :2), for one node per process.  Rounds pair up by ordinal across
-    nodes, as in the reference (lua :31: a due node blocks in
-    ``tree.allReduce`` until every peer reaches its own next call), so every
-    process must reach its ``tau`` boundaries on the same calls."""
+    (lua :2), over a :class:`MeshTree` (one node per process) or any
+    :class:`~distlearn_tpu_torch.comm.backend.CollectiveBackend`.
 
-    def __init__(self, tree: MeshTree, tau: int, alpha: float):
+    On a :class:`MeshTree` or a ``HostBackend`` the values are this node's
+    own tensors; on a ``MeshBackend`` or a ``HybridBackend`` they are the
+    handle's stacked ``[rows, ...]`` tensors (``stacked_nodes`` rows,
+    logical nodes from ``node_offset``) and the center is stacked the same
+    way, on the rows' device.  The round is the same three assignments
+    everywhere: the delta math on the tensors, then one allreduce of the
+    deltas.  Rounds pair up by ordinal across handles, as in the reference
+    (lua :31: a due node blocks in ``tree.allReduce`` until every peer
+    reaches its own next call), so every handle must reach its ``tau``
+    boundaries on the same calls; the due check sees only this handle's
+    nodes.  Step counts are kept on the host (ref lua :5, :31).
+    """
+
+    def __init__(self, tree, tau: int, alpha: float):
         self.tree = tree
         self.tau = int(tau)
         self.alpha = float(alpha)
+        stacked = tree.stacked_nodes
+        self._local = 1 if stacked is None else int(stacked)
+        self._offset = int(tree.node_offset)
         self._center = None
-        self._steps = 0
+        self._steps = np.zeros(tree.num_nodes, dtype=np.int64)
 
     def _one_time_init(self, params: PyTree):
         """Ref ``oneTimeInit`` (lua :11-22): clone params as the center."""
@@ -107,27 +123,37 @@ class AllReduceEA:
             self._center = tree_map(torch.clone, params)
 
     def average_parameters(self, params: PyTree, contrib=None) -> PyTree:
-        """Ref lua :25-47: bump the step count; at a ``tau`` boundary run
-        the elastic round."""
+        """Ref lua :25-47: bump the step counts of this handle's nodes; when
+        one of them reaches a ``tau`` boundary, run the elastic round.
+        ``contrib`` is a bool, or a per-row mask on a stacked handle."""
         self._one_time_init(params)
-        if contrib is None or bool(contrib):
-            self._steps += 1
-            if self._steps % self.tau == 0:
-                params, st = elastic_round(
-                    params, EAState(self._center, None), self.alpha, self.tree)
-                self._center = st.center
+        lo, hi = self._offset, self._offset + self._local
+        if contrib is None or contrib is True:
+            c = np.ones(self._local, dtype=np.int64)
+        elif contrib is False:
+            c = np.zeros(self._local, dtype=np.int64)
+        else:
+            if isinstance(contrib, torch.Tensor):
+                contrib = contrib.cpu().numpy()
+            c = np.asarray(contrib, dtype=np.int64).reshape(self._local)
+        self._steps[lo:hi] += c
+        if not ((c > 0) & (self._steps[lo:hi] % self.tau == 0)).any():
+            return params
+        params, st = elastic_round(
+            params, EAState(self._center, None), self.alpha, self.tree)
+        self._center = st.center
         return params
 
     def synchronize_center(self, params: PyTree) -> PyTree:
         """Ref lua :77-84: node 0's center to everyone, step reset."""
         self._one_time_init(params)
-        self._center = self.tree.broadcast_from(self._center, 0)
-        self._steps = 0
+        self._center = self.tree.scatter(self._center, src=0)
+        self._steps[:] = 0
         return params
 
     def synchronize_parameters(self, params: PyTree) -> PyTree:
         """Ref lua :87-100: node 0's params to everyone, center := params."""
-        params = self.tree.broadcast_from(params, 0)
+        params = self.tree.scatter(params, src=0)
         self._center = tree_map(torch.clone, params)
-        self._steps = 0
+        self._steps[:] = 0
         return params

@@ -9,7 +9,8 @@
 
 The in-step functions take and return this node's state explicitly and keep
 every count on the device, so a step never waits on the host.
-:class:`AllReduceSGD` is the reference's closure API over a :class:`MeshTree`.
+:class:`AllReduceSGD` is the reference's closure API over a :class:`MeshTree`
+or any collective backend (``comm/backend.py``).
 """
 
 from __future__ import annotations
@@ -85,12 +86,20 @@ def synchronize_parameters(params: PyTree, state: SGDSyncState,
 
 
 class AllReduceSGD:
-    """The reference closure API, ``AllReduceSGD(tree)`` (lua :4), for one
-    node per process: plain pytrees of this node's tensors, step counts kept
-    on the host and allreduced at sync time (lua :13-14, :39)."""
+    """The reference closure API, ``AllReduceSGD(tree)`` (lua :4), over a
+    :class:`MeshTree` (one node per process, this node's tensors) or any
+    :class:`~distlearn_tpu_torch.comm.backend.CollectiveBackend` (its value
+    convention: plain values on a ``HostBackend``, stacked ``[rows, ...]``
+    tensors on a ``MeshBackend`` or ``HybridBackend``).  ``contrib``
+    follows the handle too: a 0/1 flag, or a per-row mask on a stacked
+    handle.  Step counts are kept on the host, each handle filling its own
+    nodes' slots, and summed at sync time (lua :13-14, :39)."""
 
-    def __init__(self, tree: MeshTree):
+    def __init__(self, tree):
         self.tree = tree
+        stacked = tree.stacked_nodes
+        self._local = 1 if stacked is None else int(stacked)
+        self._offset = int(tree.node_offset)
         self._steps = np.zeros(tree.num_nodes, dtype=np.int64)
 
     def sum_gradients(self, grads: PyTree, contrib=None) -> tuple[PyTree, int]:
@@ -110,16 +119,38 @@ class AllReduceSGD:
         return out, n
 
     def _bump(self, contrib):
-        if contrib is None or bool(contrib):
-            self._steps[self.tree.node_index] += 1
+        lo, hi = self._offset, self._offset + self._local
+        if contrib is None or contrib is True:
+            self._steps[lo:hi] += 1
+        elif contrib is not False:
+            c = contrib.cpu().numpy() if isinstance(contrib, torch.Tensor) \
+                else contrib
+            self._steps[lo:hi] += np.asarray(c, dtype=np.int64)
+
+    def _global_steps(self) -> np.ndarray:
+        """The full per-node step vector: each handle contributes its own
+        slots (disjoint), so the sum is the global vector."""
+        if self._local == self.tree.num_nodes:
+            return self._steps.copy()
+        if self.tree.stacked_nodes is None:
+            # only this node's slot is ever bumped
+            steps = torch.from_numpy(self._steps.copy()).to(
+                getattr(self.tree, "device", "cpu"))
+            red, _ = self.tree.all_reduce(steps)
+            return red.cpu().numpy()
+        lo = self._offset
+        stacked = torch.zeros((self._local, self.tree.num_nodes),
+                              dtype=torch.int64)
+        for r in range(self._local):
+            stacked[r, lo + r] = int(self._steps[lo + r])
+        red, _ = self.tree.all_reduce(self.tree.put_per_node(stacked))
+        return self.tree.node_slice(red, 0).cpu().numpy()
 
     def synchronize_parameters(self, params: PyTree) -> PyTree:
         """Ref lua :33-54: winner-takes-all (most steps, ties to the highest
         index), or a scatter from node 0 when no node stepped this epoch."""
-        red, _ = self.tree.all_reduce(torch.from_numpy(self._steps)
-                                      .to(self.tree.device))
-        steps = red.cpu().numpy()
+        steps = self._global_steps()
         src = int(len(steps) - 1 - np.argmax(steps[::-1])) \
             if steps.max() > 0 else 0
         self._steps[:] = 0
-        return self.tree.broadcast_from(params, src)
+        return self.tree.scatter(params, src=src)

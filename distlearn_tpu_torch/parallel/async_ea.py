@@ -71,7 +71,11 @@ wire layout, the client converts the fetched center into its own layout and
 the delta into the wire's before the encode (its residual stays in the
 wire layout).
 
-Not ported yet (ROADMAP A9(d)): the slice client (``slice_backend=``).
+The slice client (``AsyncEAClient(slice_backend=)``) is one client for L
+rows of a stacked-value backend (``MeshBackend``, ``HybridBackend``): its
+params are ``[L, ...]`` rows, each row takes its own elastic pull against
+the one center, and the row-sum of the deltas goes out in one push, what L
+plain clients would push against the same center, in one send.
 """
 
 from __future__ import annotations
@@ -2227,7 +2231,10 @@ class AsyncEAClient:
     elastic server folds into this client's deltas; ``adaptive_tau``
     stretches the sync period when syncs slow down.  ``params`` are
     pytrees of tensors on the client's device, in the port's layout;
-    ``layout`` names the wire's."""
+    ``layout`` names the wire's.  ``slice_backend``, a stacked-value
+    backend on the client's device, makes this the slice client of L rows
+    (the module docstring): ``params`` lead with ``[L]``, the center keeps
+    the wire's shape."""
 
     def __init__(self, host: str, port: int, node: int, tau: int,
                  alpha: float, codec: str | None = "raw",
@@ -2235,6 +2242,7 @@ class AsyncEAClient:
                  throttle_bps: float | None = None,
                  centers: list[tuple[str, int]] | None = None,
                  capacity: float = 1.0, adaptive_tau: bool = False,
+                 slice_backend=None,
                  device=None, layout: WireLayout | None = None,
                  _broadcast: Conn | None = None,
                  _dedicated_port: int | None = None):
@@ -2245,6 +2253,15 @@ class AsyncEAClient:
                              f"(supported: {', '.join(wire.CODECS)})")
         if capacity <= 0:
             raise ValueError("capacity must be > 0")
+        rows = None
+        if slice_backend is not None:
+            rows = getattr(slice_backend, "stacked_nodes", None)
+            if not rows:
+                raise ValueError(
+                    "slice_backend must be a stacked-value backend "
+                    "(stacked_nodes set) — MeshBackend or HybridBackend")
+        self._slice = slice_backend
+        self._slice_rows = int(rows or 0)
         self.device = resolve_device(device)
         self.layout = layout
         self.node = node
@@ -2468,6 +2485,12 @@ class AsyncEAClient:
         broadcast is per-leaf; ``recv_tensors`` auto-detects either
         framing."""
         self._recv_center(self.broadcast, len(_leaves(params)))
+        if self._slice is not None:
+            # every row of the slice starts at the center
+            self.center = self._center(params, self._slab.leaves)
+            return _rebuild(params, [
+                c.unsqueeze(0).expand((self._slice_rows,) + tuple(c.shape))
+                .contiguous() for c in self.center])
         return self._params_at_center(params)
 
     def sync_client(self, params: PyTree) -> tuple[PyTree, bool]:
@@ -2537,10 +2560,15 @@ class AsyncEAClient:
             leaves = _leaves(params)
             deltas = []
             for p, c in zip(leaves, self.center):
-                d = (p - c).to(c.dtype)
+                # a slice client's rows each pull against the one center
+                d = (p - (c if self._slice is None else c[None])).to(c.dtype)
                 d.mul_(cast_scalar(self.alpha, d.dtype))
                 deltas.append(d)
             new_leaves = [p - d for p, d in zip(leaves, deltas)]
+            if self._slice is not None:
+                # the row-sum of the deltas, pushed once below
+                red, _ = self._slice.all_reduce(deltas)
+                deltas = list(self._slice.node_slice(red, 0))
             if self.layout is not None:
                 deltas = _leaves(self.layout.to_wire(_rebuild(params,
                                                               deltas)))

@@ -32,6 +32,10 @@ class MeshTree:
     inputs as they were.
     """
 
+    # the CollectiveBackend convention: plain per-node values, one node a
+    # process
+    stacked_nodes = None
+
     def __init__(self, device=None, group=None):
         if not dist.is_initialized():
             raise RuntimeError("torch.distributed is not initialized; "
@@ -80,6 +84,14 @@ class MeshTree:
             dist.broadcast(out, gsrc, group=self.group)
             return out
         return tree_map(_bcast, tree)
+
+    @property
+    def node_offset(self) -> int:
+        return self.node_index
+
+    def scatter(self, tree: PyTree, src: int = 0) -> PyTree:
+        """:meth:`broadcast_from` under the backends' name."""
+        return self.broadcast_from(tree, src)
 
     def all_gather_scalar(self, x: torch.Tensor) -> torch.Tensor:
         """Every node's scalar ``x`` as a ``[num_nodes]`` vector."""

@@ -128,16 +128,21 @@ def value_and_grad(model: Model, params: PyTree, mstate: PyTree, x, y,
             tree_unflatten(treedef, list(grads)))
 
 
+def init_common(model: Model, tree: MeshTree, seed: int, num_classes: int):
+    """The state every replicated-params step starts from (SGD, optax,
+    ZeRO): identical params on every node (same ``seed``), a zero step
+    count and confusion matrix, and this node's dropout generator, on
+    ``tree.device``.  Returns ``(params, model_state, sync, cm, rng)``."""
+    params, mstate = model.init(seed, tree.device)
+    return (params, mstate, allreduce_sgd.init_state(tree.device),
+            metrics_lib.init_confusion(num_classes, tree.device),
+            _node_generator(seed, tree.node_index, tree.device))
+
+
 def init_train_state(model: Model, tree: MeshTree, seed: int,
                      num_classes: int) -> TrainState:
-    """Identical params on every node (same ``seed``), a zero step count and
-    confusion matrix, and this node's dropout generator, on ``tree.device``."""
-    params, mstate = model.init(seed, tree.device)
-    return TrainState(
-        params=params, model_state=mstate,
-        sync=allreduce_sgd.init_state(tree.device),
-        cm=metrics_lib.init_confusion(num_classes, tree.device),
-        rng=_node_generator(seed, tree.node_index, tree.device))
+    """:func:`init_common` as a :class:`TrainState`."""
+    return TrainState(*init_common(model, tree, seed, num_classes))
 
 
 def build_sgd_step(model: Model, tree: MeshTree, lr: float,

@@ -102,14 +102,21 @@ def test_overlap_multi_round_accumulation(codec):
 # ---------------------------------------------------------------------------
 # Rejoin (tests/test_async_ea.py)
 
-def _live_client_fn(port, out, delay=0.0):
+def _live_client_fn(port, out, delay=0.0, before=None, after=None):
+    """Client #1: dial after ``delay``, then one sync (+1 on ``w``).  The
+    sync waits for ``before`` and sets ``after`` once served, so a test
+    orders it against the other roles by events, not by sleeps."""
     def run():
         time.sleep(delay)
         c = U.client("port", port, node=1)
         p = c.init_client(_wb("port"))
+        if before is not None:
+            assert before.wait(timeout=60), "the other role never got ahead"
         p, out["synced"] = c.sync_client({"w": p["w"] + 1.0,
                                           "b": p["b"] + 2.0})
         out["p"] = p
+        if after is not None:
+            after.set()
         c.close()
     return run
 
@@ -132,12 +139,14 @@ def test_evicted_client_rejoins_and_syncs_serial():
     across the cycle."""
     port = U.ports()
     out = {}
-    evicted = threading.Event()
+    evicted, admitted = threading.Event(), threading.Event()
 
     def flaky_fn():
         c = U.client("port", port, node=2)
         c.init_client(_wb("port"))
         c.broadcast.send_msg({"q": "Enter?", "clientID": 2})
+        c.conn.recv_msg()                 # Enter, then silence -> eviction
+        admitted.set()                    # only now may #1 ask
         evicted.wait(timeout=60)
         p = c.rejoin(_wb("port"))
         out["after_rejoin"] = p["w"].clone()
@@ -156,7 +165,8 @@ def test_evicted_client_rejoins_and_syncs_serial():
         out["evicted"], out["live"] = set(srv.evicted), srv.live_clients
         srv.close()
 
-    U.run_threads(server_fn, flaky_fn, _live_client_fn(port, out, 0.5))
+    U.run_threads(server_fn, flaky_fn,
+                  _live_client_fn(port, out, 0.5, before=admitted))
     assert out["evicted"] == set() and out["live"] == 2 and out["synced2"]
     # client 1: w 0 -> 0.5.  The rejoiner takes 0.5, drifts +2 -> 2.5,
     # delta (2.5 - 0.5) * 0.5 = 1.0: center and params 1.5
@@ -290,13 +300,16 @@ def test_admitted_client_frame_stall_becomes_eviction_then_rejoins():
     the frame timeout, recorded as a real eviction, and rejoins."""
     port = U.ports()
     out = {}
-    stalled = threading.Event()
+    stalled, live_synced = threading.Event(), threading.Event()
 
     def flaky_fn():
         c = U.client("port", port, node=2)
         p = c.init_client(_wb("port"))
         p, synced = c.sync_client({"w": p["w"] + 2.0, "b": p["b"]})
         assert synced
+        # #1's sync is served before the stall, so the server's next
+        # served sync after the eviction is the rejoiner's
+        assert live_synced.wait(timeout=60)
         c.broadcast.sock.sendall(struct.pack("<BQ", ord("J"), 64)[:5])
         stalled.wait(timeout=60)
         p = c.rejoin(_wb("port"))
@@ -319,7 +332,8 @@ def test_admitted_client_frame_stall_becomes_eviction_then_rejoins():
         out["evicted"] = set(srv.evicted)
         srv.close()
 
-    U.run_threads(server_fn, flaky_fn, _live_client_fn(port, out, 1.0))
+    U.run_threads(server_fn, flaky_fn,
+                  _live_client_fn(port, out, 1.0, after=live_synced))
     assert out["evicted"] == set() and out["synced2"]
     assert torch.isfinite(out["new"]["w"]).all()
 
@@ -367,11 +381,13 @@ def test_silent_rejoiner_conn_swept_after_deadline():
     import socket
     port = U.ports()
     out = {}
+    asked = threading.Event()
 
     def hung_fn():
         b = jconnect(HOST, port)
         d = jconnect(HOST, port + 2)
         b.send_msg({"q": "Enter?", "clientID": 2})
+        asked.set()
         time.sleep(8)
         b.close()
         d.close()
@@ -390,7 +406,8 @@ def test_silent_rejoiner_conn_swept_after_deadline():
         s.close()
         srv.close()
 
-    U.run_threads(server_fn, hung_fn, _live_client_fn(port, out, 0.3))
+    U.run_threads(server_fn, hung_fn,
+                  _live_client_fn(port, out, 0.3, before=asked))
     assert out["pending"] == 1 and out["after"] == [] and out["synced"]
 
 
@@ -428,8 +445,10 @@ def _accumulation(n_clients=3, rounds=4, shards=1):
                        accept_timeout=60.0, shards=shards)
         srv.init_server({"w": torch.zeros(64)})
         srv.start()
-        U.wait_for(lambda: srv.syncs_completed >= n_clients * rounds, 60,
-                   "every sync")
+        # a striped sync is counted when stripe 0 lands (as in the JAX
+        # server), so also wait out the other stripes' legs in flight
+        U.wait_for(lambda: srv.syncs_completed >= n_clients * rounds
+                   and srv.drained, 60, "every sync")
         out["slab_device"] = srv._slab.dev.device
         out["center"] = srv.current_center({"w": torch.zeros(64)})["w"]
         srv.stop()

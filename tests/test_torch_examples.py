@@ -13,8 +13,10 @@
   epoch-2 checkpoint bit for bit (every node's row); on one node in this
   process, the cycle against the per-step loop and a resume, each epoch's
   accuracy and checkpoint the same;
-* the unported flags exit naming their ROADMAP item, no card and no
-  ``--device cpu`` raises, and ``--numNodes`` is clamped to the cards.
+* mnist's ``--optimizer``/``--lrSchedule`` train one epoch, bad values
+  exit; the resnet50 example at 32^2 with a checkpoint and a resume;
+* no card and no ``--device cpu`` raises, and ``--numNodes`` is clamped to
+  the cards.
 """
 
 import json
@@ -30,7 +32,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from distlearn_tpu_torch.examples import cifar10, common, mnist, mnist_ea  # noqa: E402
+from distlearn_tpu_torch.examples import (cifar10, common, mnist,  # noqa: E402
+                                          mnist_ea, resnet50)
 from distlearn_tpu_torch.utils.tree import tree_flatten, tree_map  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -173,15 +176,61 @@ def test_mnist_ea_scan_cycle_matches_the_step_loop(tmp_path, capsys):
     _same_checkpoint(straight / "ckpt_3.npz", split / "ckpt_3.npz")
 
 
-@pytest.mark.parametrize("module,flag,value", [
-    (mnist, "--optimizer", "adam"), (mnist, "--lrSchedule", "cosine"),
+@pytest.mark.parametrize("flags", [
+    ("--optimizer", "momentum"), ("--optimizer", "adam"),
+    ("--optimizer", "adam-zero1"),
+    ("--optimizer", "momentum", "--lrSchedule", "cosine"),
+    ("--optimizer", "adam", "--lrSchedule", "warmup-cosine"),
+    ("--optimizer", "adam-zero1", "--lrSchedule", "cosine"),
+], ids=lambda f: "-".join(a.lstrip("-") for a in f))
+def test_mnist_optimizer_flags_train_one_epoch(flags, capsys):
+    """The optax optimizers and schedules through the example, one node in
+    this process: one epoch trains above chance (10 classes)."""
+    mnist.main(["--device", "cpu", "--numEpochs", "1", "--numExamples",
+                "512", "--batchSize", "32", "--learningRate", "0.01",
+                "--reportEvery", "1000", "--parity", *flags])
+    rec = _parity(capsys.readouterr().out)
+    assert rec["epochs"] == 1 and rec["train_acc"] > 0.15, rec
+
+
+@pytest.mark.parametrize("flags,match", [
+    (("--optimizer", "rmsprop"), "unknown --optimizer"),
+    (("--lrSchedule", "step"), "unknown --lrSchedule"),
+    (("--lrSchedule", "cosine"), "needs an optax optimizer"),
 ])
-def test_unported_flags_exit_naming_roadmap_item(module, flag, value):
-    with pytest.raises(SystemExit, match="ROADMAP A10"):
-        module.main([flag, value, "--device", "cpu"])
+def test_mnist_bad_optimizer_flags_exit(flags, match):
+    with pytest.raises(SystemExit, match=match):
+        mnist.main(["--device", "cpu", *flags])
 
 
-@pytest.mark.parametrize("module", [mnist, mnist_ea, cifar10])
+def test_resnet50_example_smoke(tmp_path):
+    """``examples/resnet50.py`` at 32^2, batch 8, 2 steps an epoch, with an
+    async checkpoint and a resume: every loss finite, 161 leaves."""
+    args = ["--imageSize", "32", "--batchSize", "8", "--stepsPerEpoch",
+            "2", "--numExamples", "64", "--numClasses", "10",
+            "--save", str(tmp_path)]
+    out = subprocess.run(
+        [sys.executable, "-m", "distlearn_tpu_torch.examples.resnet50",
+         "--device", "cpu", "--numEpochs", "1", *args],
+        capture_output=True, text=True, timeout=TIMEOUT_S, cwd=ROOT,
+        env={**os.environ, "OMP_NUM_THREADS": "4"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "resnet50: 23,528,522 params, 161 leaves, bucket 16 MiB" \
+        in out.stdout
+    assert (tmp_path / "ckpt_1.npz").exists()
+    resumed = subprocess.run(
+        [sys.executable, "-m", "distlearn_tpu_torch.examples.resnet50",
+         "--device", "cpu", "--numEpochs", "2", "--resume", *args],
+        capture_output=True, text=True, timeout=TIMEOUT_S, cwd=ROOT,
+        env={**os.environ, "OMP_NUM_THREADS": "4"})
+    assert resumed.returncode == 0, resumed.stderr[-3000:]
+    assert "resumed from epoch 1" in resumed.stdout
+    losses = [float(m) for m in re.findall(r"epoch \d+: loss (\S+)",
+                                           out.stdout + resumed.stdout)]
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+
+
+@pytest.mark.parametrize("module", [mnist, mnist_ea, cifar10, resnet50])
 def test_examples_raise_without_gpu(monkeypatch, module):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -17,7 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "distlearn_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
      ROOT / "tests" / "torch_lm_dist_worker.py",
-     ROOT / "tests" / "torch_scan_dist_worker.py"]
+     ROOT / "tests" / "torch_scan_dist_worker.py",
+     ROOT / "tests" / "torch_optim_dist_worker.py"]
 
 
 def _imported_modules(path: Path):
@@ -58,7 +59,8 @@ def test_port_sources_found():
                 "comm/ring.py", "comm/faults.py", "ops/wire_native.py",
                 "ops/staging.py", "parallel/host_algorithms.py",
                 "parallel/init.py", "examples/client_remote.py",
-                "parallel/ha.py"):
+                "parallel/ha.py", "models/resnet.py", "train/optim.py",
+                "examples/resnet50.py", "examples/sync_backends.py"):
         assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "distlearn_tpu_torch/ops/csrc/flash_attention.cu").exists()
@@ -86,9 +88,9 @@ def test_resolve_device_raises_without_gpu(no_gpu):
 
 
 def test_entry_points_raise_without_gpu(no_gpu):
-    from distlearn_tpu_torch.models import cifar_convnet, mnist_cnn
+    from distlearn_tpu_torch.models import cifar_convnet, mnist_cnn, resnet50
     from distlearn_tpu_torch.parallel.mesh import init_mesh
-    for make in (cifar_convnet, mnist_cnn):
+    for make in (cifar_convnet, mnist_cnn, resnet50):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make().init(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
