@@ -196,8 +196,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    plain and ``--bf16 --deviceData`` (run together), every loss finite; (f)
    B1 at the largest bucket (CUDA events, L2 flushed) beside its plain twin,
    ``torch.add`` and the bound.
-18. report — a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+18. mesh_lm — A11's first half: 4 rank processes on ``cuda:0``, each mesh
+   a gloo group over CUDA tensors passed explicitly (NCCL cannot put two
+   ranks on one card; every collective staged through pinned host memory,
+   so its times are that host route's, not NCCL's).  First what gloo
+   itself does with CUDA tensors (all_reduce, all_gather,
+   all_to_all_single, broadcast, bfloat16; send/recv in two processes of
+   their own).  Then, at phase 12's width (vocab 32768, dim 1024, depth 8,
+   16 heads, max_len 1024, float32 params, bfloat16 compute, flash, batch
+   8 x 1024) from phase 12's seeded init sharded by ``lm_shard``, on the
+   meshes (dp, sp, tp) (1, 1, 2) Megatron tp with ``fused=True``, (1, 2,
+   1) ring, zigzag and Ulysses, (2, 1, 1) MoE (2 experts, top-2, balance
+   weight 0.01) and (1, 2, 2): (a) 3 ``build_lm_step`` steps, every loss
+   finite and equal on the ranks, the first within 1e-2 of one rank's loss
+   on the same batch and weights, B5a/B5b/B5c a step by count and by
+   profile names (8 each where flash engages: tp, Ulysses, MoE; none on
+   the ring), B1 on the tp mesh, the step on the host clock and the
+   collectives' share of it; (b) one float64 step (dim 64, depth 2, L 128,
+   xla) whose implied update is within 1e-5 of one rank's gradient on the
+   card; (c) ``build_lm_mixed_step`` once on (1, 1, 2), ``params ==
+   master.to(bfloat16)`` bit for bit.  The phase fails past 150 s.
+19. report — a ``{"kernels": [...]}`` line (the flash rows and B1 with
+   their phase-18 launches under ``mesh_lm_launches``), the nvidia-smi
+   line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -4089,6 +4110,441 @@ def phase_resnet(torch, tree, cpu_tree) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the LM over a (data, seq, model) mesh with MoE (A11, first half)
+# ---------------------------------------------------------------------------
+
+# Ranks of the mesh phase: processes sharing one card, their mesh built on
+# a gloo group over CUDA tensors (NCCL cannot put two ranks on one card),
+# so every collective takes the mesh's staged route through pinned host
+# memory: its times are that host route's, not NCCL's.
+MESH_RANKS = 4
+MESH_DEVICE = "cuda"         # the rank processes' device (cuda:0)
+MESH_TIMEOUT_S = 400
+MESH_BUDGET_S = 150           # the phase's wall time, the probe included
+MESH_STEPS = 3
+# (name, (dp, sp, tp), model options, step options)
+MESH_CASES = (
+    ("tp", (1, 1, 2), {}, {"fused": True}),
+    ("ring", (1, 2, 1), {}, {}),
+    ("zigzag", (1, 2, 1), {}, {"seq_layout": "zigzag"}),
+    ("ulysses", (1, 2, 1), {"seq_impl": "alltoall"}, {}),
+    ("moe", (2, 1, 1), {"moe_experts": 2, "moe_top_k": 2},
+     {"ep_axis": "data", "moe_balance_weight": 0.01}),
+    ("sp_tp", (1, 2, 2), {}, {}),
+)
+# flash engages where the attention is local on the rank: with no sequence
+# axis, and inside Ulysses; the ring's blocks are plain PyTorch
+MESH_FLASH = {"tp", "ulysses", "moe"}
+MESH_LOSS_RTOL = 1e-2          # the first step's loss against one rank's
+# (b): float64, flash off, the implied update against one rank's gradient
+MESH_F64 = dict(vocab=256, dim=64, depth=2, heads=4, max_len=128)
+MESH_F64_BATCH, MESH_F64_TOL = 4, 1e-5
+
+
+def mesh_block(mesh, toks):
+    """This rank's block of a global ``[B, L]`` batch: rows over data,
+    columns over seq."""
+    d, s = mesh.axis("data"), mesh.axis("seq")
+    rows, cols = toks.shape[0] // d.size, toks.shape[1] // s.size
+    return toks[d.index * rows:(d.index + 1) * rows,
+                s.index * cols:(s.index + 1) * cols].contiguous()
+
+
+# send/recv last: it has been seen to abort the sending process
+GLOO_PROBES = ("all_reduce", "all_gather", "all_to_all_single", "broadcast",
+               "all_reduce bfloat16 on the host",
+               "all_reduce bfloat16 on the card", "send/recv")
+
+
+def gloo_probe_worker(rank: int, port: int, conn) -> None:
+    """One of two processes calling each of GLOO_PROBES directly on tensors
+    on ``cuda:0``, sending one ``(rank, op, outcome, detail)`` each through
+    ``conn`` (a pipe: each send has landed before the next call, which may
+    abort this process; that crash is itself a finding)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", rank=rank, world_size=2,
+                            init_method=f"tcp://localhost:{port}",
+                            timeout=datetime.timedelta(seconds=20))
+    try:
+        dev = torch.device("cuda", 0)
+        for op in GLOO_PROBES:
+            x = torch.full((4,), float(rank + 1), device=dev)
+            try:
+                if op == "all_reduce":
+                    dist.all_reduce(x)
+                elif op == "all_gather":
+                    parts = [torch.empty_like(x) for _ in range(2)]
+                    dist.all_gather(parts, x)
+                    x = torch.cat(parts)
+                elif op == "all_to_all_single":
+                    out = torch.empty_like(x)
+                    dist.all_to_all_single(out, x)
+                    x = out
+                elif op == "broadcast":
+                    dist.broadcast(x, 0)
+                elif op == "send/recv":
+                    if rank == 0:
+                        dist.send(x, 1)
+                    else:
+                        dist.recv(x, 0)
+                else:
+                    x = torch.ones(4, dtype=torch.bfloat16,
+                                   device=dev if op.endswith("card")
+                                   else "cpu")
+                    dist.all_reduce(x)
+                torch.cuda.synchronize()
+                conn.send((rank, op, "accepted", x.float().cpu().tolist()))
+            except (RuntimeError, ValueError, TypeError) as e:
+                conn.send((rank, op, "refused",
+                           str(e).splitlines()[0][:120]))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_probe_start():
+    """Start the two probe processes; :func:`gloo_probe_read` collects
+    them."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    pipes = [ctx.Pipe(duplex=False) for _ in range(2)]
+    procs = [ctx.Process(target=gloo_probe_worker, args=(r, port, w))
+             for r, (_, w) in enumerate(pipes)]
+    for p in procs:
+        p.start()
+    for _, w in pipes:
+        w.close()
+    return [r for r, _ in pipes], procs
+
+
+def gloo_probe_read(probe) -> dict:
+    """What gloo itself does with CUDA tensors on this machine: ``{op:
+    line}``.  The mesh's routes stage every collective through host
+    memory whatever this says."""
+    readers, procs = probe
+    got = []
+    deadline = time.monotonic() + 60
+    for conn in readers:
+        # a pipe whose process aborted reads as closed: stop there
+        while time.monotonic() < deadline and conn.poll(
+                max(0.1, deadline - time.monotonic())):
+            try:
+                got.append(conn.recv())
+            except EOFError:
+                break
+    for p in procs:
+        p.join(timeout=max(0.1, deadline - time.monotonic()))
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    out = {}
+    for op in GLOO_PROBES:
+        mine = sorted((r, kind, detail) for r, o, kind, detail in got
+                      if o == op)
+        if [m[1] for m in mine] == ["accepted"] * 2:
+            out[op] = f"accepted (rank 0 got {mine[0][2]})"
+        else:
+            out[op] = (f"not accepted: {mine}; the processes' exit codes "
+                       f"{codes}")
+    return out
+
+
+def mesh_reference(torch, model, whole, toks, dp, weight):
+    """One rank's objective of a mesh step on ``toks``: the mean over the dp
+    row blocks of each block's loss (with its own MoE balance term), its
+    value and gradient on the card."""
+    from distlearn_tpu_torch.train import lm as tlm
+    from distlearn_tpu_torch.utils.tree import tree_map
+    rows = toks.shape[0] // dp
+    loss, grads = 0.0, None
+    for i in range(dp):
+        li, gi = tlm.lm_local_grads(model, whole, toks[i * rows:(i + 1)
+                                                      * rows],
+                                    moe_balance_weight=weight)
+        loss = loss + li / dp
+        grads = tree_map(lambda g: g / dp, gi) if grads is None else \
+            tree_map(lambda a, g: a + g / dp, grads, gi)
+    return loss, grads
+
+
+def mesh_config() -> dict:
+    """Phase 18's sizes, handed to the rank processes (they re-import this
+    module, so a rehearsal's smaller sizes reach them only this way)."""
+    return {"lm": LM_TRAIN, "batch": LM_TRAIN_BATCH, "lr": LM_TRAIN_LR,
+            "steps": MESH_STEPS, "cases": MESH_CASES, "f64": MESH_F64,
+            "f64_batch": MESH_F64_BATCH}
+
+
+def mesh_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
+    """One rank of phase 18 (a spawned process on ``device``): (a), (b) and
+    (c) for every mesh of ``cfg["cases"]``."""
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from distlearn_tpu_torch.models.convert import lm_gather, lm_shard
+        from distlearn_tpu_torch.models.transformer import (lm_loss,
+                                                            transformer_lm)
+        from distlearn_tpu_torch.ops import flash_attention as fa
+        from distlearn_tpu_torch.ops import fused_update as fu
+        from distlearn_tpu_torch.parallel.mesh import Mesh
+        from distlearn_tpu_torch.parallel.sequence import zigzag_indices
+        from distlearn_tpu_torch.train import lm as tlm
+        from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
+
+        dev = torch.device(device)
+        cuda = dev.type == "cuda"
+        if cuda:
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        sync = (lambda: torch.cuda.synchronize(dev)) if cuda else \
+            (lambda: None)
+        dist.init_process_group("gloo", rank=rank, world_size=MESH_RANKS,
+                                init_method=f"tcp://localhost:{port}")
+        res = {"rank": rank, "cases": {}, "up": time.time()}
+        lmc, f64 = cfg["lm"], cfg["f64"]
+        B, L = cfg["batch"], lmc["max_len"]
+        tokens = torch.from_numpy(np.random.RandomState(0).randint(
+            0, lmc["vocab"], (B, L)).astype(np.int32)).to(dev)
+        wholes, refs = {}, {}
+        # device events only; a process's first profile pays CUPTI's
+        # start-up (about 10 s on the card), so pay it here, on every rank
+        # at once, and not inside a case where the other ranks wait for it
+        acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+        with profile(activities=acts):
+            torch.ones(1, device=dev).add_(1)
+            sync()
+        res["warm"] = time.time()
+        for name, shape, mopts, sopts in cfg["cases"]:
+            mesh = Mesh(shape, device=dev, backend="gloo",
+                        ranks=range(math.prod(shape)))
+            if not mesh.member:
+                continue
+            kind = "moe" if "moe_experts" in mopts else "dense"
+            if kind not in wholes:
+                wholes[kind] = transformer_lm(
+                    compute_dtype=torch.bfloat16, **lmc,
+                    **{k: v for k, v in mopts.items()
+                       if k.startswith("moe")}).init(0, device="cpu")[0]
+            t_case = time.perf_counter()
+            model = transformer_lm(compute_dtype=torch.bfloat16,
+                                   attn_impl="flash", **lmc, **mopts)
+            ep = sopts.get("ep_axis")
+            weight = sopts.get("moe_balance_weight", 0.0)
+            if rank == 0 and kind not in refs:
+                # the one-rank loss of the same weights and batch
+                with torch.no_grad():
+                    whole = tree_map(lambda t: t.to(dev), wholes[kind])
+                    refs[kind] = sum(float(lm_loss(
+                        model, whole, tokens[i * B // shape[0]:
+                                             (i + 1) * B // shape[0]],
+                        moe_balance_weight=weight)) / shape[0]
+                        for i in range(shape[0]))
+                    del whole
+                if cuda:
+                    torch.cuda.empty_cache()
+            params = lm_shard(wholes[kind], mesh, "model", ep)
+            toks = tokens
+            if sopts.get("seq_layout") == "zigzag":
+                toks = tokens[:, torch.from_numpy(zigzag_indices(
+                    shape[1], L)).long().to(dev)]
+            toks = mesh_block(mesh, toks)
+            step = tlm.build_lm_step(model, mesh, lr=cfg["lr"],
+                                     seq_axis="seq", tp_axis="model",
+                                     **sopts)
+            reset_flash_counts(fa)
+            fu.fused_sgd.launches = 0
+            losses, secs, keys = [], [], []
+            for i in range(cfg["steps"]):
+                mesh.stats.reset()
+                mesh.timed = i == 1
+                sync()
+                t = time.perf_counter()
+                if i == 2:
+                    with profile(activities=acts) as prof:
+                        params, loss = step(params, toks)
+                        sync()
+                    keys = [e.key for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            for _ in range(e.count)]
+                else:
+                    params, loss = step(params, toks)
+                    sync()
+                secs.append(time.perf_counter() - t)
+                losses.append(float(loss))
+                if i == 1:
+                    coll = dict(mesh.stats.seconds)
+                    calls = dict(mesh.stats.calls)
+                    nbytes = dict(mesh.stats.bytes)
+            mesh.timed = False
+            res["cases"][name] = {
+                "losses": losses, "secs": secs, "coll_s": coll,
+                "coll_calls": calls, "coll_bytes": nbytes,
+                "counts": flash_counts(fa), "b1": fu.fused_sgd.launches,
+                "routes": {k: sorted(v) for k, v in
+                           flash_routes(keys).items()},
+                "profiled": {tag: sum(sub in k for k in keys)
+                             for tag, sub in FLASH_KERNELS},
+                "ref_loss": refs.get(kind), "case_s":
+                time.perf_counter() - t_case, "end": time.time()}
+            del params, step
+            if cuda:
+                torch.cuda.empty_cache()
+
+            # (b) float64, flash off: the implied update of one step
+            fmodel = transformer_lm(dtype=torch.float64, attn_impl="xla",
+                                    **f64, **mopts)
+            fwhole = fmodel.init(1, device="cpu")[0]
+            ftoks = torch.from_numpy(np.random.RandomState(1).randint(
+                0, f64["vocab"], (cfg["f64_batch"], f64["max_len"]))
+                .astype(np.int32)).to(dev)
+            zt = ftoks
+            if sopts.get("seq_layout") == "zigzag":
+                zt = ftoks[:, torch.from_numpy(zigzag_indices(
+                    shape[1], f64["max_len"])).long().to(dev)]
+            fstep = tlm.build_lm_step(
+                fmodel, mesh, lr=1.0, seq_axis="seq", tp_axis="model",
+                **{k: v for k, v in sopts.items() if k != "fused"})
+            newp, _ = fstep(lm_shard(fwhole, mesh, "model", ep),
+                            mesh_block(mesh, zt))
+            got = lm_gather(newp, mesh, "model", ep)
+            if rank == 0:
+                dwhole = tree_map(lambda t: t.to(dev), fwhole)
+                _, g = mesh_reference(torch, fmodel, dwhole, ftoks,
+                                      shape[0], weight)
+                worst = 0.0
+                for a, b, gg in zip(tree_leaves(fwhole),
+                                    tree_leaves(got), tree_leaves(g)):
+                    implied = a.numpy() - b
+                    gg = gg.cpu().numpy()
+                    denom = max(1e-12, float(np.abs(gg).max()))
+                    worst = max(worst, float(np.abs(implied - gg).max())
+                                / denom)
+                res["cases"][name]["f64_err"] = worst
+
+            # (c) the mixed step once on the tp mesh
+            if name == "tp":
+                mstep = tlm.build_lm_mixed_step(model, mesh,
+                                                lr=cfg["lr"],
+                                                seq_axis="seq",
+                                                tp_axis="model")
+                mst = tlm.init_lm_mixed_state(
+                    lm_shard(wholes[kind], mesh, "model"))
+                mst, mloss = mstep(mst, toks)
+                sync()
+                res["cases"][name]["mixed"] = (float(mloss), all(
+                    torch.equal(p, m.to(torch.bfloat16)) for p, m in
+                    zip(tree_leaves(mst.params), tree_leaves(mst.master))))
+                del mst
+                if cuda:
+                    torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        res["done"] = time.time()
+        q.put(("ok", res))
+    except BaseException:  # noqa: BLE001 — the parent fails the phase
+        import traceback
+        q.put(("err", traceback.format_exc()))
+
+
+def phase_mesh_lm(torch) -> dict:
+    """Phase 18: see the module docstring."""
+    t0, wall0 = time.perf_counter(), time.time()
+    # the probe's processes run beside the ranks' start-up, then exit
+    probe = gloo_probe_start() if MESH_DEVICE == "cuda" else None
+    log(f"[mesh] {MESH_RANKS} rank processes on {MESH_DEVICE}:0, each mesh "
+        "a gloo group over CUDA tensors (passed explicitly: NCCL cannot put "
+        "two ranks on one card), every collective staged through pinned "
+        "host memory; collective times below are that host route's, not "
+        "NCCL's")
+    results = run_workers(mesh_worker, MESH_RANKS,
+                          (free_port(), MESH_DEVICE, mesh_config()),
+                          MESH_TIMEOUT_S, "mesh LM rank")
+    for op, what in (gloo_probe_read(probe) if probe else {}).items():
+        log(f"[mesh] gloo {op}, called directly on CUDA tensors in two "
+            f"processes on the card: {what}")
+    depth = LM_TRAIN["depth"]
+    launches = {}
+    b1 = 0
+    for name, shape, _, sopts in MESH_CASES:
+        mine = [r["cases"][name] for r in results[:math.prod(shape)]]
+        c0 = mine[0]
+        ref = c0["ref_loss"]
+        for r, c in enumerate(mine):
+            check(all(math.isfinite(x) for x in c["losses"]),
+                  f"[{name}] rank {r}: non-finite loss {c['losses']}")
+            check(c["losses"] == c0["losses"],
+                  f"[{name}] the ranks' losses differ: "
+                  f"{[m['losses'] for m in mine]}")
+        rel = abs(c0["losses"][0] - ref) / abs(ref)
+        check(rel <= MESH_LOSS_RTOL,
+              f"[{name}] first loss {c0['losses'][0]} against one rank's "
+              f"{ref}: {rel:.3g} > {MESH_LOSS_RTOL}")
+        want = (depth,) * 3 if name in MESH_FLASH else (0, 0, 0)
+        per_step = tuple(x / MESH_STEPS for x in c0["counts"])
+        check(per_step == want, f"[{name}] B5a/B5b/B5c {per_step} a step "
+              f"(counts), expected {want}")
+        prof = tuple(c0["profiled"][t] for t, _ in FLASH_KERNELS)
+        check(MESH_DEVICE != "cuda" or prof == want,
+              f"[{name}] the profiled step names B5a/B5b/B5c {prof} times, "
+              f"expected {want}")
+        if name in MESH_FLASH:
+            check(MESH_DEVICE != "cuda" or c0["routes"] == {
+                k: sorted(v) for k, v in FLASH_BF16_ROUTES.items()},
+                f"[{name}] flash routes {c0['routes']}")
+        launches[name] = c0["counts"]
+        if sopts.get("fused"):
+            check(c0["b1"] > 0, f"[{name}] fused=True launched no B1")
+            b1 += c0["b1"]
+        step_s = c0["secs"][1]
+        coll = sum(c0["coll_s"].values())
+        check(c0["f64_err"] < MESH_F64_TOL,
+              f"[{name}] float64 implied update off by {c0['f64_err']:.3g} "
+              f"of the one-rank gradient (tolerance {MESH_F64_TOL})")
+        log(f"[mesh] {name} {shape} (dp, sp, tp): losses "
+            f"{' '.join(f'{x:.5f}' for x in c0['losses'])} (one rank "
+            f"{ref:.5f}, first off by {rel:.2e}); B5a/B5b/B5c a step "
+            f"{per_step} by count, {prof} by profile names (expected "
+            f"{want}); B1 {c0['b1']} launches in {MESH_STEPS} steps; "
+            f"step host clock {c0['secs'][0] * 1e3:.1f} (first) / "
+            f"{step_s * 1e3:.1f} (timed) / {c0['secs'][2] * 1e3:.1f} "
+            f"(profiled) ms, collectives {coll * 1e3:.1f} ms = "
+            f"{coll / step_s:.1%} of the timed step on the gloo host route "
+            f"(not NCCL): "
+            + ", ".join(f"{k} {c0['coll_calls'][k]} calls "
+                        f"{c0['coll_bytes'][k] / 1e6:.1f} MB "
+                        f"{c0['coll_s'][k] * 1e3:.1f} ms"
+                        for k in sorted(c0["coll_s"]))
+            + f"; float64 implied update off by {c0['f64_err']:.2e} "
+            f"(< {MESH_F64_TOL}); case {c0['case_s']:.1f} s")
+    log("[mesh] timeline, seconds from the phase's start: " + "; ".join(
+        f"rank {r['rank']} up {r['up'] - wall0:.1f}, profiler warm "
+        f"{r['warm'] - wall0:.1f}, cases done at "
+        + ", ".join(f"{n} {c['end'] - wall0:.1f}"
+                    for n, c in r["cases"].items())
+        + f", finished {r['done'] - wall0:.1f}" for r in results))
+    mloss, inv = results[0]["cases"]["tp"]["mixed"]
+    check(math.isfinite(mloss) and inv,
+          f"[mesh] mixed step on the tp mesh: loss {mloss}, params == "
+          f"master.to(bfloat16) {inv}")
+    log(f"[mesh] (c) mixed step on (1, 1, 2): loss {mloss:.5f}, params == "
+        "master.to(bfloat16) bit for bit on both ranks")
+    wall = time.perf_counter() - t0
+    log(f"[mesh] phase 18 took {wall:.1f} s (budget {MESH_BUDGET_S} s)")
+    check(wall <= MESH_BUDGET_S, f"phase 18 took {wall:.1f} s, over its "
+          f"{MESH_BUDGET_S}-s budget")
+    return {"launches": launches, "b1": b1, "seconds": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4157,6 +4613,7 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
         log(f"[resnet] phase 17 took {time.perf_counter() - t17:.1f} s")
+        meshed = phase_mesh_lm(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -4166,7 +4623,8 @@ def main() -> int:
     kernels = [
         {"name": "fused_sgd", "route": "cuda", "source": src,
          "replaces": "distlearn_tpu/ops/fused_update.py:71",
-         "launches": sgd["launches"], **kernel_rows["fused_sgd"]},
+         "launches": sgd["launches"], **kernel_rows["fused_sgd"],
+         "mesh_lm_launches": {"tp": meshed["b1"]}},
         {"name": "fused_elastic", "route": "cuda", "source": src,
          "replaces": "distlearn_tpu/ops/fused_update.py:96",
          "launches": ea["launches"], **kernel_rows["fused_elastic"]},
@@ -4182,19 +4640,25 @@ def main() -> int:
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758"
                      " via distlearn_tpu/parallel/sequence.py:420",
-         "launches": served["launches"], **kernel_rows["flash_attention"]},
+         "launches": served["launches"], **kernel_rows["flash_attention"],
+         "mesh_lm_launches": {k: v[0] for k, v in
+                              meshed["launches"].items()}},
         {"name": "flash_attention_dkv", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"
                      " via distlearn_tpu/parallel/sequence.py:420",
          "launches": trained["launches"]["flash_attention_dkv"],
-         **bwd_rows["dkv"]},
+         **bwd_rows["dkv"],
+         "mesh_lm_launches": {k: v[1] for k, v in
+                              meshed["launches"].items()}},
         {"name": "flash_attention_dq", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"
                      " via distlearn_tpu/parallel/sequence.py:420",
          "launches": trained["launches"]["flash_attention_dq"],
-         **bwd_rows["dq"]},
+         **bwd_rows["dq"],
+         "mesh_lm_launches": {k: v[2] for k, v in
+                              meshed["launches"].items()}},
     ]
     log(f"[report] total {time.perf_counter() - t_start:.1f} s; "
         f"sgd {sgd['steps_per_s']:.2f} steps/s at batch {SGD_BATCH}; graph "
@@ -4224,7 +4688,8 @@ def main() -> int:
         f"{resnet['bfloat16']['peak_gb']:.2f} GB), B1 "
         f"{resnet['float32']['launches']} launches in {RESNET_STEPS} steps, "
         f"largest bucket {resnet['b1']['ms']:.5f} ms against bound "
-        f"{resnet['b1']['bound_ms']:.5f} ms")
+        f"{resnet['b1']['bound_ms']:.5f} ms; mesh LM phase "
+        f"{meshed['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

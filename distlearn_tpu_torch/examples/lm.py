@@ -11,13 +11,21 @@ flag names (``--tpu`` becomes ``--device``, the card by default).
 ``--steps N`` trains N SGD steps (``train/lm.py``: ``--mixed`` for
 bfloat16 working params with float32 masters, ``--remat``/``--rematMode``,
 ``--accumSteps``) on the JAX example's synthetic order-2 Markov corpus,
-with ``--dp`` ranks: one process per rank over NCCL (``cuda:<rank>``) or
-gloo (``--device cpu``), ``--dp 1`` in this process.  ``--generate`` and
-``--serve`` then run on rank 0 with the trained params (``--steps 0``: the
-seeded initialisation).  Sequence, tensor and pipeline parallelism
-(``--sp/--tp/--pp``), MoE, ZeRO, FSDP and the LM's optax optimizers wait for
-ROADMAP A11, so those flags only accept their defaults here.  SIGTERM or Ctrl-C drains the in-flight requests, then
-exits.
+over a ``(data, seq, model)`` mesh of ``--dp`` x ``--sp`` x ``--tp`` ranks
+(``parallel/mesh.py``): sequence parallelism by ``--seqImpl ring|alltoall``
+and ``--seqLayout contig|zigzag``, Megatron tensor parallelism, and MoE
+blocks (``--moeExperts`` = ``--dp``, one expert a data rank;
+``--moeTopK``, ``--moeBalanceWeight``).  One process a rank over NCCL,
+one card each (``cuda:<rank>``), or gloo with ``--device cpu``; one rank
+runs in this process.  ``--generate`` and ``--serve`` then run on rank 0
+with the trained params gathered from the shards (``--steps 0``: the
+seeded initialisation).  Pipeline parallelism (``--pp``), ZeRO, FSDP and
+the LM's optax optimizers wait for ROADMAP A11, so those flags only accept
+their defaults here.  SIGTERM or Ctrl-C drains the in-flight requests,
+then exits.
+
+    python -m distlearn_tpu_torch.examples.lm --device cpu --dp 2 --sp 2 \
+        --moeExperts 2 --steps 3 --dim 64 --depth 2 --seqLen 64
 """
 
 from __future__ import annotations
@@ -39,13 +47,13 @@ from distlearn_tpu_torch.utils.flags import parse_flags
 from distlearn_tpu_torch.utils.logging import print_server, root_print
 from distlearn_tpu_torch.utils.platform import rank_device, resolve_device
 
-_A11 = "waits for ROADMAP A11 (tp, sequence, pipeline and expert " \
-    "parallelism of LM training)"
+_A11 = "waits for ROADMAP A11 (the pipeline-parallel LM, ZeRO, FSDP and " \
+    "the LM's optax optimizers)"
 
 FLAGS = {
-    "dp": (1, "data-parallel ranks (one process each; 1 = this process)"),
-    "sp": (1, "sequence-parallel axis size (ROADMAP A11)"),
-    "tp": (1, "tensor-parallel axis size (ROADMAP A11)"),
+    "dp": (1, "data-parallel axis size"),
+    "sp": (1, "sequence-parallel axis size"),
+    "tp": (1, "tensor-parallel axis size (Megatron)"),
     "pp": (0, "pipeline-parallel stages (ROADMAP A11)"),
     "ppSchedule": ("gpipe", "pipeline schedule (ROADMAP A11)"),
     "microbatches": (4, "pipeline microbatches (ROADMAP A11)"),
@@ -53,19 +61,22 @@ FLAGS = {
     "depth": (4, "number of blocks"),
     "vocab": (256, "vocabulary size"),
     "seqLen": (128, "sequence length (the model's max_len)"),
-    "batchSize": (8, "global batch size (split over the --dp ranks)"),
+    "batchSize": (8, "global batch size (split over the --dp axis)"),
     "steps": (0, "training steps (0 = serve or decode the initialised "
                  "model)"),
     "learningRate": (0.1, "SGD learning rate"),
-    "seqImpl": ("ring", "sequence attention with --sp > 1 (ROADMAP A11)"),
-    "seqLayout": ("contig", "sequence shard layout (ROADMAP A11)"),
+    "seqImpl": ("ring", "sequence attention with --sp > 1: ring | "
+                        "alltoall (Ulysses)"),
+    "seqLayout": ("contig", "sequence shard layout: contig | zigzag "
+                            "(balanced causal ring)"),
     "attnImpl": ("", "attention kernel of training and --generate: '' "
                      "(env default) | xla | flash | chunked; the engine "
                      "follows DISTLEARN_TPU_ATTN"),
     "scanBlocks": (False, "scanned-depth layout: block params stacked"),
-    "moeExperts": (0, "experts per MoE block (ROADMAP A11)"),
-    "moeTopK": (1, "experts per token (ROADMAP A11)"),
-    "moeBalanceWeight": (0.01, "MoE balance loss weight (ROADMAP A11)"),
+    "moeExperts": (0, "experts per MoE block (every 2nd block; must equal "
+                      "--dp: one expert a data rank)"),
+    "moeTopK": (1, "experts per token (1 = Switch, 2 = GShard)"),
+    "moeBalanceWeight": (0.01, "weight of the Switch balance loss"),
     "remat": (False, "recompute each block in the backward pass (same "
                      "as --rematMode full)"),
     "rematMode": ("", "'' | full | mlp — mlp recomputes only the FFN half, "
@@ -98,22 +109,38 @@ FLAGS = {
 
 
 def parse(argv=None):
-    opt = parse_flags("Train a transformer LM with data parallelism, then "
-                      "serve it with continuous batching.", FLAGS, argv)
-    for name in ("sp", "tp"):
-        if getattr(opt, name) != 1:
-            raise SystemExit(f"--{name} {getattr(opt, name)}: {_A11}; pass 1")
-    for name in ("pp", "moeExperts", "zero", "fsdp"):
+    opt = parse_flags("Train a transformer LM over a (data, seq, model) "
+                      "mesh, then serve it with continuous batching.", FLAGS,
+                      argv)
+    for name in ("pp", "zero", "fsdp"):
         if getattr(opt, name):
             raise SystemExit(f"--{name}: {_A11}")
     if opt.optimizer != "sgd":
         raise SystemExit(f"--optimizer {opt.optimizer}: the optax LM steps "
                          f"wait for ROADMAP A11; pass sgd")
-    if opt.seqLayout != "contig":
-        raise SystemExit(f"--seqLayout {opt.seqLayout}: {_A11}")
+    if opt.seqLayout not in ("contig", "zigzag"):
+        raise SystemExit(f"--seqLayout {opt.seqLayout!r}: contig | zigzag")
+    if opt.seqLayout == "zigzag" and opt.seqImpl != "ring":
+        raise SystemExit("--seqLayout zigzag needs --seqImpl ring")
+    if opt.seqImpl not in ("ring", "alltoall"):
+        raise SystemExit(f"--seqImpl {opt.seqImpl!r}: ring | alltoall")
+    if opt.scanBlocks and opt.moeExperts:
+        raise SystemExit("--scanBlocks needs a homogeneous dense stack "
+                         "and the non-pp step (pipeline stages shard the "
+                         "per-block layout)")
     if opt.rematMode not in ("", "full", "mlp"):
         raise SystemExit(f"--rematMode {opt.rematMode!r}: '' | full | mlp")
-    if opt.dp < 1 or opt.batchSize % opt.dp:
+    if opt.moeExperts and opt.moeExperts != opt.dp:
+        raise SystemExit(f"--moeExperts {opt.moeExperts} must equal --dp "
+                         f"{opt.dp} (one expert per data-parallel device)")
+    if (opt.serve or opt.generate) and opt.moeExperts:
+        raise SystemExit("--serve/--generate support dense models (per-tick "
+                         "MoE routing would not match the trained capacity "
+                         "math)")
+    if opt.generate and opt.seqLayout == "zigzag":
+        raise SystemExit("--generate decodes in natural order — drop "
+                         "--seqLayout zigzag")
+    if min(opt.dp, opt.sp, opt.tp) < 1 or opt.batchSize % opt.dp:
         raise SystemExit(f"--batchSize {opt.batchSize} must split evenly "
                          f"over --dp {opt.dp} ranks")
     return opt
@@ -151,9 +178,16 @@ def _model(opt):
     return transformer_lm(vocab=opt.vocab, dim=opt.dim, depth=opt.depth,
                           heads=max(4, opt.dim // 64), max_len=opt.seqLen,
                           compute_dtype=_compute_dtype(opt),
+                          seq_impl=opt.seqImpl,
                           remat=opt.rematMode or bool(opt.remat),
                           attn_impl=opt.attnImpl or None,
-                          scan_blocks=opt.scanBlocks)
+                          scan_blocks=opt.scanBlocks,
+                          moe_experts=opt.moeExperts,
+                          moe_top_k=opt.moeTopK)
+
+
+def _ranks(opt) -> int:
+    return opt.dp * opt.sp * opt.tp
 
 
 def _init(lm, opt, device):
@@ -191,54 +225,80 @@ def _corpus(opt) -> np.ndarray:
 
 
 def train(opt, rank: int = 0, init_method: str | None = None):
-    """``opt.steps`` SGD steps of this rank on its rows of the corpus;
-    returns ``(params, compute_dtype, corpus)`` with the trained params (the
-    working copy under ``--mixed``).  A data-parallel group of ``opt.dp``
-    ranks starts here and is destroyed before returning."""
+    """``opt.steps`` SGD steps of this rank of the ``(dp, sp, tp)`` mesh on
+    its block of the corpus; returns ``(params, compute_dtype, corpus)``
+    with the trained params gathered whole (the working copy under
+    ``--mixed``; None where neither ``--generate`` nor ``--serve`` asks for
+    them).  The mesh's process group starts here and is destroyed before
+    returning."""
     import torch.distributed as dist
 
-    from distlearn_tpu_torch.parallel.mesh import (init_mesh,
+    from distlearn_tpu_torch.models.convert import (lm_from_jax, lm_gather,
+                                                    lm_shard)
+    from distlearn_tpu_torch.parallel.mesh import (init_named_mesh,
                                                    local_init_method)
     from distlearn_tpu_torch.train.lm import (build_lm_mixed_step,
+                                              build_lm_moe_metrics,
                                               build_lm_step,
                                               init_lm_mixed_state)
     from distlearn_tpu_torch.utils.profiling import StepTimer, trace
 
     log = root_print(rank)
     device = rank_device(torch.device(opt.device), rank)
-    tree = init_mesh(rank, opt.dp, device=device,
-                     init_method=init_method or local_init_method())
+    mesh = init_named_mesh((opt.dp, opt.sp, opt.tp), rank=rank,
+                           device=device,
+                           init_method=init_method or local_init_method())
     try:
         lm = _model(opt)
-        params = _init(lm, opt, tree.device)
+        ep_axis = "data" if opt.moeExperts else None
+        axes = dict(seq_axis="seq", tp_axis="model", ep_axis=ep_axis)
+        params = lm_shard(_init(lm, opt, "cpu"), mesh, "model", ep_axis)
+        kw = dict(axes, accum_steps=opt.accumSteps,
+                  moe_balance_weight=(opt.moeBalanceWeight
+                                      if opt.moeExperts else 0.0),
+                  seq_layout=opt.seqLayout)
         if opt.mixed:
-            step = build_lm_mixed_step(lm, tree, lr=opt.learningRate,
-                                       accum_steps=opt.accumSteps)
+            step = build_lm_mixed_step(lm, mesh, lr=opt.learningRate, **kw)
             params = init_lm_mixed_state(params)
             log("mixed precision: bf16 working params + f32 masters")
         else:
-            step = build_lm_step(lm, tree, lr=opt.learningRate,
-                                 accum_steps=opt.accumSteps)
-        log(f"data parallel over {opt.dp} rank(s) on {tree.device}; remat "
-            f"{opt.rematMode or ('full' if opt.remat else 'off')}, attention "
-            f"{opt.attnImpl or 'env default'}")
+            step = build_lm_step(lm, mesh, lr=opt.learningRate, **kw)
+        moe_metrics = build_lm_moe_metrics(lm, mesh, **axes) \
+            if opt.moeExperts else None
+        log(f"mesh dp={opt.dp} sp={opt.sp} tp={opt.tp} ({mesh.backend} on "
+            f"{mesh.device}); seq_impl={opt.seqImpl}"
+            + (f"; {opt.moeExperts} experts, top-{opt.moeTopK}"
+               if opt.moeExperts else "")
+            + f"; remat {opt.rematMode or ('full' if opt.remat else 'off')}"
+            f", attention {opt.attnImpl or 'env default'}")
+        if opt.attnImpl and opt.sp > 1 and opt.seqImpl == "ring":
+            log(f"NOTE: --attnImpl {opt.attnImpl} is inert with --sp "
+                f"{opt.sp} > 1 on the ring — its blockwise path takes over")
         corpus = _corpus(opt)
-        per = opt.batchSize // opt.dp
-        tokens = torch.from_numpy(corpus[rank * per:(rank + 1) * per]) \
-            .to(tree.device)
+        toks = corpus
+        if opt.seqLayout == "zigzag":
+            from distlearn_tpu_torch.parallel.sequence import zigzag_indices
+            toks = corpus[:, zigzag_indices(opt.sp, opt.seqLen)]
+            log("zigzag sequence layout: balanced causal ring (masked "
+                "blocks never computed)")
+        d, q = mesh.axis("data"), mesh.axis("seq")
+        rows, cols = opt.batchSize // d.size, opt.seqLen // q.size
+        tokens = torch.from_numpy(np.ascontiguousarray(
+            toks[d.index * rows:(d.index + 1) * rows,
+                 q.index * cols:(q.index + 1) * cols])).to(mesh.device)
         timer = StepTimer()
         do_profile = bool(opt.profile) and opt.steps >= 6 and rank == 0
         if opt.profile and opt.steps < 6:
             log(f"--profile ignored: needs --steps >= 6 (warmup is steps "
                 f"1-5), got {opt.steps}")
-        sync = torch.cuda.synchronize if tree.device.type == "cuda" \
+        sync = torch.cuda.synchronize if mesh.device.type == "cuda" \
             else (lambda: None)
         with contextlib.ExitStack() as stack:   # stops the trace on error
             for i in range(1, opt.steps + 1):
                 if do_profile and i == 6:
                     sync()
                     timer.reset_window()
-                    stack.enter_context(trace(opt.profile, tree.device))
+                    stack.enter_context(trace(opt.profile, mesh.device))
                 timer.tick()
                 params, loss = step(params, tokens)
                 if do_profile and i == min(10, opt.steps):
@@ -247,23 +307,36 @@ def train(opt, rank: int = 0, init_method: str | None = None):
                     stack.close()
                     log(f"profiler trace written to {opt.profile}")
                 if i % 10 == 0 or i == opt.steps:
-                    log(f"step {i}: loss {float(loss):.4f} "
+                    extra = ""
+                    if moe_metrics is not None:
+                        m = moe_metrics(getattr(params, "params", params),
+                                        tokens)
+                        extra = (f" [router balance "
+                                 f"{float(m['moe_balance_loss']):.3f}, "
+                                 f"dropped "
+                                 f"{float(m['moe_dropped_frac']):.3f}]")
+                    log(f"step {i}: loss {float(loss):.4f}{extra} "
                         f"({timer.steps_per_sec():.2f} steps/s)")
         sync()
+        whole = None
+        if opt.generate or opt.serve:
+            whole = lm_from_jax(lm_gather(getattr(params, "params", params),
+                                          mesh, "model", ep_axis),
+                                device=mesh.device)
     finally:
         dist.destroy_process_group()
-    return getattr(params, "params", params), _compute_dtype(opt), corpus
+    return whole, _compute_dtype(opt), corpus
 
 
 def _rank_main(rank: int, opt, init_method: str) -> None:
-    """A spawned rank of ``--dp`` > 1: trains, then rank 0 runs the rest."""
+    """A spawned rank of the mesh: trains, then rank 0 runs the rest."""
     params, cd, corpus = train(opt, rank, init_method)
     if rank == 0:
         _after_training(opt, params, cd, corpus)
 
 
 def _after_training(opt, params, cd, corpus) -> None:
-    """``--generate`` and ``--serve`` on ``params``."""
+    """``--generate`` and ``--serve`` on the whole ``params``."""
     log = root_print(0)
     if opt.generate:
         Pq = max(4, opt.seqLen // 8)
@@ -304,13 +377,18 @@ def main(argv=None) -> int:
     if opt.obsLog:
         obs.set_spill(opt.obsLog)
     http = obs.start_http_server(opt.obsPort) if opt.obsPort else None
-    if opt.steps > 0 and opt.dp > 1:
+    if opt.steps > 0 and _ranks(opt) > 1:
         import torch.multiprocessing as mp
 
         from distlearn_tpu_torch.parallel.mesh import local_init_method
-        resolve_device(opt.device)      # no card and no --device cpu: raise
+        from distlearn_tpu_torch.utils.platform import available_nodes
+        device = resolve_device(opt.device)   # no card, no --device cpu: raise
+        avail = available_nodes(device)
+        if avail is not None and avail < _ranks(opt):
+            raise SystemExit(f"need {_ranks(opt)} devices (dp*sp*tp), have "
+                             f"{avail}")
         mp.start_processes(_rank_main, args=(opt, local_init_method()),
-                           nprocs=opt.dp, start_method="spawn")
+                           nprocs=_ranks(opt), start_method="spawn")
     else:
         if opt.steps > 0:
             params, cd, corpus = train(opt)

@@ -8,8 +8,10 @@
                         ``n`` virtual CPU devices): the AllReduceSGD step
                         and the end-of-epoch sync, one EASGD local step and
                         round, the scanned SGD step and the EASGD cycle,
-                        and the transformer LM's step over the data axis;
-                        it prints and returns the parts of the JAX dry run
+                        the transformer LM's step over a dp x sp x tp mesh
+                        (ring attention, Megatron tp) and its zigzag
+                        layout, and a routed MoE over an expert axis; it
+                        prints and returns the parts of the JAX dry run
                         that wait for later ROADMAP items.
 """
 
@@ -21,14 +23,18 @@ import torch
 #: The JAX dry run's parts the port does not run yet, with their ROADMAP
 #: item.
 WAITING = {
-    "lm over a dp x sp x tp mesh (ring attention, Megatron tp)":
-        "ROADMAP A11",
-    "zigzag sequence layout": "ROADMAP A11",
     "ZeRO-1 with tp and sp": "ROADMAP A11",
     "ZeRO-3 / FSDP": "ROADMAP A11",
     "pipeline-parallel LM (GPipe)": "ROADMAP A11",
-    "MoE over an expert axis": "ROADMAP A11",
 }
+
+
+def mesh_dims(n: int) -> tuple[int, int, int]:
+    """The JAX dry run's (dp, sp, tp) for n devices: tp 2 when n is even,
+    then sp 2 when what is left is even."""
+    tp = 2 if n % 2 == 0 else 1
+    sp = 2 if (n // tp) % 2 == 0 else 1
+    return n // (tp * sp), sp, tp
 
 
 def entry(device=None):
@@ -57,8 +63,11 @@ def _dryrun_rank(rank: int, n: int, init_method: str, results) -> None:
 
     from distlearn_tpu_torch.data import synthetic_cifar10
     from distlearn_tpu_torch.models import cifar_convnet
+    from distlearn_tpu_torch.models.convert import lm_shard
     from distlearn_tpu_torch.models.transformer import transformer_lm
-    from distlearn_tpu_torch.parallel.mesh import init_mesh
+    from distlearn_tpu_torch.parallel.ep import moe_ffn
+    from distlearn_tpu_torch.parallel.mesh import Mesh, init_mesh, psum_raw
+    from distlearn_tpu_torch.parallel.sequence import zigzag_indices
     from distlearn_tpu_torch.train import (build_ea_cycle, build_ea_steps,
                                            build_lm_step,
                                            build_sgd_scan_step,
@@ -87,12 +96,39 @@ def _dryrun_rank(rank: int, n: int, init_method: str, results) -> None:
         _, losses = build_ea_cycle(model, tree, lr=0.1, alpha=0.2)(
             init_ea_state(model, tree, 0, nc), xs, ys)
         out["cycle_losses"] = losses.tolist()
-        lm = transformer_lm(vocab=64, dim=64, depth=2, heads=4, max_len=16)
-        lm_params = lm.init(torch.Generator().manual_seed(1), device="cpu")[0]
-        tokens = np.random.RandomState(0).randint(0, 64, (2 * n, 16))
-        _, lm_loss = build_lm_step(lm, tree, lr=0.1)(
-            lm_params, tokens[2 * rank:2 * rank + 2].astype(np.int32))
-        out["lm_loss"] = float(lm_loss)
+        dp, sp, tp = mesh_dims(n)
+        mesh = Mesh((dp, sp, tp), device="cpu")
+        L = 16 * sp
+        lm = transformer_lm(vocab=64, dim=64, depth=2, heads=4, max_len=L)
+        whole = lm.init(torch.Generator().manual_seed(1), device="cpu")[0]
+        lm_params = lm_shard(whole, mesh, "model")
+        d, s = mesh.axis("data"), mesh.axis("seq")
+        rows, cols = 2, L // sp
+
+        def block(toks):
+            return torch.from_numpy(np.ascontiguousarray(toks[
+                d.index * rows:(d.index + 1) * rows,
+                s.index * cols:(s.index + 1) * cols]).astype(np.int32))
+        tokens = np.random.RandomState(0).randint(0, 64, (2 * dp, L))
+        _, lm_l = build_lm_step(lm, mesh, lr=0.1, seq_axis="seq",
+                                tp_axis="model")(lm_params, block(tokens))
+        out["lm_loss"] = float(lm_l)
+        out["lm_mesh"] = (dp, sp, tp)
+        if sp > 1:
+            nat = np.random.RandomState(7).randint(0, 64, (2 * dp, L))
+            _, zz_l = build_lm_step(lm, mesh, lr=0.1, seq_axis="seq",
+                                    tp_axis="model", seq_layout="zigzag")(
+                lm_params, block(nat[:, zigzag_indices(sp, L)]))
+            out["zigzag_loss"] = float(zz_l)
+        emesh = Mesh((n,), ("expert",), device="cpu")
+        rnge = np.random.RandomState(3)
+        experts = torch.from_numpy(rnge.randn(n, 8, 8).astype("float32")
+                                   * 0.5)
+        router = torch.from_numpy(rnge.randn(8, n).astype("float32"))
+        ex = torch.from_numpy(rnge.randn(n, 4, 8).astype("float32"))
+        y = moe_ffn(lambda w, h: torch.tanh(h @ w), experts[rank], router,
+                    ex[rank], axis=emesh.axis("expert"))
+        out["moe_sum"] = float(psum_raw(y.sum(), emesh.axis("expert")))
         if rank == 0:
             results.put(out)
     finally:
@@ -112,10 +148,14 @@ def dryrun_multichip(n_devices: int) -> dict:
                        nprocs=n_devices, start_method="spawn")
     out = {**results.get(), "waiting": dict(WAITING)}
     fmt = lambda v: ", ".join(f"{x:.4f}" for x in v)
+    dp, sp, tp = out["lm_mesh"]
+    zz = f"zigzag-sp loss {out['zigzag_loss']:.4f}" \
+        if "zigzag_loss" in out else "zigzag skipped (sp=1)"
     print(f"dryrun_multichip({n_devices}): sgd loss {out['sgd_loss']:.4f}, "
           f"ea loss {out['ea_loss']:.4f}, sgd scan losses "
           f"[{fmt(out['scan_losses'])}], ea cycle losses "
           f"[{fmt(out['cycle_losses'])}], lm loss {out['lm_loss']:.4f} "
-          f"(dp={n_devices}); waiting: "
+          f"(dp={dp} sp={sp} tp={tp}), {zz}, moe-ep sum "
+          f"{out['moe_sum']:.4f} ({n_devices} experts); waiting: "
           + "; ".join(f"{k} ({v})" for k, v in WAITING.items()), flush=True)
     return out

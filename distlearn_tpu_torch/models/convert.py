@@ -4,7 +4,9 @@ The JAX package stores conv kernels HWIO and dense weights ``[in, out]``;
 the port stores them OIHW and ``[out, in]``.  Everything else (biases,
 batchnorm scale/bias and running statistics) keeps its shape.  The
 transformer LM keeps the JAX layouts unchanged (:func:`lm_from_jax`,
-:func:`lm_to_jax`).  The JAX side is nested dicts of numpy arrays
+:func:`lm_to_jax`); :func:`lm_shard` cuts a whole LM tree to one rank's
+shard over a :class:`~distlearn_tpu_torch.parallel.mesh.Mesh` and
+:func:`lm_gather` puts the shards back together.  The JAX side is nested dicts of numpy arrays
 (``jax.device_get`` of its pytrees), so this module needs no JAX.
 
 :data:`CONVNET_WIRE` is the convnets' layout on the AsyncEA wire: the JAX
@@ -79,9 +81,10 @@ def lm_from_jax(params_np, device="cpu", dtype=None):
     scanned layout) to the port's tensors on ``device``.  The port keeps the
     JAX package's einsum layouts for the LM (``wq/wk/wv [E,H,D]``,
     ``wo [H,D,E]``, ``w1 [E,F]``, ``w2 [F,E]``, ``embed [V,E]``,
-    ``pos [max_len,E]``), so every leaf keeps its shape: the convnet's
-    ``w`` transposes never apply here.  ``dtype`` casts every leaf (None
-    keeps each leaf's own)."""
+    ``pos [max_len,E]``; MoE blocks' ``router [E,X]``, ``we1 [X,E,F]``,
+    ``wb1 [X,F]``, ``we2 [X,F,E]``), so every leaf keeps its shape: the
+    convnet's ``w`` transposes never apply here.  ``dtype`` casts every
+    leaf (None keeps each leaf's own)."""
     return _walk(params_np, lambda _k, a: _lm_leaf(a, device, dtype))
 
 
@@ -98,6 +101,54 @@ def lm_to_jax(tree):
             return np.ascontiguousarray(t.numpy())
         return np.ascontiguousarray(np.asarray(t))
     return _walk(tree, leaf)
+
+
+def _specs_walk(tree, specs, leaf):
+    return {k: (_specs_walk(v, specs[k], leaf) if isinstance(v, dict)
+                else leaf(v, specs[k])) for k, v in tree.items()}
+
+
+def lm_shard(params, mesh, tp_axis: str | None = None,
+             ep_axis: str | None = None, device=None, dtype=None):
+    """This rank's shard of a whole transformer-LM tree (the JAX package's
+    nested dicts of numpy arrays, or the port's tensors) over ``mesh``:
+    each dimension that :func:`~distlearn_tpu_torch.models.transformer.
+    param_specs` assigns to a mesh axis is cut into that axis's size equal
+    blocks and this rank keeps block ``axis_index`` (heads and the MLP
+    hidden over ``tp_axis``, experts over ``ep_axis``).  Returns tensors on
+    ``device`` (the mesh's by default), cast to ``dtype`` when given."""
+    from distlearn_tpu_torch.models.transformer import param_specs
+    device = mesh.device if device is None else device
+
+    def leaf(a, spec):
+        t = _lm_leaf(a, "cpu", None)
+        for dim, name in enumerate(spec):
+            if name is None:
+                continue
+            n, i = mesh.axis_size(name), mesh.axis_index(name)
+            if t.shape[dim] % n:
+                raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf "
+                                 f"does not split over {name!r} ({n})")
+            t = t.narrow(dim, i * (t.shape[dim] // n), t.shape[dim] // n)
+        return t.contiguous().to(device=device, dtype=dtype)
+    return _specs_walk(params, param_specs(params, tp_axis, ep_axis), leaf)
+
+
+def lm_gather(shard, mesh, tp_axis: str | None = None,
+              ep_axis: str | None = None):
+    """The inverse of :func:`lm_shard`: every rank of ``mesh`` calls it
+    (collective) and gets the whole tree as nested dicts of numpy arrays
+    in the JAX package's layout (bfloat16 leaves as float32)."""
+    from distlearn_tpu_torch.models.transformer import param_specs
+    from distlearn_tpu_torch.parallel.mesh import all_gather_raw
+
+    def leaf(t, spec):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                t = all_gather_raw(t, mesh.axis(name), dim)
+        return t
+    return lm_to_jax(_specs_walk(shard, param_specs(shard, tp_axis, ep_axis),
+                                 leaf))
 
 
 class WireLayout(NamedTuple):

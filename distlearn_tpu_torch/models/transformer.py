@@ -1,5 +1,5 @@
 """Decoder-only transformer LM — counterpart of
-``distlearn_tpu/models/transformer.py``, dense single-device path.
+``distlearn_tpu/models/transformer.py``.
 
 The parameter tree keeps the JAX package's einsum layouts, so a checkpoint
 or a pushed weight set means the same thing in both packages:
@@ -7,19 +7,29 @@ or a pushed weight set means the same thing in both packages:
 * ``embed``: ``[V, E]`` (tied: the logits are ``x @ embed.T``),
   ``pos``: ``[max_len, E]``, ``out_norm/scale``: ``[E]``;
 * per block: ``ln1/scale``, ``ln2/scale``: ``[E]``; ``wq/wk/wv``:
-  ``[E, H, D]``; ``wo``: ``[H, D, E]``; ``w1``: ``[E, F]``, ``b1``: ``[F]``,
-  ``w2``: ``[F, E]``, ``b2``: ``[E]``.
+  ``[E, H, D]``; ``wo``: ``[H, D, E]``; a dense FFN's ``w1``: ``[E, F]``,
+  ``b1``: ``[F]``, ``w2``: ``[F, E]``, ``b2``: ``[E]``; a MoE block's
+  ``router``: ``[E, X]``, ``we1``: ``[X, E, F]``, ``wb1``: ``[X, F]``,
+  ``we2``: ``[X, F, E]`` for X experts.
 
 ``dtype`` is the parameter dtype and ``compute_dtype`` the activation
 dtype; the weights are cast to it at each use, as the JAX package does.
 Attention scores, softmax and the attention's value sums accumulate in
 float32 where the JAX code asks for ``preferred_element_type=float32``.
 
+Over a :class:`~distlearn_tpu_torch.parallel.mesh.Mesh` (passed as
+``mesh=``; JAX's ambient ``shard_map`` axes have no counterpart here)
+``apply`` and :func:`lm_loss` take this rank's shard of the tree
+(:func:`param_specs`, ``models/convert.py::lm_shard``) and the axis names:
+``tp_axis`` splits heads and the MLP hidden (Megatron, the f/g pair of
+``parallel/tp.py`` around each half of a dense block), ``seq_axis`` the
+sequence (ring or Ulysses attention, ``seq_impl``; the zigzag layout with
+``seq_layout="zigzag"``), ``ep_axis`` the experts of MoE blocks (one a
+rank, two all-to-alls, ``parallel/ep.py``).
+
 ``remat`` recomputes activations in the backward pass
 (``torch.utils.checkpoint``); :func:`lm_loss` is the next-token objective
-that ``train/lm.py`` differentiates.  Sequence, tensor and expert
-parallelism (``seq_axis``, ``tp_axis``, ``ep_axis``) and MoE blocks wait
-for ROADMAP A11: asking for them raises ``NotImplementedError``.
+that ``train/lm.py`` differentiates.
 """
 
 from __future__ import annotations
@@ -33,19 +43,20 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from distlearn_tpu_torch.models.core import Model
-from distlearn_tpu_torch.parallel.sequence import local_attention
+from distlearn_tpu_torch.parallel.ep import moe_ffn, moe_ffn_local
+from distlearn_tpu_torch.parallel.mesh import (MeshAxis, ppermute, psum,
+                                               psum_raw)
+from distlearn_tpu_torch.parallel.sequence import (alltoall_attention,
+                                                   local_attention,
+                                                   ring_attention)
+from distlearn_tpu_torch.parallel.tp import tp_enter, tp_reduce
 from distlearn_tpu_torch.utils.platform import resolve_device
 from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
 
-_A11 = "waits for ROADMAP A11 (tp, sequence, pipeline and expert " \
-    "parallelism of LM training)"
-
-
-def _not_ported(what: str, value) -> None:
-    if value is not None and value is not False and value != 0:
-        raise NotImplementedError(f"{what} {_A11}")
+#: the MoE blocks' expert-stacked leaves
+EXPERT_LEAVES = ("we1", "wb1", "we2")
 
 
 def _norm_init(shape, dtype):
@@ -58,11 +69,13 @@ def _rmsnorm(params, x, eps=1e-6):
     return y * params["scale"].to(x.dtype)
 
 
-def attn_qkv(blk: PyTree, x: torch.Tensor, cd):
-    """Pre-norm + q/k/v projections of one block (``[B, L, H, D]`` each),
-    shared by the forward pass, :func:`greedy_generate` and the serving
-    engine."""
+def attn_qkv(blk: PyTree, x: torch.Tensor, cd, tp: MeshAxis | None = None):
+    """Pre-norm + q/k/v projections of one block (``[B, L, H, D]`` each,
+    H this rank's heads under ``tp``), shared by the forward pass,
+    :func:`greedy_generate` and the serving engine."""
     h = _rmsnorm(blk["ln1"], x)
+    if tp is not None:            # enter the column-parallel region ("f")
+        h = tp_enter(h, tp)
     q = torch.einsum("ble,ehd->blhd", h, blk["wq"].to(cd))
     k = torch.einsum("ble,ehd->blhd", h, blk["wk"].to(cd))
     v = torch.einsum("ble,ehd->blhd", h, blk["wv"].to(cd))
@@ -70,33 +83,92 @@ def attn_qkv(blk: PyTree, x: torch.Tensor, cd):
 
 
 def attn_out(blk: PyTree, x: torch.Tensor, att: torch.Tensor,
-             cd) -> torch.Tensor:
+             cd, tp: MeshAxis | None = None) -> torch.Tensor:
     """Output projection + residual."""
-    return x + torch.einsum("blhd,hde->ble", att, blk["wo"].to(cd))
+    proj = torch.einsum("blhd,hde->ble", att, blk["wo"].to(cd))
+    if tp is not None:            # the heads were sharded: reduce ("g")
+        proj = tp_reduce(proj, tp)
+    return x + proj
 
 
-def attn_apply(blk: PyTree, x: torch.Tensor, cd, *, attn_impl=None):
-    """Attention half of a block (pre-norm attention residual)."""
-    q, k, v = attn_qkv(blk, x, cd)
-    att = local_attention(q, k, v, causal=True, impl=attn_impl)
-    return attn_out(blk, x, att, cd)
+def attn_apply(blk: PyTree, x: torch.Tensor, cd, *, seq_attn=None,
+               seq: MeshAxis | None = None, tp: MeshAxis | None = None,
+               attn_impl=None):
+    """Attention half of a block (pre-norm attention residual) on this
+    rank's shard; ``seq_attn(q, k, v, seq, causal=, impl=)`` runs it over
+    the sequence axis ``seq``."""
+    q, k, v = attn_qkv(blk, x, cd, tp)
+    if seq is not None:
+        att = seq_attn(q, k, v, seq, causal=True, impl=attn_impl)
+    else:
+        att = local_attention(q, k, v, causal=True, impl=attn_impl)
+    return attn_out(blk, x, att, cd, tp)
 
 
-def ffn_apply(blk: PyTree, x: torch.Tensor, cd):
-    """Dense FFN half of a block; ``jax.nn.gelu``'s default is the tanh
-    approximation."""
-    if "router" in blk:
-        raise NotImplementedError(f"MoE blocks {_A11}")
+def _expert(cd):
+    def expert(p, t):
+        u = F.gelu(t @ p["we1"].to(cd) + p["wb1"].to(cd), approximate="tanh")
+        return u @ p["we2"].to(cd)
+    return expert
+
+
+def ffn_apply(blk: PyTree, x: torch.Tensor, cd, *,
+              tp: MeshAxis | None = None, ep: MeshAxis | None = None,
+              moe_capacity_factor: float = 1.25, moe_top_k: int = 1,
+              return_moe_aux: bool = False):
+    """FFN half of a block: dense (``jax.nn.gelu``'s default, the tanh
+    approximation; hidden split over ``tp``), or routed MoE when the
+    block has a router (all experts here, or one a rank of ``ep``; MoE
+    blocks ignore ``tp``).  ``return_moe_aux`` (MoE blocks only) returns
+    ``(x, aux)`` with :func:`~distlearn_tpu_torch.parallel.ep.route_topk`'s
+    aux dict."""
     h = _rmsnorm(blk["ln2"], x)
+    if "router" in blk:
+        Bq, Lq, Dq = h.shape
+        flat = h.reshape(Bq * Lq, Dq)
+        eparams = {n: blk[n] for n in EXPERT_LEAVES}
+        if ep is None:
+            y = moe_ffn_local(_expert(cd), eparams, blk["router"], flat,
+                              moe_capacity_factor, top_k=moe_top_k,
+                              return_aux=return_moe_aux)
+        else:
+            n_local = blk["we1"].shape[0]
+            if n_local != 1:
+                raise ValueError(
+                    f"stacked expert leaves hold {n_local} shards on this "
+                    "device; expected exactly one per device on ep_axis")
+            local = {n: t[0] for n, t in eparams.items()}
+            y = moe_ffn(_expert(cd), local, blk["router"], flat,
+                        moe_capacity_factor, axis=ep, top_k=moe_top_k,
+                        return_aux=return_moe_aux)
+        if return_moe_aux:
+            y, aux = y
+            return x + y.reshape(Bq, Lq, Dq).to(x.dtype), aux
+        return x + y.reshape(Bq, Lq, Dq).to(x.dtype)
+    if return_moe_aux:
+        raise ValueError("return_moe_aux=True on a dense block (no router)")
+    if tp is not None:
+        h = tp_enter(h, tp)
     h = h @ blk["w1"].to(cd) + blk["b1"].to(cd)
     h = F.gelu(h, approximate="tanh")
     h = h @ blk["w2"].to(cd)
+    if tp is not None:            # the hidden was sharded: reduce ("g")
+        h = tp_reduce(h, tp)
     return x + h + blk["b2"].to(cd)
 
 
-def block_apply(blk: PyTree, x: torch.Tensor, cd, *, attn_impl=None):
-    """One transformer block: pre-norm attention, then the FFN residual."""
-    return ffn_apply(blk, attn_apply(blk, x, cd, attn_impl=attn_impl), cd)
+def block_apply(blk: PyTree, x: torch.Tensor, cd, *, seq_attn=None,
+                seq: MeshAxis | None = None, tp: MeshAxis | None = None,
+                ep: MeshAxis | None = None,
+                moe_capacity_factor: float = 1.25, moe_top_k: int = 1,
+                return_moe_aux: bool = False, attn_impl=None):
+    """One transformer block: pre-norm attention, then the FFN/MoE
+    residual."""
+    x = attn_apply(blk, x, cd, seq_attn=seq_attn, seq=seq, tp=tp,
+                   attn_impl=attn_impl)
+    return ffn_apply(blk, x, cd, tp=tp, ep=ep,
+                     moe_capacity_factor=moe_capacity_factor,
+                     moe_top_k=moe_top_k, return_moe_aux=return_moe_aux)
 
 
 def _generator(seed) -> torch.Generator:
@@ -107,12 +179,16 @@ def _generator(seed) -> torch.Generator:
 
 def transformer_lm(vocab: int = 256, dim: int = 128, depth: int = 2,
                    heads: int = 4, mlp_ratio: int = 4, max_len: int = 2048,
-                   dtype=torch.float32, compute_dtype=None, remat=False,
+                   dtype=torch.float32, compute_dtype=None,
+                   seq_impl: str = "ring", remat=False,
                    attn_impl: str | None = None, scan_blocks: bool = False,
-                   moe_experts: int = 0) -> Model:
+                   moe_experts: int = 0, moe_every: int = 2,
+                   moe_capacity_factor: float = 1.25,
+                   moe_top_k: int = 1) -> Model:
     """A :class:`Model` whose ``init(generator, device)`` returns
-    ``(params, {})`` and whose ``apply(params, state, tokens)`` maps int
-    tokens ``[B, L]`` to next-token logits ``[B, L, vocab]`` in ``dtype``.
+    ``(params, {})`` and whose ``apply(params, state, tokens, ...)`` maps
+    int tokens ``[B, L_local]`` to next-token logits ``[B, L_local,
+    vocab]`` in ``dtype``.
 
     ``init`` takes a ``torch.Generator`` (or an int seed) and draws from
     the JAX package's distributions on the CPU, then moves the tree to
@@ -122,13 +198,31 @@ def transformer_lm(vocab: int = 256, dim: int = 128, depth: int = 2,
     ``scan_blocks=True`` stores the blocks stacked under ``"blocks"``, as
     the JAX package's scanned layout; apply walks them in a loop.
 
+    ``seq_impl`` is the attention over a sequence axis: ``"ring"``
+    (:func:`~distlearn_tpu_torch.parallel.sequence.ring_attention`) or
+    ``"alltoall"`` (Ulysses; heads divisible by the axis size).
+    ``attn_impl`` is the single-device kernel (``"xla"``, ``"flash"``,
+    ``"chunked"``), which runs with no sequence axis, on a size-1 one, and
+    inside Ulysses on the head shard.
+
     ``remat=True`` (= ``"full"``) checkpoints each block: its activations
     are recomputed in the backward pass instead of saved (the flash
-    forward runs again there).  ``remat="mlp"`` checkpoints only the FFN
-    half, so the attention output and the flash kernel's softmax
-    statistics stay saved and the backward never reruns the attention
-    forward.  Both use ``torch.utils.checkpoint(use_reentrant=False)`` and
-    apply only where a gradient is being recorded."""
+    forward and the block's collectives run again there).
+    ``remat="mlp"`` checkpoints only the FFN half, so the attention output
+    and the flash kernel's softmax statistics stay saved and the backward
+    never reruns the attention forward.  Both use
+    ``torch.utils.checkpoint(use_reentrant=False)`` and apply only where a
+    gradient is being recorded.
+
+    ``moe_experts=X`` makes every ``moe_every``-th block's FFN a routed
+    top-``moe_top_k`` mixture of X experts; ``apply(..., ep_axis=)``
+    shards them one a rank over that axis (X equal to its size), without
+    it they all run here.  MoE models return the mean balance loss and
+    dropped fraction of their MoE blocks in the state
+    (``moe_balance_loss``, ``moe_dropped_frac``)."""
+    if seq_impl not in ("ring", "alltoall"):
+        raise ValueError(f"seq_impl must be 'ring' or 'alltoall', "
+                         f"got {seq_impl!r}")
     if isinstance(remat, str):
         if remat not in ("full", "mlp"):
             raise ValueError(f"remat must be False, True/'full', or 'mlp', "
@@ -136,7 +230,26 @@ def transformer_lm(vocab: int = 256, dim: int = 128, depth: int = 2,
     else:
         # any truthy non-string (True, 1, ...) means full remat, as in JAX
         remat = "full" if remat else False
-    _not_ported("moe_experts", moe_experts)
+    if moe_experts < 0 or (moe_experts > 0 and moe_every < 1):
+        raise ValueError(f"moe_experts must be >= 0 and moe_every >= 1, "
+                         f"got {moe_experts}/{moe_every}")
+    if moe_experts > 0 and moe_every > depth:
+        raise ValueError(
+            f"moe_every={moe_every} > depth={depth}: no block would be MoE "
+            f"— the requested {moe_experts}-expert model would silently "
+            "train dense")
+    if moe_experts > 0 and not 1 <= moe_top_k <= moe_experts:
+        raise ValueError(f"moe_top_k={moe_top_k} must be in "
+                         f"[1, moe_experts={moe_experts}]")
+    if scan_blocks and moe_experts:
+        raise ValueError(
+            "scan_blocks needs a homogeneous dense stack: MoE blocks hold "
+            "routed expert leaves the dense blocks lack, so they cannot "
+            "ride one lax.scan — drop scan_blocks or moe_experts")
+    seq_attn = ring_attention if seq_impl == "ring" else alltoall_attention
+
+    def _is_moe(i: int) -> bool:
+        return moe_experts > 0 and (i % moe_every) == moe_every - 1
     head_dim = dim // heads
     hidden = dim * mlp_ratio
     cd = compute_dtype or dtype
@@ -153,52 +266,103 @@ def transformer_lm(vocab: int = 256, dim: int = 128, depth: int = 2,
                   "pos": normal((max_len, dim)),
                   "out_norm": _norm_init((dim,), dtype)}
         for i in range(depth):
-            params[f"block{i}"] = {
+            blk = {
                 "ln1": _norm_init((dim,), dtype),
                 "wq": normal((dim, heads, head_dim)),
                 "wk": normal((dim, heads, head_dim)),
                 "wv": normal((dim, heads, head_dim)),
                 "wo": normal((heads, head_dim, dim)),
                 "ln2": _norm_init((dim,), dtype),
-                "w1": normal((dim, hidden)),
-                "b1": torch.zeros((hidden,), dtype=dtype),
-                "w2": normal((hidden, dim), 1.0 / math.sqrt(hidden)),
-                "b2": torch.zeros((dim,), dtype=dtype),
             }
+            if _is_moe(i):
+                X = moe_experts
+                blk["router"] = normal((dim, X))
+                blk["we1"] = normal((X, dim, hidden))
+                blk["wb1"] = torch.zeros((X, hidden), dtype=dtype)
+                blk["we2"] = normal((X, hidden, dim), 1.0 / math.sqrt(hidden))
+            else:
+                blk["w1"] = normal((dim, hidden))
+                blk["b1"] = torch.zeros((hidden,), dtype=dtype)
+                blk["w2"] = normal((hidden, dim), 1.0 / math.sqrt(hidden))
+                blk["b2"] = torch.zeros((dim,), dtype=dtype)
+            params[f"block{i}"] = blk
         params = tree_map(lambda t: t.to(device), params)
         if scan_blocks:
             return stack_block_params(params, depth), {}
         return params, {}
 
-    def block(blk, x):
-        if not (remat and torch.is_grad_enabled()):
-            return block_apply(blk, x, cd, attn_impl=attn_impl)
-        if remat == "mlp":
-            x = attn_apply(blk, x, cd, attn_impl=attn_impl)
-            return checkpoint(ffn_apply, blk, x, cd, use_reentrant=False)
-        return checkpoint(block_apply, blk, x, cd, attn_impl=attn_impl,
-                          use_reentrant=False)
+    def make_block(is_moe, sa, seq, tp, ep):
+        moe_kw = dict(ep=ep, moe_capacity_factor=moe_capacity_factor,
+                      moe_top_k=moe_top_k, return_moe_aux=is_moe)
+
+        def plain(blk, x):
+            return block_apply(blk, x, cd, seq_attn=sa, seq=seq, tp=tp,
+                               attn_impl=attn_impl, **moe_kw)
+
+        def block(blk, x):
+            if not (remat and torch.is_grad_enabled()):
+                return plain(blk, x)
+            if remat == "mlp":
+                x = attn_apply(blk, x, cd, seq_attn=sa, seq=seq, tp=tp,
+                               attn_impl=attn_impl)
+                return checkpoint(ffn_apply, blk, x, cd, use_reentrant=False,
+                                  tp=tp, **moe_kw)
+            return checkpoint(plain, blk, x, use_reentrant=False)
+        return block
 
     def apply(params, state, tokens, train=True, rng=None, seq_axis=None,
-              tp_axis=None, ep_axis=None, seq_layout="contig"):
-        _not_ported("seq_axis", seq_axis)
-        _not_ported("tp_axis", tp_axis)
-        _not_ported("ep_axis", ep_axis)
+              tp_axis=None, ep_axis=None, seq_layout="contig", mesh=None):
+        sa = seq_attn
         if seq_layout not in ("contig", "zigzag"):
             raise ValueError(f"seq_layout must be 'contig' or 'zigzag', "
                              f"got {seq_layout!r}")
-        _not_ported("seq_layout='zigzag'", seq_layout == "zigzag")
+        if seq_layout == "zigzag":
+            if seq_axis is None:
+                raise ValueError(
+                    "seq_layout='zigzag' without a sequence axis: the "
+                    "layout permutes data across shards — drop it for "
+                    "single-shard runs")
+            if seq_impl != "ring":
+                raise ValueError(
+                    "seq_layout='zigzag' needs seq_impl='ring' (the "
+                    "all-to-all path applies its causal mask in natural "
+                    "order)")
+            sa = _zigzag(seq_attn)
+        seq, tp, ep = mesh_axes(mesh, seq_axis, tp_axis, ep_axis)
         embed = params["embed"]
         tokens = torch.as_tensor(tokens, device=embed.device).long()
         L = tokens.shape[1]
-        x = embed[tokens].to(cd) + params["pos"][:L].to(cd)[None]
+        pos = params["pos"]
+        if seq is None:
+            pos_emb = pos[:L]
+        elif seq_layout == "zigzag":
+            # local shard = early stripe my ++ late stripe 2n-1-my
+            n, my, s_len = seq.size, seq.index, L // 2
+            pos_emb = torch.cat(
+                [pos[my * s_len:(my + 1) * s_len],
+                 pos[(2 * n - 1 - my) * s_len:(2 * n - my) * s_len]])
+        else:
+            pos_emb = pos[seq.index * L:(seq.index + 1) * L]
+        x = embed[tokens].to(cd) + pos_emb.to(cd)[None]
+        blk_dense = make_block(False, sa, seq, tp, ep)
+        blk_moe = make_block(True, sa, seq, tp, ep) if moe_experts else None
         if "blocks" in params:
             blocks = [tree_map(lambda a, i=i: a[i], params["blocks"])
                       for i in range(depth)]
         else:
             blocks = [params[f"block{i}"] for i in range(depth)]
-        for blk in blocks:
-            x = block(blk, x)
+        balance = dropped = n_moe = 0
+        for i, blk in enumerate(blocks):
+            if _is_moe(i):
+                x, aux = blk_moe(blk, x)
+                balance = balance + aux["balance_loss"]
+                dropped = dropped + aux["dropped_frac"]
+                n_moe += 1
+            else:
+                x = blk_dense(blk, x)
+        if n_moe:
+            state = dict(state, moe_balance_loss=balance / n_moe,
+                         moe_dropped_frac=dropped / n_moe)
         x = _rmsnorm(params["out_norm"], x)
         logits = x @ embed.T.to(cd)
         return logits.to(dtype), state
@@ -207,21 +371,110 @@ def transformer_lm(vocab: int = 256, dim: int = 128, depth: int = 2,
                  input_shape=(max_len,), num_classes=vocab)
 
 
+def _zigzag(seq_attn):
+    def attend(q, k, v, axis, causal=False, impl=None):
+        return seq_attn(q, k, v, axis, causal=causal, impl=impl,
+                        layout="zigzag")
+    return attend
+
+
+def mesh_axes(mesh, *names):
+    """The :class:`MeshAxis` of each name (None stays None); a named axis
+    needs ``mesh``."""
+    if mesh is None:
+        if any(n is not None for n in names):
+            raise ValueError(f"mesh axes {[n for n in names if n]} need "
+                             "the mesh: pass mesh=")
+        return (None,) * len(names)
+    return tuple(None if n is None else mesh.axis(n) for n in names)
+
+
+def param_specs(params: PyTree, tp_axis: str | None,
+                ep_axis: str | None = None) -> PyTree:
+    """For each leaf, the mesh axis that splits each of its dimensions, as
+    a tuple (the JAX package's ``PartitionSpec`` entries; ``()`` is
+    replicated): ``tp_axis`` splits heads and the MLP hidden, ``ep_axis``
+    the leading expert axis of the MoE leaves (the router stays
+    replicated).  Leaves of the scanned ``"blocks"`` layout get the same
+    spec one axis to the right."""
+    def spec_for(name, in_blocks):
+        if name in EXPERT_LEAVES:
+            spec = (ep_axis,) if ep_axis else ()
+        elif tp_axis is None:
+            spec = ()
+        elif name in ("wq", "wk", "wv", "w1"):
+            spec = (None, tp_axis)      # [E, H, D] heads / [E, F] hidden
+        elif name in ("wo", "b1", "w2"):
+            spec = (tp_axis,)           # [H, D, E] / [F] / [F, E]
+        else:
+            spec = ()
+        return (None, *spec) if in_blocks else spec
+
+    def walk(tree, in_blocks):
+        return {k: walk(v, in_blocks or k == "blocks")
+                if isinstance(v, dict) else spec_for(k, in_blocks)
+                for k, v in tree.items()}
+    return walk(params, False)
+
+
 def lm_loss(model: Model, params: PyTree, tokens, seq_axis=None,
-            tp_axis=None, ep_axis=None,
-            seq_layout: str = "contig") -> torch.Tensor:
-    """Next-token cross-entropy of ``model`` on int tokens ``[B, L]``: the
-    float32 log-softmax of ``logits[:, :-1]``, the mean negative
-    log-likelihood of ``tokens[:, 1:]`` — the JAX package's ``lm_loss``
-    without a sequence axis (where its ``reduce`` changes nothing, and its
-    MoE balance term has nothing to add to a dense model).  The sequence
-    axis raises (ROADMAP A11)."""
-    _not_ported("seq_axis", seq_axis)
-    logits, _ = model.apply(params, {}, tokens, train=True, tp_axis=tp_axis,
-                            ep_axis=ep_axis, seq_layout=seq_layout)
-    targets = torch.as_tensor(tokens, device=logits.device).long()[:, 1:]
-    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    return -lp.gather(-1, targets[..., None])[..., 0].mean()
+            tp_axis=None, ep_axis=None, reduce: bool = True,
+            moe_balance_weight: float = 0.0, seq_layout: str = "contig",
+            mesh=None) -> torch.Tensor:
+    """Next-token cross-entropy (float32 log-softmax) of ``model`` on int
+    tokens ``[B, L_local]``, plus ``moe_balance_weight`` times the MoE
+    balance loss where the model has one.
+
+    With a sequence axis the last target of a shard is the first token of
+    the next one (a ``ppermute``; the zigzag layout's two stripes take
+    theirs from both neighbours), the global last position has none, and
+    the loss is the masked sum over the global token count; the balance
+    term enters as 1/n of each shard's.  ``reduce=False`` returns this
+    shard's share without the psum over the axis — the form to
+    differentiate (``train/lm.py`` sums the partial gradients)."""
+    logits, st = model.apply(params, {}, tokens, train=True,
+                             seq_axis=seq_axis, tp_axis=tp_axis,
+                             ep_axis=ep_axis, seq_layout=seq_layout,
+                             mesh=mesh)
+    bal = (moe_balance_weight * st["moe_balance_loss"]
+           if moe_balance_weight and "moe_balance_loss" in st else None)
+    tokens = torch.as_tensor(tokens, device=logits.device).long()
+    if seq_axis is None:
+        lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        loss = -lp.gather(-1, tokens[:, 1:, None])[..., 0].mean()
+        return loss + bal if bal is not None else loss
+    seq = mesh.axis(seq_axis)
+    n, my = seq.size, seq.index
+    B, L = tokens.shape
+    if seq_layout == "zigzag":
+        # stripe a+1 is rank my+1's early stripe (rank n-1's own late
+        # stripe for a = n-1); stripe b+1 is rank my-1's late stripe
+        s_len = L // 2
+        early_head = tokens[:, :1]
+        late_head = tokens[:, s_len:s_len + 1]
+        from_next = ppermute(early_head, seq,
+                             [(j, (j - 1) % n) for j in range(n)])
+        from_prev = ppermute(late_head, seq,
+                             [(j, (j + 1) % n) for j in range(n)])
+        bound_a = late_head if my == n - 1 else from_next
+        targets = torch.cat([tokens[:, 1:s_len], bound_a,
+                             tokens[:, s_len + 1:], from_prev], dim=1)
+        w = torch.ones(L, device=logits.device)
+        if my == 0:
+            w[-1] = 0.0
+    else:
+        nxt_first = ppermute(tokens[:, :1], seq,
+                             [(j, (j - 1) % n) for j in range(n)])
+        targets = torch.cat([tokens[:, 1:], nxt_first], dim=1)
+        pos = my * L + torch.arange(L, device=logits.device)
+        w = (pos < n * L - 1).float()
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -lp.gather(-1, targets[..., None])[..., 0]
+    count = psum_raw(w.sum() * B, seq)
+    local = (nll * w[None, :]).sum() / torch.clamp(count, min=1.0)
+    if bal is not None:
+        local = local + bal / n
+    return psum(local, seq) if reduce else local
 
 
 def decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

@@ -19,7 +19,7 @@ head_dim]`` are device tensors updated in place, where the JAX package
 donates them.  The weights are cast to the compute dtype once, at
 construction and at every swap, which gives the same values as casting at
 each use.  The tensor-parallel engine (``mesh``/``tp_axis``) waits for
-ROADMAP A11.
+ROADMAP A12.
 
 Sampling (temperature > 0) keeps the JAX package's top-k and top-p rule;
 its draw comes from a ``torch.Generator`` seeded from (seed, position)
@@ -135,7 +135,7 @@ class DecodeEngine:
         if mesh is not None or tp_axis is not None:
             raise NotImplementedError(
                 "the tensor-parallel engine (mesh/tp_axis) waits for ROADMAP "
-                "A11 (tensor parallelism over NCCL)")
+                "A12 (tensor-parallel serving)")
         self.device = resolve_device(device)
         params, self.depth = generate_params(params)
         self.params = tree_map(lambda t: t.to(self.device), params)

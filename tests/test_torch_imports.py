@@ -18,7 +18,8 @@ PORT_FILES = sorted((ROOT / "distlearn_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
      ROOT / "tests" / "torch_lm_dist_worker.py",
      ROOT / "tests" / "torch_scan_dist_worker.py",
-     ROOT / "tests" / "torch_optim_dist_worker.py"]
+     ROOT / "tests" / "torch_optim_dist_worker.py",
+     ROOT / "tests" / "torch_mesh_worker.py"]
 
 
 def _imported_modules(path: Path):
@@ -60,7 +61,9 @@ def test_port_sources_found():
                 "ops/staging.py", "parallel/host_algorithms.py",
                 "parallel/init.py", "examples/client_remote.py",
                 "parallel/ha.py", "models/resnet.py", "train/optim.py",
-                "examples/resnet50.py", "examples/sync_backends.py"):
+                "examples/resnet50.py", "examples/sync_backends.py",
+                "parallel/mesh.py", "parallel/tp.py", "parallel/ep.py",
+                "models/convert.py"):
         assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "distlearn_tpu_torch/ops/csrc/flash_attention.cu").exists()
@@ -115,8 +118,10 @@ def test_serving_entry_points_raise_without_gpu(no_gpu):
         lm.main(["--steps", "3"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.main(["--steps", "3", "--dp", "2"])
-    with pytest.raises(SystemExit, match="ROADMAP A11"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.main(["--steps", "3", "--tp", "2"])
+    with pytest.raises(SystemExit, match="ROADMAP A11"):
+        lm.main(["--steps", "3", "--pp", "2"])
 
 
 def test_lm_training_entry_points_raise_without_gpu(no_gpu, tmp_path):

@@ -15,7 +15,7 @@ JAX package's runs its xla route off the TPU.
 * two gloo ranks (``tests/torch_lm_dist_worker.py``) against JAX's
   two-device data mesh: the SGD step, the mixed step and
   ``build_lm_ea_steps`` (EAMSGD local steps and the elastic round);
-* the options that wait for ROADMAP A11 raise.
+* the pipeline steps, which wait for ROADMAP A11, raise.
 
 Tolerances.  float32 across the two packages: ``rtol=1e-4, atol=1e-6``
 (different summation orders; measured at most 6e-8 on gradients and
@@ -284,20 +284,25 @@ def test_stack_blocks_matches_jax():
 
 
 def test_unported_options_raise(cpu_tree):
+    """Only the pipeline-parallel steps still wait (ROADMAP A11).  A data-only
+    MeshTree has no seq or model axis, so asking for one raises; the
+    mesh-axis steps are held against JAX in test_torch_mesh_lm.py."""
     model = tt.transformer_lm(**CFG)
     params = lm_from_jax(_jax_params()[1])
     tokens = torch.from_numpy(_tokens(2))
-    for kw in ({"seq_axis": "seq"}, {"tp_axis": "model"},
-               {"ep_axis": "data"}, {"seq_layout": "zigzag"}):
-        for build in (tlm.build_lm_step, tlm.build_lm_mixed_step):
-            with pytest.raises(NotImplementedError, match="A11"):
-                build(model, cpu_tree, lr=LR, **kw)
-        with pytest.raises(NotImplementedError, match="A11"):
-            tlm.lm_local_grads(model, params, tokens, **kw)
-    with pytest.raises(NotImplementedError, match="A11"):
+    for kw in ({"seq_axis": "seq"}, {"tp_axis": "model"}):
+        for build in (tlm.build_lm_step, tlm.build_lm_mixed_step,
+                      tlm.build_lm_moe_metrics):
+            with pytest.raises(ValueError, match="no mesh axis"):
+                build(model, cpu_tree, lr=LR, **kw) \
+                    if build is not tlm.build_lm_moe_metrics \
+                    else build(model, cpu_tree, **kw)
+    with pytest.raises(ValueError, match="zigzag"):
+        tlm.build_lm_step(model, cpu_tree, lr=LR,
+                          seq_layout="zigzag")(params, tokens)
+    with pytest.raises(ValueError, match="mesh="):
         tt.lm_loss(model, params, tokens, seq_axis="seq")
-    for fn in (tlm.build_lm_pp_step, tlm.build_lm_pp_1f1b_step,
-               tlm.build_lm_moe_metrics):
+    for fn in (tlm.build_lm_pp_step, tlm.build_lm_pp_1f1b_step):
         with pytest.raises(NotImplementedError, match="A11"):
             fn(model, None, params)
     with pytest.raises(ValueError, match="accum_steps"):

@@ -256,7 +256,7 @@ def test_engine_validation(port_params):
         pe.admit(np.zeros((0,), np.int32), 4)
     with pytest.raises(ValueError):
         pe.admit(np.ones(MAX_LEN, np.int32), 1)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A12"):
         PortEngine(port_params, mesh=object(), tp_axis="model",
                    device="cpu")
 

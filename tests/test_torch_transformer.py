@@ -166,15 +166,19 @@ def test_init_draws_the_jax_distributions():
 
 
 def test_unported_options_raise():
+    """Only the pipeline-parallel steps still wait (ROADMAP A11); a mesh
+    axis asked for without the mesh names what is missing."""
+    from distlearn_tpu_torch.train import lm as tlm
     _, jp = _jax_params()
-    with pytest.raises(NotImplementedError, match="A11"):
-        tt.transformer_lm(moe_experts=2)
     model = tt.transformer_lm(vocab=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                               max_len=MAX_LEN)
+    for fn in (tlm.build_lm_pp_step, tlm.build_lm_pp_1f1b_step):
+        with pytest.raises(NotImplementedError, match="A11"):
+            fn(model, None, lm_from_jax(jp))
     tokens = torch.zeros((1, 4), dtype=torch.long)
     for kw in ({"seq_axis": "seq"}, {"tp_axis": "model"},
                {"ep_axis": "data"}):
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(ValueError, match="mesh="):
             model.apply(lm_from_jax(jp), {}, tokens, **kw)
 
 
