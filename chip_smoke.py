@@ -216,9 +216,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    xla) whose implied update is within 1e-5 of one rank's gradient on the
    card; (c) ``build_lm_mixed_step`` once on (1, 1, 2), ``params ==
    master.to(bfloat16)`` bit for bit.  The phase fails past 150 s.
-19. report — a ``{"kernels": [...]}`` line (the flash rows and B1 with
-   their phase-18 launches under ``mesh_lm_launches``), the nvidia-smi
-   line, and last ``{"ok": true, "device": {...}}``.
+19. pp_lm — A11's second half, 4 rank processes on ``cuda:0`` over gloo as
+   in 18, phase 12's model, weights and batch: (a) GPipe on (dp, pipe)
+   (1, 4) (2 blocks a stage) and (2, 2) (4 blocks a stage) and 1F1B on
+   (1, 4), 4 microbatches, 3 steps each: every loss finite and equal on
+   the ranks, the first within 1e-2 of one rank's loss, B5a/B5b/B5c a step
+   by count and by profile names on every rank equal to
+   ``pp_launches`` (the schedule as ported), the step on the host clock
+   and the collectives' share of it, one float64 step (dim 64, depth 4, L
+   128, xla) whose implied update is within 1e-5 of one rank's gradient;
+   (b) at S = 4 and M = 16 (batch 16 x 1024) each rank's peak
+   ``max_memory_allocated`` of a 1F1B step below its GPipe step's, the
+   losses equal; (c) Adam (lr 1e-4) through ``build_lm_optax_step``,
+   ``build_lm_mixed_optax_step`` (``params == master.to(bfloat16)``),
+   ``build_lm_zero_step`` on dp 4 (within rtol 1e-6, atol 1e-7 of the
+   replicated step) and ``build_lm_zero_mesh_step`` on (2, 1, 2);
+   ``build_lm_fsdp_step`` on dp 4 against ``build_lm_step`` (loss rtol
+   1e-6, params rtol 1e-5, atol 1e-6), 1/4 of every leaf stored a rank, its
+   gathers and reduce-scatters counted; 3 steps each, every loss finite,
+   B5a-B5c 8 a step by count and profile names.  The phase fails past
+   240 s.
+20. report — a ``{"kernels": [...]}`` line (the flash rows and B1 with
+   their phase-18 launches under ``mesh_lm_launches``, the flash rows
+   with phase 19's under ``pp_lm_launches``), the nvidia-smi line, and
+   last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -4545,6 +4566,463 @@ def phase_mesh_lm(torch) -> dict:
     return {"launches": launches, "b1": b1, "seconds": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the pipeline-parallel LM and the LM's optimizers (A11, second
+# half)
+# ---------------------------------------------------------------------------
+
+# Ranks of phase 19: 4 processes sharing one card over gloo, as phase 18's
+# (every collective staged through pinned host memory, not NCCL's).
+PP_RANKS = 4
+PP_DEVICE = "cuda"            # the rank processes' device (cuda:0)
+PP_TIMEOUT_S = 500
+PP_BUDGET_S = 240             # the phase's wall time
+PP_STEPS = 3
+PP_M = 4                      # microbatches a step in (a)
+# (a): (name, (dp, pipe), schedule); phase 12's batch of 8 x 1024
+PP_CASES = (("gpipe_14", (1, 4), "gpipe"), ("gpipe_22", (2, 2), "gpipe"),
+            ("1f1b_14", (1, 4), "1f1b"))
+# (b): S = 4 and M = 16 microbatches of one row each, no remat
+PP_MEM_M = 16
+# (a): float64, xla, the implied update against one rank's gradient
+PP_F64 = dict(vocab=256, dim=64, depth=4, heads=4, max_len=128)
+PP_F64_BATCH, PP_F64_TOL = 4, 1e-5
+# (c): the optimizer steps, Adam's learning rate; FSDP and its reference
+# SGD step at phase 12's
+OPT_LR = 1e-4
+# ZeRO-1 against the replicated Adam step: phase 17(d)'s tolerance; FSDP
+# against build_lm_step: tests/test_optax_step.py:436's
+OPT_ZERO_TOL = (1e-6, 1e-7)
+OPT_FSDP_LOSS_RTOL, OPT_FSDP_TOL = 1e-6, (1e-5, 1e-6)
+
+
+def pp_launches(schedule: str, S: int, M: int, k: int) -> tuple:
+    """B5a/B5b/B5c launches a step on every rank, as ported (remat off):
+    GPipe runs every stage in each of its ``T = M + S - 1`` ticks (bubble
+    ticks on zeros) and autograd runs every tick's backward, so ``T*k``
+    each; 1F1B runs the forward in each of its ``T = M + 2S - 2`` ticks
+    (no grad: B5a), and recomputes and differentiates only the ``M`` ticks
+    whose microbatch is in range (B5a, then B5b and B5c)."""
+    if schedule == "gpipe":
+        T = M + S - 1
+        return (T * k,) * 3
+    T = M + 2 * S - 2
+    return (T * k + M * k, M * k, M * k)
+
+
+def pp_config() -> dict:
+    """Phase 19's sizes, handed to the rank processes (a rehearsal's
+    smaller sizes reach them only this way)."""
+    return {"lm": LM_TRAIN, "batch": LM_TRAIN_BATCH, "lr": LM_TRAIN_LR,
+            "steps": PP_STEPS, "M": PP_M, "cases": PP_CASES,
+            "mem_M": PP_MEM_M, "f64": PP_F64, "f64_batch": PP_F64_BATCH,
+            "opt_lr": OPT_LR}
+
+
+def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
+    """One rank of phase 19 (a spawned process on ``device``): (a) the
+    pipeline cases, (b) the memory of both schedules, (c) the optimizer
+    steps."""
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from distlearn_tpu_torch.models.convert import (fsdp_gather,
+                                                        lm_gather,
+                                                        lm_pp_gather,
+                                                        lm_pp_shard,
+                                                        lm_shard, lm_to_jax)
+        from distlearn_tpu_torch.models.transformer import (lm_loss,
+                                                            transformer_lm)
+        from distlearn_tpu_torch.ops import flash_attention as fa
+        from distlearn_tpu_torch.parallel.mesh import Mesh
+        from distlearn_tpu_torch.train import lm as tlm
+        from distlearn_tpu_torch.train import optim
+        from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
+
+        dev = torch.device(device)
+        cuda = dev.type == "cuda"
+        if cuda:
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        sync = (lambda: torch.cuda.synchronize(dev)) if cuda else \
+            (lambda: None)
+        dist.init_process_group("gloo", rank=rank, world_size=PP_RANKS,
+                                init_method=f"tcp://localhost:{port}")
+        res = {"rank": rank, "cases": {}, "opt": {}, "up": time.time()}
+        acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+        with profile(activities=acts):       # CUPTI's start-up, here
+            torch.ones(1, device=dev).add_(1)
+            sync()
+        res["warm"] = time.time()
+        lmc, f64 = cfg["lm"], cfg["f64"]
+        B, L, depth = cfg["batch"], lmc["max_len"], lmc["depth"]
+        tokens = torch.from_numpy(np.random.RandomState(0).randint(
+            0, lmc["vocab"], (B, L)).astype(np.int32)).to(dev)
+        model = transformer_lm(compute_dtype=torch.bfloat16,
+                               attn_impl="flash", **lmc)
+        whole = model.init(0, device="cpu")[0]
+        # every rank builds every mesh, in one order (group creation is
+        # collective); the pipeline meshes' axes are (data, pipe)
+        meshes = {shape: Mesh(shape, ("data", "pipe"), device=dev,
+                              backend="gloo", ranks=range(PP_RANKS))
+                  for shape in sorted({c[1] for c in cfg["cases"]})}
+        opt_mesh = Mesh((PP_RANKS, 1, 1), device=dev, backend="gloo",
+                        ranks=range(PP_RANKS))
+        zm_mesh = Mesh((2, 1, 2), device=dev, backend="gloo",
+                       ranks=range(PP_RANKS))
+        if rank == 0:
+            # one rank's loss of the same weights and batch
+            with torch.no_grad():
+                dwhole = tree_map(lambda t: t.to(dev), whole)
+                res["ref_loss"] = float(lm_loss(model, dwhole, tokens))
+                del dwhole
+            if cuda:
+                torch.cuda.empty_cache()
+
+        def run_steps(mesh, step, state, toks, steps):
+            """``steps`` steps, the second timed (collectives charged), the
+            last profiled: ``(state, record)``."""
+            reset_flash_counts(fa)
+            losses, secs, keys = [], [], []
+            coll = calls = nbytes = {}
+            for i in range(steps):
+                mesh.stats.reset()
+                mesh.timed = i == 1
+                sync()
+                t = time.perf_counter()
+                if i == steps - 1:
+                    with profile(activities=acts) as prof:
+                        state, loss = step(state, toks)
+                        sync()
+                    keys = [e.key for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            for _ in range(e.count)]
+                else:
+                    state, loss = step(state, toks)
+                    sync()
+                secs.append(time.perf_counter() - t)
+                losses.append(float(loss))
+                if i == 1:
+                    coll, calls = dict(mesh.stats.seconds), \
+                        dict(mesh.stats.calls)
+                    nbytes = dict(mesh.stats.bytes)
+            mesh.timed = False
+            return state, {
+                "losses": losses, "secs": secs, "coll_s": coll,
+                "coll_calls": calls, "coll_bytes": nbytes,
+                "counts": flash_counts(fa),
+                "routes": {k: sorted(v) for k, v in
+                           flash_routes(keys).items()},
+                "profiled": {tag: sum(sub in k for k in keys)
+                             for tag, sub in FLASH_KERNELS}}
+
+        def pp_builder(schedule):
+            return tlm.build_lm_pp_1f1b_step if schedule == "1f1b" \
+                else tlm.build_lm_pp_step
+
+        def pp_state_step(pp_step):
+            def step(st, toks):
+                shared, stacked, loss = pp_step(*st, toks)
+                return (shared, stacked), loss
+            return step
+
+        def rows(mesh, toks):
+            d = mesh.axis("data")
+            per = toks.shape[0] // d.size
+            return toks[d.index * per:(d.index + 1) * per].contiguous()
+
+        # (a) the pipeline cases
+        fmodel = transformer_lm(dtype=torch.float64, attn_impl="xla", **f64)
+        fwhole = fmodel.init(1, device="cpu")[0]
+        ftoks = torch.from_numpy(np.random.RandomState(1).randint(
+            0, f64["vocab"], (cfg["f64_batch"], f64["max_len"]))
+            .astype(np.int32)).to(dev)
+        for name, shape, schedule in cfg["cases"]:
+            t_case = time.perf_counter()
+            mesh = meshes[shape]
+            pp_step = pp_builder(schedule)(
+                mesh, *tlm.stack_blocks(whole, depth), lr=cfg["lr"],
+                num_microbatches=cfg["M"], compute_dtype=torch.bfloat16,
+                attn_impl="flash")
+            state = lm_pp_shard(whole, mesh, depth)
+            state, rec = run_steps(mesh, pp_state_step(pp_step), state,
+                                   rows(mesh, tokens), cfg["steps"])
+            del state, pp_step
+            if cuda:
+                torch.cuda.empty_cache()
+            fstep = pp_builder(schedule)(
+                mesh, *tlm.stack_blocks(fwhole, f64["depth"]), lr=1.0,
+                num_microbatches=2, attn_impl="xla")
+            sh, st, _ = fstep(*lm_pp_shard(fwhole, mesh, f64["depth"]),
+                              rows(mesh, ftoks))
+            got = lm_pp_gather(sh, st, mesh, f64["depth"])
+            if rank == 0:
+                dwhole = tree_map(lambda t: t.to(dev), fwhole)
+                _, g = mesh_reference(torch, fmodel, dwhole, ftoks,
+                                      shape[0], 0.0)
+                worst = 0.0
+                for a, b, gg in zip(tree_leaves(lm_to_jax(fwhole)),
+                                    tree_leaves(got),
+                                    tree_leaves(lm_to_jax(g))):
+                    denom = max(1e-12, float(np.abs(gg).max()))
+                    worst = max(worst, float(np.abs(a - b - gg).max())
+                                / denom)
+                rec["f64_err"] = worst
+            rec["case_s"] = time.perf_counter() - t_case
+            rec["end"] = time.time()
+            res["cases"][name] = rec
+
+        # (b) the peak memory of each schedule at S = 4, M = 16
+        mesh = meshes[(1, PP_RANKS)]
+        mem_toks = torch.from_numpy(np.random.RandomState(2).randint(
+            0, lmc["vocab"], (cfg["mem_M"], L)).astype(np.int32)).to(dev)
+        res["mem"] = {}
+        for schedule in ("gpipe", "1f1b"):
+            state = lm_pp_shard(whole, mesh, depth)
+            pp_step = pp_builder(schedule)(
+                mesh, *tlm.stack_blocks(whole, depth), lr=cfg["lr"],
+                num_microbatches=cfg["mem_M"], compute_dtype=torch.bfloat16,
+                attn_impl="flash")
+            sync()
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+            t = time.perf_counter()
+            out = pp_step(*state, mem_toks)
+            sync()
+            secs = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            res["mem"][schedule] = {"peak": peak,
+                                    "base": base if cuda else 0,
+                                    "loss": float(out[2]), "secs": secs}
+            del state, pp_step, out
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (c) the optimizer steps, phase 12's batch over the data ranks
+        tx = optim.adam(cfg["opt_lr"])
+        params = lm_shard(whole, opt_mesh)
+        for name in ("optax", "mixed", "zero", "zero_mesh", "fsdp", "sgd"):
+            t_case = time.perf_counter()
+            mesh = opt_mesh
+            if name == "optax":
+                step = optim.build_lm_optax_step(model, mesh, tx)
+                state = optim.LMOptaxState(params, tx.init(params))
+            elif name == "mixed":
+                step = optim.build_lm_mixed_optax_step(model, mesh, tx)
+                state = optim.init_lm_mixed_optax_state(params, tx)
+            elif name == "zero":
+                step = optim.build_lm_zero_step(model, mesh, tx)
+                state = optim.init_lm_zero_state(params, mesh, tx)
+            elif name == "zero_mesh":
+                mesh = zm_mesh
+                step = optim.build_lm_zero_mesh_step(
+                    model, mesh, tx, seq_axis="seq", tp_axis="model")
+                state = optim.init_lm_zero_mesh_state(
+                    lm_shard(whole, mesh, "model"), mesh, tx,
+                    tp_axis="model")
+            elif name == "fsdp":
+                step = optim.build_lm_fsdp_step(model, mesh, whole,
+                                                lr=cfg["lr"])
+                state = optim.init_lm_fsdp_params(whole, mesh)
+                res["fsdp_sizes"] = [
+                    (s.numel(), w.numel()) for s, w in
+                    zip(tree_leaves(state), tree_leaves(whole))]
+            else:
+                step = tlm.build_lm_step(model, mesh, lr=cfg["lr"])
+                state = params
+            state, rec = run_steps(mesh, step, state, rows(mesh, tokens),
+                                   cfg["steps"])
+            if name == "mixed":
+                rec["invariant"] = all(
+                    torch.equal(p, m.to(torch.bfloat16)) for p, m in
+                    zip(tree_leaves(state.params),
+                        tree_leaves(state.master)))
+            if name in ("optax", "zero"):
+                res[name] = [t.cpu() for t in tree_leaves(state.params)]
+            if name == "fsdp":
+                res["fsdp"] = fsdp_gather(state, mesh, whole)
+            if name == "sgd":
+                res["sgd"] = lm_gather(state, mesh)
+            rec["case_s"] = time.perf_counter() - t_case
+            res["opt"][name] = rec
+            del state, step
+            if cuda:
+                torch.cuda.empty_cache()
+        # ZeRO-1 against the replicated Adam step, FSDP against SGD: here,
+        # so that only numbers travel back
+        pairs = list(zip(res.pop("zero"), res.pop("optax")))
+        res["zero_err"] = max(
+            float(((a - b).abs() - (OPT_ZERO_TOL[0] * b.abs()
+                                    + OPT_ZERO_TOL[1])).max())
+            for a, b in pairs)
+        res["zero_diff"] = max(float((a - b).abs().max()) for a, b in pairs)
+        pairs = list(zip(tree_leaves(res.pop("fsdp")),
+                         tree_leaves(res.pop("sgd"))))
+        res["fsdp_err"] = max(
+            float((np.abs(a - b) - (OPT_FSDP_TOL[0] * np.abs(b)
+                                    + OPT_FSDP_TOL[1])).max())
+            for a, b in pairs)
+        res["fsdp_diff"] = max(float(np.abs(a - b).max()) for a, b in pairs)
+        dist.barrier()
+        dist.destroy_process_group()
+        res["done"] = time.time()
+        q.put(("ok", res))
+    except BaseException:  # noqa: BLE001 — the parent fails the phase
+        import traceback
+        q.put(("err", traceback.format_exc()))
+
+
+def coll_line(c) -> str:
+    step_s = c["secs"][1]
+    coll = sum(c["coll_s"].values())
+    return (f"step host clock {c['secs'][0] * 1e3:.1f} (first) / "
+            f"{step_s * 1e3:.1f} (timed) / {c['secs'][-1] * 1e3:.1f} "
+            f"(profiled) ms, collectives {coll * 1e3:.1f} ms = "
+            f"{coll / step_s:.1%} of the timed step on the gloo host route "
+            f"(not NCCL): "
+            + ", ".join(f"{k} {c['coll_calls'][k]} calls "
+                        f"{c['coll_bytes'][k] / 1e6:.1f} MB "
+                        f"{c['coll_s'][k] * 1e3:.1f} ms"
+                        for k in sorted(c["coll_s"])))
+
+
+def check_flash(name, c, want, steps, cuda):
+    """B5a/B5b/B5c a step by count and in the profiled step by name."""
+    per_step = tuple(x / steps for x in c["counts"])
+    check(per_step == want, f"[{name}] B5a/B5b/B5c {per_step} a step "
+          f"(counts), expected {want}")
+    prof = tuple(c["profiled"][t] for t, _ in FLASH_KERNELS)
+    check(not cuda or prof == want,
+          f"[{name}] the profiled step names B5a/B5b/B5c {prof} times, "
+          f"expected {want}")
+    check(not cuda or c["routes"] == {
+        k: sorted(v) for k, v in FLASH_BF16_ROUTES.items()},
+        f"[{name}] flash routes {c['routes']}")
+    return per_step, prof
+
+
+def phase_pp_lm(torch) -> dict:
+    """Phase 19: see the module docstring."""
+    t0, wall0 = time.perf_counter(), time.time()
+    cuda = PP_DEVICE == "cuda"
+    log(f"[pp] {PP_RANKS} rank processes on {PP_DEVICE}:0 over gloo, every "
+        "collective staged through pinned host memory (not NCCL)")
+    results = run_workers(pp_worker, PP_RANKS,
+                          (free_port(), PP_DEVICE, pp_config()),
+                          PP_TIMEOUT_S, "pp LM rank")
+    depth = LM_TRAIN["depth"]
+    ref = results[0]["ref_loss"]
+    launches = {}
+    for name, shape, schedule in PP_CASES:
+        mine = [r["cases"][name] for r in results]
+        c0 = mine[0]
+        for r, c in enumerate(mine):
+            check(all(math.isfinite(x) for x in c["losses"]),
+                  f"[{name}] rank {r}: non-finite loss {c['losses']}")
+            check(c["losses"] == c0["losses"],
+                  f"[{name}] the ranks' losses differ: "
+                  f"{[m['losses'] for m in mine]}")
+        rel = abs(c0["losses"][0] - ref) / abs(ref)
+        check(rel <= MESH_LOSS_RTOL,
+              f"[{name}] first loss {c0['losses'][0]} against one rank's "
+              f"{ref}: {rel:.3g} > {MESH_LOSS_RTOL}")
+        want = pp_launches(schedule, shape[1], PP_M, depth // shape[1])
+        got = [check_flash(f"{name} rank {r}", c, want, PP_STEPS, cuda)
+               for r, c in enumerate(mine)]
+        launches[name] = c0["counts"]
+        check(c0["f64_err"] < PP_F64_TOL,
+              f"[{name}] float64 implied update off by {c0['f64_err']:.3g} "
+              f"of the one-rank gradient (tolerance {PP_F64_TOL})")
+        log(f"[pp] (a) {name} {shape} (dp, pipe), {schedule}, M {PP_M}: "
+            f"losses {' '.join(f'{x:.5f}' for x in c0['losses'])} (one "
+            f"rank {ref:.5f}, first off by {rel:.2e}); B5a/B5b/B5c a step "
+            f"{got[0][0]} by count, {got[0][1]} by profile names on every "
+            f"rank (predicted {want}); {coll_line(c0)}; float64 implied "
+            f"update off by {c0['f64_err']:.2e} (< {PP_F64_TOL}); case "
+            f"{c0['case_s']:.1f} s")
+    for r, res in enumerate(results):
+        g, f = res["mem"]["gpipe"], res["mem"]["1f1b"]
+        check(math.isfinite(g["loss"]) and g["loss"] == f["loss"],
+              f"[pp] (b) rank {r}: GPipe loss {g['loss']} against 1F1B's "
+              f"{f['loss']} (one forward, one order of the shares)")
+        check(not cuda or f["peak"] < g["peak"],
+              f"[pp] (b) rank {r}: 1F1B's peak {f['peak'] / 1e9:.3f} GB is "
+              f"not below GPipe's {g['peak'] / 1e9:.3f} GB")
+        log(f"[pp] (b) rank {r} (stage {r}), S {PP_RANKS}, M {PP_MEM_M}: "
+            f"peak allocated GPipe {g['peak'] / 1e9:.3f} GB, 1F1B "
+            f"{f['peak'] / 1e9:.3f} GB (params and state before the step "
+            f"{g['base'] / 1e9:.3f} GB); step {g['secs']:.2f} / "
+            f"{f['secs']:.2f} s; loss {g['loss']:.5f} / {f['loss']:.5f}")
+    want = (depth,) * 3
+    for name in ("optax", "mixed", "zero", "zero_mesh", "fsdp", "sgd"):
+        mine = [r["opt"][name] for r in results]
+        c0 = mine[0]
+        for r, c in enumerate(mine):
+            check(all(math.isfinite(x) for x in c["losses"]),
+                  f"[{name}] rank {r}: non-finite loss {c['losses']}")
+            check(c["losses"] == c0["losses"],
+                  f"[{name}] the ranks' losses differ")
+        got = [check_flash(f"{name} rank {r}", c, want, PP_STEPS, cuda)
+               for r, c in enumerate(mine)]
+        launches[name] = c0["counts"]
+        extra = ""
+        if name == "mixed":
+            check(all(c["invariant"] for c in mine),
+                  "[mixed] params != master.to(bfloat16) after the steps")
+            extra = "; params == master.to(bfloat16) bit for bit"
+        log(f"[pp] (c) {name}: losses "
+            f"{' '.join(f'{x:.5f}' for x in c0['losses'])}; B5a/B5b/B5c a "
+            f"step {got[0][0]} by count, {got[0][1]} by profile names "
+            f"(predicted {want}){extra}; {coll_line(c0)}; case "
+            f"{c0['case_s']:.1f} s")
+    zero_err = max(r["zero_err"] for r in results)
+    check(zero_err <= 0, f"[zero] params off the replicated Adam step's by "
+          f"{zero_err:.3g} beyond rtol {OPT_ZERO_TOL[0]}, atol "
+          f"{OPT_ZERO_TOL[1]}")
+    fsdp_err = max(r["fsdp_err"] for r in results)
+    l_f, l_s = (results[0]["opt"][n]["losses"] for n in ("fsdp", "sgd"))
+    check(all(abs(a - b) <= OPT_FSDP_LOSS_RTOL * abs(b)
+              for a, b in zip(l_f, l_s)) and fsdp_err <= 0,
+          f"[fsdp] against build_lm_step: losses {l_f} / {l_s}, params "
+          f"beyond rtol {OPT_FSDP_TOL[0]}, atol {OPT_FSDP_TOL[1]} by "
+          f"{fsdp_err:.3g}")
+    sizes = results[0]["fsdp_sizes"]
+    held = sum(s for s, _ in sizes)
+    whole = sum(w for _, w in sizes)
+    check(all(s * PP_RANKS == w or s == w for s, w in sizes)
+          and held * PP_RANKS == whole,
+          f"[fsdp] a rank holds {held} of {whole} params")
+    fs = results[0]["opt"]["fsdp"]
+    log(f"[pp] (c) ZeRO-1 within rtol {OPT_ZERO_TOL[0]}, atol "
+        f"{OPT_ZERO_TOL[1]} of the replicated Adam step (largest difference "
+        f"{max(r['zero_diff'] for r in results):.3g}); FSDP within "
+        f"rtol {OPT_FSDP_LOSS_RTOL} (loss), rtol {OPT_FSDP_TOL[0]}, atol "
+        f"{OPT_FSDP_TOL[1]} of build_lm_step (largest difference "
+        f"{max(r['fsdp_diff'] for r in results):.3g}); FSDP storage {held} of "
+        f"{whole} params a rank, {fs['coll_calls'].get('all_gather', 0)} "
+        f"gathers ({fs['coll_bytes'].get('all_gather', 0) / 1e6:.1f} MB) "
+        f"and {fs['coll_calls'].get('psum_scatter', 0)} reduce-scatters "
+        f"({fs['coll_bytes'].get('psum_scatter', 0) / 1e6:.1f} MB) a step")
+    log("[pp] timeline, seconds from the phase's start: " + "; ".join(
+        f"rank {r['rank']} up {r['up'] - wall0:.1f}, profiler warm "
+        f"{r['warm'] - wall0:.1f}, cases done at "
+        + ", ".join(f"{n} {c['end'] - wall0:.1f}"
+                    for n, c in r["cases"].items())
+        + f", finished {r['done'] - wall0:.1f}" for r in results))
+    wall = time.perf_counter() - t0
+    log(f"[pp] phase 19 took {wall:.1f} s (budget {PP_BUDGET_S} s)")
+    check(wall <= PP_BUDGET_S, f"phase 19 took {wall:.1f} s, over its "
+          f"{PP_BUDGET_S}-s budget")
+    return {"launches": launches, "seconds": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4614,6 +5092,7 @@ def main() -> int:
             dist.destroy_process_group()
         log(f"[resnet] phase 17 took {time.perf_counter() - t17:.1f} s")
         meshed = phase_mesh_lm(torch)
+        piped = phase_pp_lm(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -4642,7 +5121,9 @@ def main() -> int:
                      " via distlearn_tpu/parallel/sequence.py:420",
          "launches": served["launches"], **kernel_rows["flash_attention"],
          "mesh_lm_launches": {k: v[0] for k, v in
-                              meshed["launches"].items()}},
+                              meshed["launches"].items()},
+         "pp_lm_launches": {k: v[0] for k, v in
+                            piped["launches"].items()}},
         {"name": "flash_attention_dkv", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"
@@ -4650,7 +5131,9 @@ def main() -> int:
          "launches": trained["launches"]["flash_attention_dkv"],
          **bwd_rows["dkv"],
          "mesh_lm_launches": {k: v[1] for k, v in
-                              meshed["launches"].items()}},
+                              meshed["launches"].items()},
+         "pp_lm_launches": {k: v[1] for k, v in
+                            piped["launches"].items()}},
         {"name": "flash_attention_dq", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"
@@ -4658,7 +5141,9 @@ def main() -> int:
          "launches": trained["launches"]["flash_attention_dq"],
          **bwd_rows["dq"],
          "mesh_lm_launches": {k: v[2] for k, v in
-                              meshed["launches"].items()}},
+                              meshed["launches"].items()},
+         "pp_lm_launches": {k: v[2] for k, v in
+                            piped["launches"].items()}},
     ]
     log(f"[report] total {time.perf_counter() - t_start:.1f} s; "
         f"sgd {sgd['steps_per_s']:.2f} steps/s at batch {SGD_BATCH}; graph "
@@ -4689,7 +5174,8 @@ def main() -> int:
         f"{resnet['float32']['launches']} launches in {RESNET_STEPS} steps, "
         f"largest bucket {resnet['b1']['ms']:.5f} ms against bound "
         f"{resnet['b1']['bound_ms']:.5f} ms; mesh LM phase "
-        f"{meshed['seconds']:.1f} s")
+        f"{meshed['seconds']:.1f} s; pp and optimizer LM phase "
+        f"{piped['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ flag names (``--tpu`` becomes ``--device``, the card by default).
         --servePort 9123
     python -m distlearn_tpu_torch.examples.lm_client --port 9123
 
-``--steps N`` trains N SGD steps (``train/lm.py``: ``--mixed`` for
+``--steps N`` trains N steps (``train/lm.py``: ``--mixed`` for
 bfloat16 working params with float32 masters, ``--remat``/``--rematMode``,
 ``--accumSteps``) on the JAX example's synthetic order-2 Markov corpus,
 over a ``(data, seq, model)`` mesh of ``--dp`` x ``--sp`` x ``--tp`` ranks
@@ -19,13 +19,19 @@ blocks (``--moeExperts`` = ``--dp``, one expert a data rank;
 one card each (``cuda:<rank>``), or gloo with ``--device cpu``; one rank
 runs in this process.  ``--generate`` and ``--serve`` then run on rank 0
 with the trained params gathered from the shards (``--steps 0``: the
-seeded initialisation).  Pipeline parallelism (``--pp``), ZeRO, FSDP and
-the LM's optax optimizers wait for ROADMAP A11, so those flags only accept
-their defaults here.  SIGTERM or Ctrl-C drains the in-flight requests,
-then exits.
+seeded initialisation; not after ``--pp/--zero/--fsdp``).  ``--pp S``
+trains over a ``(data, pipe)`` mesh of ``--dp`` x ``S`` ranks instead,
+GPipe or 1F1B (``--ppSchedule``, ``--microbatches``); ``--optimizer
+adam|adamw`` runs the replicated-state optimizer step (with ``--mixed``
+over float32 masters), ``--zero`` Adam under ZeRO-1 over the mesh,
+``--fsdp`` the fully-sharded step (``train/optim.py``); the JAX example's
+flag checks hold.  SIGTERM or Ctrl-C drains the in-flight requests, then
+exits.
 
     python -m distlearn_tpu_torch.examples.lm --device cpu --dp 2 --sp 2 \
         --moeExperts 2 --steps 3 --dim 64 --depth 2 --seqLen 64
+    python -m distlearn_tpu_torch.examples.lm --device cpu --pp 2 \
+        --ppSchedule 1f1b --steps 3 --dim 64 --depth 2 --seqLen 64
 """
 
 from __future__ import annotations
@@ -47,16 +53,19 @@ from distlearn_tpu_torch.utils.flags import parse_flags
 from distlearn_tpu_torch.utils.logging import print_server, root_print
 from distlearn_tpu_torch.utils.platform import rank_device, resolve_device
 
-_A11 = "waits for ROADMAP A11 (the pipeline-parallel LM, ZeRO, FSDP and " \
-    "the LM's optax optimizers)"
+#: ``--optimizer``'s choices besides sgd (``train/optim.py``)
+OPTIMIZERS = ("adam", "adamw")
 
 FLAGS = {
     "dp": (1, "data-parallel axis size"),
     "sp": (1, "sequence-parallel axis size"),
     "tp": (1, "tensor-parallel axis size (Megatron)"),
-    "pp": (0, "pipeline-parallel stages (ROADMAP A11)"),
-    "ppSchedule": ("gpipe", "pipeline schedule (ROADMAP A11)"),
-    "microbatches": (4, "pipeline microbatches (ROADMAP A11)"),
+    "pp": (0, "pipeline-parallel stages (depth/pp blocks per stage; "
+              "requires --sp 1 --tp 1 and --depth % --pp == 0)"),
+    "ppSchedule": ("gpipe", "pipeline schedule: gpipe | 1f1b (1f1b starts "
+                            "each microbatch's backward as it leaves the "
+                            "last stage: O(stages) activation liveness)"),
+    "microbatches": (4, "pipeline microbatches per step (with --pp)"),
     "dim": (128, "model width"),
     "depth": (4, "number of blocks"),
     "vocab": (256, "vocabulary size"),
@@ -81,10 +90,17 @@ FLAGS = {
                      "as --rematMode full)"),
     "rematMode": ("", "'' | full | mlp — mlp recomputes only the FFN half, "
                       "keeping the attention residuals saved"),
-    "zero": (False, "ZeRO-1 training (ROADMAP A11)"),
+    "zero": (False, "train with Adam under ZeRO-1: optimizer state + f32 "
+                    "masters sharded over the data axis, composed with the "
+                    "sp/tp axes (train.build_lm_zero_mesh_step; dense "
+                    "models only)"),
     "mixed": (False, "bf16 working params + f32 masters "
-                     "(train.build_lm_mixed_step)"),
-    "fsdp": (False, "fully-sharded data parallelism (ROADMAP A11)"),
+                     "(train.build_lm_mixed_step / "
+                     "build_lm_mixed_optax_step; not with --pp/--zero)"),
+    "fsdp": (False, "fully-sharded data parallelism: params live sharded "
+                    "1/dp a rank, each leaf gathered before use "
+                    "(train.build_lm_fsdp_step; needs --sp 1 --tp 1, sgd, "
+                    "dense)"),
     "generate": (0, "after training, greedy-decode this many tokens from "
                     "held-out prompts with the KV-cached decoder "
                     "(models.greedy_generate)"),
@@ -92,7 +108,9 @@ FLAGS = {
                  "continuous-batching decode slots ('G'/'R' frames; drive "
                  "with distlearn_tpu_torch.examples.lm_client)"),
     "servePort": (0, "serving port (0 = ephemeral, printed at startup)"),
-    "optimizer": ("sgd", "sgd only (the LM's adam/adamw: ROADMAP A11)"),
+    "optimizer": ("sgd", "sgd | adam | adamw — non-sgd runs the "
+                         "replicated-state optimizer step "
+                         "(train.build_lm_optax_step; needs --tp 1)"),
     "accumSteps": (1, "gradient-accumulation microbatches per step "
                       "(memory lever; effective batch unchanged)"),
     "profile": ("", "torch.profiler trace of steps 6..10 into this "
@@ -112,27 +130,79 @@ def parse(argv=None):
     opt = parse_flags("Train a transformer LM over a (data, seq, model) "
                       "mesh, then serve it with continuous batching.", FLAGS,
                       argv)
-    for name in ("pp", "zero", "fsdp"):
-        if getattr(opt, name):
-            raise SystemExit(f"--{name}: {_A11}")
-    if opt.optimizer != "sgd":
-        raise SystemExit(f"--optimizer {opt.optimizer}: the optax LM steps "
-                         f"wait for ROADMAP A11; pass sgd")
+    remat = opt.rematMode or ("full" if opt.remat else False)
     if opt.seqLayout not in ("contig", "zigzag"):
         raise SystemExit(f"--seqLayout {opt.seqLayout!r}: contig | zigzag")
-    if opt.seqLayout == "zigzag" and opt.seqImpl != "ring":
-        raise SystemExit("--seqLayout zigzag needs --seqImpl ring")
+    if opt.seqLayout == "zigzag":
+        if opt.seqImpl != "ring":
+            raise SystemExit("--seqLayout zigzag needs --seqImpl ring")
+        if opt.pp or opt.zero:
+            raise SystemExit("--seqLayout zigzag composes with the fused "
+                             "sgd/optax steps (not --pp/--zero)")
     if opt.seqImpl not in ("ring", "alltoall"):
         raise SystemExit(f"--seqImpl {opt.seqImpl!r}: ring | alltoall")
-    if opt.scanBlocks and opt.moeExperts:
+    if opt.scanBlocks and (opt.moeExperts or opt.pp):
         raise SystemExit("--scanBlocks needs a homogeneous dense stack "
                          "and the non-pp step (pipeline stages shard the "
                          "per-block layout)")
-    if opt.rematMode not in ("", "full", "mlp"):
-        raise SystemExit(f"--rematMode {opt.rematMode!r}: '' | full | mlp")
+    if opt.ppSchedule not in ("gpipe", "1f1b"):
+        raise SystemExit(f"--ppSchedule {opt.ppSchedule!r}: gpipe | 1f1b")
+    if opt.mixed and (opt.pp or opt.zero):
+        raise SystemExit("--mixed composes with the fused sgd/optax steps "
+                         "(--pp stages and --zero shards manage their own "
+                         "parameter layouts)")
+    if opt.fsdp and (opt.sp != 1 or opt.tp != 1 or opt.pp or opt.zero
+                     or opt.mixed or opt.moeExperts
+                     or opt.optimizer != "sgd"):
+        raise SystemExit("--fsdp shards the whole model over the data "
+                         "axis: pass --sp 1 --tp 1 and no "
+                         "--pp/--zero/--mixed/--moeExperts/--optimizer")
+    if opt.pp:
+        if opt.sp != 1 or opt.tp != 1:
+            raise SystemExit("--pp composes with data parallelism only: "
+                             "pass --sp 1 --tp 1 (PP and TP/SP cover "
+                             "different model regimes)")
+        if opt.depth % opt.pp:
+            raise SystemExit(f"--pp {opt.pp} needs --depth divisible by "
+                             f"{opt.pp} (equal blocks per stage)")
+        if (opt.accumSteps != 1 or opt.moeExperts or opt.zero
+                or opt.optimizer != "sgd"):
+            raise SystemExit("--pp does not support --accumSteps/"
+                             "--moeExperts/--zero/--optimizer (GPipe "
+                             "microbatching IS the accumulation lever on "
+                             "this path; MoE/ZeRO/optax need the non-pp "
+                             "step)")
+        if remat == "mlp":
+            raise SystemExit("--rematMode mlp is the non-pp step's "
+                             "selective mode; the pipeline stage fn "
+                             "checkpoints whole blocks — use --remat "
+                             "(full) with --pp")
+    if opt.serve and (opt.pp or opt.zero or opt.fsdp):
+        raise SystemExit("--serve needs a single-replica param layout "
+                         "(not --pp/--zero/--fsdp)")
+    if opt.generate and (opt.pp or opt.zero or opt.fsdp):
+        raise SystemExit("--generate needs a single-replica param "
+                         "layout (not --pp/--zero/--fsdp)")
     if opt.moeExperts and opt.moeExperts != opt.dp:
         raise SystemExit(f"--moeExperts {opt.moeExperts} must equal --dp "
                          f"{opt.dp} (one expert per data-parallel device)")
+    if opt.zero and (opt.moeExperts or opt.accumSteps != 1
+                     or opt.optimizer != "sgd"):
+        raise SystemExit("--zero supports dense models without "
+                         "--accumSteps/--moeExperts, and picks its "
+                         "own optimizer (Adam against the sharded "
+                         "f32 masters) — drop --optimizer")
+    if not opt.zero and opt.optimizer != "sgd":
+        if opt.tp != 1 or opt.moeExperts:
+            raise SystemExit(f"--optimizer {opt.optimizer} uses the "
+                             "replicated-state optax step: pass --tp 1 "
+                             "(TP needs --zero's sharded masters) and "
+                             "no --moeExperts (expert-sharded state)")
+        if opt.optimizer not in OPTIMIZERS:
+            raise SystemExit(f"unknown --optimizer {opt.optimizer!r} "
+                             f"(sgd | {' | '.join(OPTIMIZERS)})")
+    if opt.rematMode not in ("", "full", "mlp"):
+        raise SystemExit(f"--rematMode {opt.rematMode!r}: '' | full | mlp")
     if (opt.serve or opt.generate) and opt.moeExperts:
         raise SystemExit("--serve/--generate support dense models (per-tick "
                          "MoE routing would not match the trained capacity "
@@ -140,7 +210,8 @@ def parse(argv=None):
     if opt.generate and opt.seqLayout == "zigzag":
         raise SystemExit("--generate decodes in natural order — drop "
                          "--seqLayout zigzag")
-    if min(opt.dp, opt.sp, opt.tp) < 1 or opt.batchSize % opt.dp:
+    if min(opt.dp, opt.sp, opt.tp) < 1 or opt.pp < 0 \
+            or opt.batchSize % opt.dp:
         raise SystemExit(f"--batchSize {opt.batchSize} must split evenly "
                          f"over --dp {opt.dp} ranks")
     return opt
@@ -187,7 +258,7 @@ def _model(opt):
 
 
 def _ranks(opt) -> int:
-    return opt.dp * opt.sp * opt.tp
+    return opt.dp * (opt.pp or opt.sp * opt.tp)
 
 
 def _init(lm, opt, device):
@@ -224,53 +295,112 @@ def _corpus(opt) -> np.ndarray:
     return toks
 
 
+def _build_step(opt, lm, mesh, whole, log):
+    """``(step, state, moe_metrics)`` for the flags: ``step(state, tokens)
+    -> (state, loss)`` on this rank's shard of ``whole``."""
+    from distlearn_tpu_torch.models.convert import lm_pp_shard, lm_shard
+    from distlearn_tpu_torch.train import lm as tlm
+    from distlearn_tpu_torch.train import optim
+    if opt.pp:
+        builder = (tlm.build_lm_pp_1f1b_step if opt.ppSchedule == "1f1b"
+                   else tlm.build_lm_pp_step)
+        pp_step = builder(mesh, *tlm.stack_blocks(whole, opt.depth),
+                          lr=opt.learningRate,
+                          num_microbatches=opt.microbatches,
+                          compute_dtype=_compute_dtype(opt),
+                          remat=bool(opt.rematMode or opt.remat),
+                          attn_impl=opt.attnImpl or None)
+
+        def step(st, tokens):
+            shared, stacked, loss = pp_step(*st, tokens)
+            return (shared, stacked), loss
+        log(f"pipeline {opt.ppSchedule}: {opt.depth // opt.pp} blocks a "
+            f"stage, {opt.microbatches} microbatches")
+        return step, lm_pp_shard(whole, mesh, opt.depth), None
+    ep_axis = "data" if opt.moeExperts else None
+    axes = dict(seq_axis="seq", tp_axis="model", ep_axis=ep_axis)
+    params = lm_shard(whole, mesh, "model", ep_axis)
+    kw = dict(axes, accum_steps=opt.accumSteps,
+              moe_balance_weight=(opt.moeBalanceWeight
+                                  if opt.moeExperts else 0.0),
+              seq_layout=opt.seqLayout)
+    moe_metrics = tlm.build_lm_moe_metrics(lm, mesh, **axes) \
+        if opt.moeExperts else None
+    if opt.zero:
+        if opt.learningRate > 0.01:
+            log(f"NOTE: --learningRate {opt.learningRate} is large for "
+                "Adam; --zero usually wants ~1e-3 (large Adam steps "
+                "diverge)")
+        tx = optim.adam(opt.learningRate)
+        log("ZeRO-1: Adam state + f32 masters sharded over the data axis "
+            "(composed with sp/tp)")
+        return (optim.build_lm_zero_mesh_step(lm, mesh, tx, seq_axis="seq",
+                                              tp_axis="model"),
+                optim.init_lm_zero_mesh_state(params, mesh, tx,
+                                              tp_axis="model"), None)
+    if opt.optimizer != "sgd":
+        tx = getattr(optim, opt.optimizer)(opt.learningRate)
+        kw = {k: v for k, v in kw.items() if k not in ("tp_axis", "ep_axis")}
+        if opt.mixed:
+            log(f"{opt.optimizer}, mixed precision: bf16 working params + "
+                "f32 masters")
+            return (optim.build_lm_mixed_optax_step(lm, mesh, tx, **kw),
+                    optim.init_lm_mixed_optax_state(params, tx), moe_metrics)
+        log(f"{opt.optimizer} via the replicated-state optimizer LM step")
+        return (optim.build_lm_optax_step(lm, mesh, tx, **kw),
+                optim.LMOptaxState(params, tx.init(params)), moe_metrics)
+    if opt.fsdp:
+        log("FSDP: params live sharded 1/dp a rank; each leaf gathered "
+            "before use, its gradient reduce-scattered")
+        return (optim.build_lm_fsdp_step(lm, mesh, whole,
+                                         lr=opt.learningRate,
+                                         accum_steps=opt.accumSteps),
+                optim.init_lm_fsdp_params(whole, mesh), None)
+    if opt.mixed:
+        log("mixed precision: bf16 working params + f32 masters")
+        return (tlm.build_lm_mixed_step(lm, mesh, lr=opt.learningRate, **kw),
+                tlm.init_lm_mixed_state(params), moe_metrics)
+    return (tlm.build_lm_step(lm, mesh, lr=opt.learningRate, **kw), params,
+            moe_metrics)
+
+
 def train(opt, rank: int = 0, init_method: str | None = None):
-    """``opt.steps`` SGD steps of this rank of the ``(dp, sp, tp)`` mesh on
-    its block of the corpus; returns ``(params, compute_dtype, corpus)``
-    with the trained params gathered whole (the working copy under
-    ``--mixed``; None where neither ``--generate`` nor ``--serve`` asks for
-    them).  The mesh's process group starts here and is destroyed before
-    returning."""
+    """``opt.steps`` steps of this rank of the ``(dp, sp, tp)`` mesh (``(dp,
+    pp)`` with ``--pp``) on its block of the corpus; returns ``(params,
+    compute_dtype, corpus)`` with the trained params gathered whole (the
+    working copy under ``--mixed``; None where neither ``--generate`` nor
+    ``--serve`` asks for them).  The mesh's process group starts here and
+    is destroyed before returning."""
     import torch.distributed as dist
 
-    from distlearn_tpu_torch.models.convert import (lm_from_jax, lm_gather,
-                                                    lm_shard)
+    from distlearn_tpu_torch.models.convert import lm_from_jax, lm_gather
     from distlearn_tpu_torch.parallel.mesh import (init_named_mesh,
                                                    local_init_method)
-    from distlearn_tpu_torch.train.lm import (build_lm_mixed_step,
-                                              build_lm_moe_metrics,
-                                              build_lm_step,
-                                              init_lm_mixed_state)
     from distlearn_tpu_torch.utils.profiling import StepTimer, trace
 
     log = root_print(rank)
     device = rank_device(torch.device(opt.device), rank)
-    mesh = init_named_mesh((opt.dp, opt.sp, opt.tp), rank=rank,
-                           device=device,
+    shape, names = ((opt.dp, opt.pp), ("data", "pipe")) if opt.pp else \
+        ((opt.dp, opt.sp, opt.tp), ("data", "seq", "model"))
+    mesh = init_named_mesh(shape, names, rank=rank, device=device,
                            init_method=init_method or local_init_method())
     try:
         lm = _model(opt)
-        ep_axis = "data" if opt.moeExperts else None
-        axes = dict(seq_axis="seq", tp_axis="model", ep_axis=ep_axis)
-        params = lm_shard(_init(lm, opt, "cpu"), mesh, "model", ep_axis)
-        kw = dict(axes, accum_steps=opt.accumSteps,
-                  moe_balance_weight=(opt.moeBalanceWeight
-                                      if opt.moeExperts else 0.0),
-                  seq_layout=opt.seqLayout)
-        if opt.mixed:
-            step = build_lm_mixed_step(lm, mesh, lr=opt.learningRate, **kw)
-            params = init_lm_mixed_state(params)
-            log("mixed precision: bf16 working params + f32 masters")
+        step, params, moe_metrics = _build_step(opt, lm, mesh,
+                                                _init(lm, opt, "cpu"), log)
+        if opt.pp:
+            log(f"mesh dp={opt.dp} pipe={opt.pp} ({mesh.backend} on "
+                f"{mesh.device}); remat "
+                f"{'full' if opt.rematMode or opt.remat else 'off'}, "
+                f"attention {opt.attnImpl or 'env default'}")
         else:
-            step = build_lm_step(lm, mesh, lr=opt.learningRate, **kw)
-        moe_metrics = build_lm_moe_metrics(lm, mesh, **axes) \
-            if opt.moeExperts else None
-        log(f"mesh dp={opt.dp} sp={opt.sp} tp={opt.tp} ({mesh.backend} on "
-            f"{mesh.device}); seq_impl={opt.seqImpl}"
-            + (f"; {opt.moeExperts} experts, top-{opt.moeTopK}"
-               if opt.moeExperts else "")
-            + f"; remat {opt.rematMode or ('full' if opt.remat else 'off')}"
-            f", attention {opt.attnImpl or 'env default'}")
+            log(f"mesh dp={opt.dp} sp={opt.sp} tp={opt.tp} ({mesh.backend} "
+                f"on {mesh.device}); seq_impl={opt.seqImpl}"
+                + (f"; {opt.moeExperts} experts, top-{opt.moeTopK}"
+                   if opt.moeExperts else "")
+                + f"; remat "
+                f"{opt.rematMode or ('full' if opt.remat else 'off')}, "
+                f"attention {opt.attnImpl or 'env default'}")
         if opt.attnImpl and opt.sp > 1 and opt.seqImpl == "ring":
             log(f"NOTE: --attnImpl {opt.attnImpl} is inert with --sp "
                 f"{opt.sp} > 1 on the ring — its blockwise path takes over")
@@ -281,11 +411,14 @@ def train(opt, rank: int = 0, init_method: str | None = None):
             toks = corpus[:, zigzag_indices(opt.sp, opt.seqLen)]
             log("zigzag sequence layout: balanced causal ring (masked "
                 "blocks never computed)")
-        d, q = mesh.axis("data"), mesh.axis("seq")
-        rows, cols = opt.batchSize // d.size, opt.seqLen // q.size
+        d = mesh.axis("data")
+        q = None if opt.pp else mesh.axis("seq")
+        rows = opt.batchSize // d.size
+        cols = opt.seqLen if q is None else opt.seqLen // q.size
+        qi = 0 if q is None else q.index
         tokens = torch.from_numpy(np.ascontiguousarray(
             toks[d.index * rows:(d.index + 1) * rows,
-                 q.index * cols:(q.index + 1) * cols])).to(mesh.device)
+                 qi * cols:(qi + 1) * cols])).to(mesh.device)
         timer = StepTimer()
         do_profile = bool(opt.profile) and opt.steps >= 6 and rank == 0
         if opt.profile and opt.steps < 6:
@@ -320,6 +453,7 @@ def train(opt, rank: int = 0, init_method: str | None = None):
         sync()
         whole = None
         if opt.generate or opt.serve:
+            ep_axis = "data" if opt.moeExperts else None
             whole = lm_from_jax(lm_gather(getattr(params, "params", params),
                                           mesh, "model", ep_axis),
                                 device=mesh.device)
@@ -385,8 +519,8 @@ def main(argv=None) -> int:
         device = resolve_device(opt.device)   # no card, no --device cpu: raise
         avail = available_nodes(device)
         if avail is not None and avail < _ranks(opt):
-            raise SystemExit(f"need {_ranks(opt)} devices (dp*sp*tp), have "
-                             f"{avail}")
+            raise SystemExit(f"need {_ranks(opt)} devices (dp*sp*tp*pp), "
+                             f"have {avail}")
         mp.start_processes(_rank_main, args=(opt, local_init_method()),
                            nprocs=_ranks(opt), start_method="spawn")
     else:

@@ -10,24 +10,17 @@
                         round, the scanned SGD step and the EASGD cycle,
                         the transformer LM's step over a dp x sp x tp mesh
                         (ring attention, Megatron tp) and its zigzag
-                        layout, and a routed MoE over an expert axis; it
-                        prints and returns the parts of the JAX dry run
-                        that wait for later ROADMAP items.
+                        layout, ZeRO-1 with Adam on that mesh, GPipe over
+                        a (data, pipe) mesh (two blocks a stage, remat),
+                        FSDP over the data axis, and a routed MoE over an
+                        expert axis: the JAX dry run's parts; it prints
+                        one line of their losses and returns them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-#: The JAX dry run's parts the port does not run yet, with their ROADMAP
-#: item.
-WAITING = {
-    "ZeRO-1 with tp and sp": "ROADMAP A11",
-    "ZeRO-3 / FSDP": "ROADMAP A11",
-    "pipeline-parallel LM (GPipe)": "ROADMAP A11",
-}
-
 
 def mesh_dims(n: int) -> tuple[int, int, int]:
     """The JAX dry run's (dp, sp, tp) for n devices: tp 2 when n is even,
@@ -63,16 +56,22 @@ def _dryrun_rank(rank: int, n: int, init_method: str, results) -> None:
 
     from distlearn_tpu_torch.data import synthetic_cifar10
     from distlearn_tpu_torch.models import cifar_convnet
-    from distlearn_tpu_torch.models.convert import lm_shard
+    from distlearn_tpu_torch.models.convert import lm_pp_shard, lm_shard
     from distlearn_tpu_torch.models.transformer import transformer_lm
     from distlearn_tpu_torch.parallel.ep import moe_ffn
     from distlearn_tpu_torch.parallel.mesh import Mesh, init_mesh, psum_raw
     from distlearn_tpu_torch.parallel.sequence import zigzag_indices
     from distlearn_tpu_torch.train import (build_ea_cycle, build_ea_steps,
-                                           build_lm_step,
+                                           build_lm_fsdp_step,
+                                           build_lm_pp_step, build_lm_step,
+                                           build_lm_zero_mesh_step,
                                            build_sgd_scan_step,
                                            build_sgd_step, build_sync_step,
-                                           init_ea_state, init_train_state)
+                                           init_ea_state,
+                                           init_lm_fsdp_params,
+                                           init_lm_zero_mesh_state,
+                                           init_train_state, optim,
+                                           stack_blocks)
     torch.set_num_threads(1)
     tree = init_mesh(rank, n, init_method=init_method, device="cpu")
     try:
@@ -120,6 +119,42 @@ def _dryrun_rank(rank: int, n: int, init_method: str, results) -> None:
                                     tp_axis="model", seq_layout="zigzag")(
                 lm_params, block(nat[:, zigzag_indices(sp, L)]))
             out["zigzag_loss"] = float(zz_l)
+        # ZeRO-1 with Adam on the same mesh: master slices over data
+        zp = lm_shard(lm.init(torch.Generator().manual_seed(5),
+                              device="cpu")[0], mesh, "model")
+        tx = optim.adam(1e-3)
+        _, z_l = build_lm_zero_mesh_step(lm, mesh, tx, seq_axis="seq",
+                                         tp_axis="model")(
+            init_lm_zero_mesh_state(zp, mesh, tx, tp_axis="model"),
+            block(tokens))
+        out["zero_loss"] = float(z_l)
+        # GPipe over a (data, pipe) mesh, two blocks a stage, remat
+        pp = max(2, n // 2)
+        dpp = max(1, n // pp)
+        pmesh = Mesh((dpp, pp), ("data", "pipe"), device="cpu",
+                     ranks=range(dpp * pp))
+        if pmesh.member:
+            depth = 2 * pp
+            lm_pp = transformer_lm(vocab=64, dim=32, depth=depth, heads=2,
+                                   max_len=16)
+            whole_pp = lm_pp.init(torch.Generator().manual_seed(2),
+                                  device="cpu")[0]
+            pdi = pmesh.axis("data").index
+            toks = np.random.RandomState(4).randint(0, 64, (2 * dpp, 16))
+            _, _, pp_l = build_lm_pp_step(
+                pmesh, *stack_blocks(whole_pp, depth), lr=0.1,
+                num_microbatches=2, remat=True)(
+                *lm_pp_shard(whole_pp, pmesh, depth),
+                torch.from_numpy(toks[2 * pdi:2 * pdi + 2]))
+            out["pp_loss"], out["pp_mesh"] = float(pp_l), (dpp, pp)
+        # FSDP over the data axis: 1/n of every divisible leaf a rank
+        fmesh = Mesh((n,), ("data",), device="cpu")
+        fwhole = lm.init(torch.Generator().manual_seed(6), device="cpu")[0]
+        ftoks = np.random.RandomState(9).randint(0, 64, (n, L))
+        _, fs_l = build_lm_fsdp_step(lm, fmesh, fwhole, lr=0.1)(
+            init_lm_fsdp_params(fwhole, fmesh),
+            torch.from_numpy(ftoks[rank:rank + 1]))
+        out["fsdp_loss"] = float(fs_l)
         emesh = Mesh((n,), ("expert",), device="cpu")
         rnge = np.random.RandomState(3)
         experts = torch.from_numpy(rnge.randn(n, 8, 8).astype("float32")
@@ -137,8 +172,8 @@ def _dryrun_rank(rank: int, n: int, init_method: str, results) -> None:
 
 def dryrun_multichip(n_devices: int) -> dict:
     """Run the port's data-parallel steps on ``n_devices`` gloo ranks on
-    the CPU; print one line with their losses and what waits, and return
-    them as a dict (``"waiting"``: part -> ROADMAP item)."""
+    the CPU; print one line with their losses and return them as a
+    dict."""
     import torch.multiprocessing as mp
 
     from distlearn_tpu_torch.parallel.mesh import local_init_method
@@ -146,7 +181,7 @@ def dryrun_multichip(n_devices: int) -> dict:
     mp.start_processes(_dryrun_rank,
                        args=(n_devices, local_init_method(), results),
                        nprocs=n_devices, start_method="spawn")
-    out = {**results.get(), "waiting": dict(WAITING)}
+    out = results.get()
     fmt = lambda v: ", ".join(f"{x:.4f}" for x in v)
     dp, sp, tp = out["lm_mesh"]
     zz = f"zigzag-sp loss {out['zigzag_loss']:.4f}" \
@@ -155,7 +190,9 @@ def dryrun_multichip(n_devices: int) -> dict:
           f"ea loss {out['ea_loss']:.4f}, sgd scan losses "
           f"[{fmt(out['scan_losses'])}], ea cycle losses "
           f"[{fmt(out['cycle_losses'])}], lm loss {out['lm_loss']:.4f} "
-          f"(dp={dp} sp={sp} tp={tp}), {zz}, moe-ep sum "
-          f"{out['moe_sum']:.4f} ({n_devices} experts); waiting: "
-          + "; ".join(f"{k} ({v})" for k, v in WAITING.items()), flush=True)
+          f"(dp={dp} sp={sp} tp={tp}), {zz}, zero+tp+sp loss "
+          f"{out['zero_loss']:.4f}, zero3-fsdp loss {out['fsdp_loss']:.4f}, "
+          f"pp-lm loss {out['pp_loss']:.4f} (dp={out['pp_mesh'][0]} "
+          f"pipe={out['pp_mesh'][1]} x 2 blocks/stage, remat), moe-ep sum "
+          f"{out['moe_sum']:.4f} ({n_devices} experts)", flush=True)
     return out

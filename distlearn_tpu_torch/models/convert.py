@@ -6,8 +6,12 @@ batchnorm scale/bias and running statistics) keeps its shape.  The
 transformer LM keeps the JAX layouts unchanged (:func:`lm_from_jax`,
 :func:`lm_to_jax`); :func:`lm_shard` cuts a whole LM tree to one rank's
 shard over a :class:`~distlearn_tpu_torch.parallel.mesh.Mesh` and
-:func:`lm_gather` puts the shards back together.  The JAX side is nested dicts of numpy arrays
-(``jax.device_get`` of its pytrees), so this module needs no JAX.
+:func:`lm_gather` puts the shards back together; :func:`lm_pp_shard`,
+:func:`fsdp_shard` and :func:`lm_zero_from_jax` carry the pipeline
+stages, the FSDP shards and the ZeRO-1 state across (each with its
+inverse).  The JAX side is nested dicts of numpy arrays (``jax.device_get``
+of its pytrees; optax states are named tuples, walked as tuples), so this
+module needs no JAX.
 
 :data:`CONVNET_WIRE` is the convnets' layout on the AsyncEA wire: the JAX
 package's, so that a JAX peer and a port peer exchange the same leaves.
@@ -149,6 +153,118 @@ def lm_gather(shard, mesh, tp_axis: str | None = None,
         return t
     return lm_to_jax(_specs_walk(shard, param_specs(shard, tp_axis, ep_axis),
                                  leaf))
+
+
+def lm_pp_shard(params, mesh, depth: int, pipe_axis: str = "pipe",
+                device=None, dtype=None):
+    """``(shared, stacked)`` of this rank's pipeline stage from a whole LM
+    tree (JAX's nested numpy dicts or the port's tensors, per-block
+    layout): :func:`~distlearn_tpu_torch.train.lm.stack_blocks` of it, and
+    of ``stacked`` only the stage's ``k = depth/S`` blocks, rows
+    ``[s*k, (s+1)*k)`` for pipe rank ``s``.  Tensors on ``device`` (the
+    mesh's by default), cast to ``dtype`` when given."""
+    from distlearn_tpu_torch.train.lm import stack_blocks
+    device = mesh.device if device is None else device
+    pipe = mesh.axis(pipe_axis)
+    k = depth // pipe.size
+    shared, stacked = stack_blocks(lm_from_jax(params), depth)
+    stage = _walk(stacked, lambda _k, t: t[pipe.index * k:
+                                           (pipe.index + 1) * k])
+    move = lambda _k, t: t.contiguous().to(device=device,  # noqa: E731
+                                           dtype=dtype)
+    return _walk(shared, move), _walk(stage, move)
+
+
+def lm_pp_gather(shared, stacked, mesh, depth: int,
+                 pipe_axis: str = "pipe"):
+    """The inverse of :func:`lm_pp_shard`: every rank of the pipe axis
+    calls it (collective) and gets the whole per-block tree as nested
+    dicts of numpy arrays (bfloat16 leaves as float32)."""
+    from distlearn_tpu_torch.parallel.mesh import all_gather_raw
+    from distlearn_tpu_torch.train.lm import unstack_blocks
+    pipe = mesh.axis(pipe_axis)
+    whole = _walk(stacked, lambda _k, t: all_gather_raw(t, pipe, 0))
+    return lm_to_jax(unstack_blocks(shared, whole, depth))
+
+
+def fsdp_shard(params, mesh, data_axis: str = "data", device=None,
+               dtype=None):
+    """This rank's FSDP shards of a whole tree: every leaf cut along the
+    dimension ``train/optim.py::fsdp_param_specs`` names into the data
+    axis's size equal blocks, block ``axis_index`` kept (replicated leaves
+    whole)."""
+    from distlearn_tpu_torch.train.optim import _fsdp_dims
+    from distlearn_tpu_torch.utils.tree import (tree_flatten,
+                                                tree_unflatten)
+    device = mesh.device if device is None else device
+    data = mesh.axis(data_axis)
+    leaves, treedef = tree_flatten(lm_from_jax(params))
+    out = []
+    for t, d in zip(leaves, _fsdp_dims(params, data.size)):
+        if d is not None:
+            n = t.shape[d] // data.size
+            t = t.narrow(d, data.index * n, n)
+        out.append(t.contiguous().to(device=device, dtype=dtype))
+    return tree_unflatten(treedef, out)
+
+
+def fsdp_gather(shards, mesh, params_template, data_axis: str = "data"):
+    """The inverse of :func:`fsdp_shard` (collective over the data axis):
+    the whole tree as nested dicts of numpy arrays; ``params_template``
+    (the whole tree, shapes only) names each leaf's sharded dimension."""
+    from distlearn_tpu_torch.parallel.mesh import all_gather_raw
+    from distlearn_tpu_torch.train.optim import _fsdp_dims
+    from distlearn_tpu_torch.utils.tree import (tree_flatten,
+                                                tree_unflatten)
+    data = mesh.axis(data_axis)
+    leaves, treedef = tree_flatten(shards)
+    dims = _fsdp_dims(params_template, data.size)
+    return lm_to_jax(tree_unflatten(treedef, [
+        t if d is None else all_gather_raw(t, data, d)
+        for t, d in zip(leaves, dims)]))
+
+
+def lm_zero_from_jax(state, tx, index, params=None, device="cpu"):
+    """A JAX ``LMZeroState`` (numpy leaves, ``jax.device_get`` of it) as
+    one rank's port :class:`~distlearn_tpu_torch.train.optim.LMZeroState`:
+    the master row ``[r]`` and the optimizer state's rows (``count``,
+    ``mu``, ``nu``: leaf order, the port's ``tx.init`` giving the
+    structure) for ``index = r`` on a data-only tree, ``(d, t)`` on the
+    (data, seq, model) mesh.  ``params`` is the rank's working params
+    (default: the JAX params whole, as on a data-only tree; on the mesh
+    pass their ``lm_shard``)."""
+    from distlearn_tpu_torch.train.optim import LMZeroState
+    from distlearn_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
+                                                tree_unflatten)
+
+    def row(a, dtype=None):
+        return torch.from_numpy(np.array(np.asarray(a)[index])).to(
+            device=device, dtype=dtype)
+    master = row(state.master, torch.float32)
+    leaves, treedef = tree_flatten(tx.init(master))
+    opt = tree_unflatten(treedef, [
+        row(a, t.dtype) for a, t in zip(tree_leaves(state.opt_state),
+                                        leaves)])
+    if params is None:
+        params = lm_from_jax(state.params, device=device)
+    return LMZeroState(params, master, opt)
+
+
+def lm_zero_to_jax(states, shape=None):
+    """The inverse of :func:`lm_zero_from_jax` over every rank's state
+    (``states`` in row-major rank order of ``shape``, ``(n,)`` by
+    default): ``(master, opt_leaves)`` as numpy, the master ``[*shape,
+    chunk]`` and each optimizer leaf stacked the same way, in JAX's leaf
+    order."""
+    from distlearn_tpu_torch.utils.tree import tree_leaves
+    shape = (len(states),) if shape is None else tuple(shape)
+
+    def stack(ts):
+        a = np.stack([t.detach().cpu().numpy() for t in ts])
+        return a.reshape(shape + a.shape[1:])
+    opt = [stack(col) for col in zip(*(tree_leaves(s.opt_state)
+                                       for s in states))]
+    return stack([s.master for s in states]), opt
 
 
 class WireLayout(NamedTuple):

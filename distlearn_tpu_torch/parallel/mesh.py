@@ -1,9 +1,10 @@
 """The communication layer — counterpart of ``distlearn_tpu/parallel/mesh.py``
 (the reference's torch-ipc ``tree``: ``tree.allReduce``, ``tree.scatter``,
 ``tree.nodeIndex``, ``tree.numNodes``; examples/mnist.lua:16), and of the
-JAX package's named ``Mesh`` with ``lax.psum``, ``lax.ppermute`` and
-``lax.all_to_all`` (:class:`Mesh`, :func:`psum`, :func:`ppermute`,
-:func:`all_to_all`).
+JAX package's named ``Mesh`` with ``lax.psum``, ``lax.ppermute``,
+``lax.all_to_all``, ``lax.all_gather`` and ``lax.psum_scatter``
+(:class:`Mesh`, :func:`psum`, :func:`ppermute`, :func:`all_to_all`,
+:func:`all_gather`, :func:`psum_scatter_raw`).
 
 In the JAX package a node is a device of a mesh and one SPMD program drives
 them all.  Here a node is a process of a ``torch.distributed`` process group
@@ -154,7 +155,7 @@ DEFAULT_AXES = ("data", "seq", "model")
 class CollectiveStats:
     """Calls, bytes and (when the mesh is ``timed``) host seconds of the
     mesh's collectives, by kind (``psum``, ``ppermute``, ``all_to_all``,
-    ``all_gather``)."""
+    ``all_gather``, ``psum_scatter``)."""
 
     def __init__(self):
         self.reset()
@@ -476,6 +477,40 @@ def all_gather_raw(x: torch.Tensor, axis: MeshAxis, dim: int
     return torch.cat(parts, dim=dim)
 
 
+def psum_scatter_raw(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """``lax.psum_scatter(x, axis, scatter_dimension=0, tiled=True)``: the
+    sum of ``x`` over the ranks of ``axis``, of which this rank keeps
+    block ``axis_index`` of ``n`` equal blocks along dim 0.  NCCL runs
+    ``reduce_scatter_tensor``; gloo, which has no reduce-scatter, an
+    allreduce and this rank's slice (on the card through pinned host
+    memory, copying back only the slice).  No autograd."""
+    n = axis.size
+    if x.shape[0] % n:
+        raise ValueError(f"psum_scatter over {axis.name!r}: dim 0 of shape "
+                         f"{tuple(x.shape)} does not split into {n} blocks")
+    rows = x.shape[0] // n
+    x = x.detach().contiguous()
+    if n == 1:
+        return x.clone()
+    _check(axis, x)
+    mesh = axis.mesh
+    mine = slice(axis.index * rows, (axis.index + 1) * rows)
+
+    def run():
+        if mesh.backend == "nccl":
+            out = x.new_empty((rows,) + tuple(x.shape[1:]))
+            dist.reduce_scatter_tensor(out, x, group=axis.group)
+            return out
+        if mesh.route == "staged":
+            buf = _host(x)
+            dist.all_reduce(buf, group=axis.group)
+            return buf[mine].to(x.device, non_blocking=True)
+        out = x.clone()
+        dist.all_reduce(out, group=axis.group)
+        return out[mine].clone()
+    return _timed(axis, "psum_scatter", x.numel() * x.element_size(), run)
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes):
@@ -512,6 +547,18 @@ class _AllToAll(torch.autograd.Function):
             None, None, None
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim % x.dim()
+        return all_gather_raw(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = psum_scatter_raw(g.movedim(ctx.dim, 0), ctx.axis)
+        return g.movedim(0, ctx.dim), None, None
+
+
 def psum(x: torch.Tensor, axes) -> torch.Tensor:
     """``lax.psum`` over one axis or several; its gradient is the psum of
     the cotangent, JAX's transpose under ``shard_map``."""
@@ -535,3 +582,13 @@ def all_to_all(x: torch.Tensor, axis: MeshAxis, split_axis: int,
     if axis.size == 1:
         return x
     return _AllToAll.apply(x, axis, split_axis, concat_axis)
+
+
+def all_gather(x: torch.Tensor, axis: MeshAxis, dim: int) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)`` (see
+    :func:`all_gather_raw`); the gradient is its transpose, the psum of
+    the cotangent scattered back along ``dim`` (:func:`psum_scatter_raw`):
+    each rank receives the summed gradient of its own block."""
+    if axis.size == 1:
+        return x
+    return _AllGather.apply(x, axis, dim)

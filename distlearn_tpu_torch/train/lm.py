@@ -14,13 +14,15 @@ engages them), the gradient sums of the JAX step, and the SGD update.
   kernel B1 (off by default, as in JAX).
 * :func:`build_lm_mixed_step` — bfloat16 working params, float32 masters.
 * :func:`build_lm_moe_metrics` — the MoE routing-health metrics.
+* :func:`build_lm_pp_step`, :func:`build_lm_pp_1f1b_step` — pipeline
+  parallelism over a ``(data, pipe)`` mesh, GPipe and 1F1B
+  (``parallel/pp.py``), on the :func:`stack_blocks` layout.
 * :func:`build_lm_ea_steps` — EASGD (AllReduceEA) for the LM over the data
   axis: collective-free local steps and the elastic round (kernel B2 when
   fused).
 
-The pipeline steps (``build_lm_pp_step``, ``build_lm_pp_1f1b_step``) wait
-for ROADMAP A11 and raise ``NotImplementedError``.  No step waits on the
-host: losses stay on the device.
+The optimizers' LM steps (optax, ZeRO-1, FSDP) are in ``train/optim.py``.
+No step waits on the host: losses stay on the device.
 """
 
 from __future__ import annotations
@@ -31,21 +33,21 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from distlearn_tpu_torch.models.core import Model
-from distlearn_tpu_torch.models.transformer import (lm_loss, param_specs,
+from torch.utils.checkpoint import checkpoint
+
+from distlearn_tpu_torch.models.transformer import (_rmsnorm, block_apply,
+                                                    lm_loss, param_specs,
                                                     stack_block_params,
                                                     unstack_block_params)
 from distlearn_tpu_torch.ops import flatten as flatten_lib
 from distlearn_tpu_torch.ops import fused_update
 from distlearn_tpu_torch.parallel.mesh import Mesh, MeshTree, psum_raw
+from distlearn_tpu_torch.parallel.pp import pipeline_1f1b, pipeline_apply
 from distlearn_tpu_torch.train.trainer import apply_elastic_round, local_update
 from distlearn_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
                                             tree_map, tree_unflatten)
 
 PyTree = Any
-
-_A11 = ("waits for ROADMAP A11 (the pipeline-parallel LM steps, GPipe and "
-        "1F1B)")
-
 
 def as_mesh(mesh, data_axis: str = "data") -> Mesh:
     """A :class:`Mesh` as it is; a :class:`MeshTree` as the one-axis mesh
@@ -263,14 +265,180 @@ def build_lm_moe_metrics(model: Model, mesh, seq_axis: str | None = None,
     return metrics
 
 
-def build_lm_pp_step(*args, **kwargs):
-    """GPipe pipeline step: waits for ROADMAP A11."""
-    raise NotImplementedError(f"build_lm_pp_step {_A11}")
+# ---------------------------------------------------------------------------
+# Pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def _pp_checks(mesh: Mesh, shared_template, stacked_template, pipe_axis):
+    n_stages = as_mesh(mesh).axis_size(pipe_axis)
+    depth = tree_leaves(stacked_template)[0].shape[0]
+    if depth % n_stages:
+        raise ValueError(
+            f"stacked blocks hold {depth} layers but the {pipe_axis!r} "
+            f"axis has {n_stages} devices — depth must divide into an "
+            "equal number of blocks per stage")
+    for need in ("embed", "pos", "out_norm"):
+        if need not in shared_template:
+            raise ValueError(f"shared params missing {need!r} — pass the "
+                             "(shared, stacked) pair from stack_blocks()")
 
 
-def build_lm_pp_1f1b_step(*args, **kwargs):
-    """1F1B pipeline step: waits for ROADMAP A11."""
-    raise NotImplementedError(f"build_lm_pp_1f1b_step {_A11}")
+def _stage_fn(cd, remat: bool, attn_impl) -> Callable:
+    """``stage(bp_stack, h)``: this stage's k blocks in order, each
+    checkpointed where a gradient is recorded when ``remat``."""
+    def one(bp, h):
+        return block_apply(bp, h, cd, attn_impl=attn_impl)
+
+    def stage(bp_stack, h):
+        k = tree_leaves(bp_stack)[0].shape[0]
+        for i in range(k):
+            bp = tree_map(lambda a, i=i: a[i], bp_stack)
+            if remat and torch.is_grad_enabled():
+                h = checkpoint(one, bp, h, use_reentrant=False)
+            else:
+                h = one(bp, h)
+        return h
+    return stage
+
+
+def _head_nll(out_norm, embed, out_mb, toks, cd, denom) -> torch.Tensor:
+    """A microbatch's share of the global batch-mean next-token loss."""
+    hh = _rmsnorm(out_norm, out_mb)
+    logits = (hh @ embed.T.to(cd)).float()
+    lp = torch.log_softmax(logits[:, :-1], dim=-1)
+    nll = -lp.gather(-1, toks[:, 1:, None])[..., 0]
+    return nll.sum() / denom
+
+
+def _pp_tokens(mesh, tokens, M):
+    tokens = _tokens_on(mesh, tokens).long()
+    B, L = tokens.shape
+    if B % M:
+        raise ValueError(f"per-replica batch {B} not divisible into "
+                         f"{M} microbatches")
+    return tokens, tokens.reshape(M, B // M, L)
+
+
+def _pp_update(mesh, data_axis, pipe_axis, lr, shared, stacked, g_shared,
+               g_blk, local_share):
+    """JAX's reassembly: shared grads summed over (data, pipe) (each pipe
+    rank holds the part it touched), block grads over data, both divided
+    by dp; SGD; the loss summed over pipe and averaged over data."""
+    data, pipe = mesh.axis(data_axis), mesh.axis(pipe_axis)
+    dp = data.size
+    out = []
+    for tree, grads, axes in ((shared, g_shared, (data, pipe)),
+                              (stacked, g_blk, (data,))):
+        leaves, treedef = tree_flatten(grads)
+        summed = [g / dp if dp > 1 else g
+                  for g in _psum_leaves(leaves, axes)]
+        out.append(tree_map(lambda p, g: fused_update.sgd_plain(p, g, lr),
+                            tree, tree_unflatten(treedef, summed)))
+    loss = _mean(psum_raw(local_share, pipe), (data,))
+    return out[0], out[1], loss
+
+
+def _requires_grad(tree: PyTree) -> PyTree:
+    return tree_map(lambda p: p.detach().requires_grad_(), tree)
+
+
+def build_lm_pp_step(mesh: Mesh, shared_template, stacked_template,
+                     lr: float, num_microbatches: int, compute_dtype=None,
+                     data_axis: str = "data", pipe_axis: str = "pipe",
+                     remat: bool = False, unroll: bool | int = False,
+                     attn_impl: str | None = None) -> Callable:
+    """Pipeline-parallel LM step over a ``(data, pipe)`` :class:`Mesh`, the
+    GPipe schedule: ``step(shared, stacked, tokens) -> (shared, stacked,
+    loss)``.
+
+    ``shared_template``/``stacked_template`` are the whole
+    :func:`stack_blocks` pair (for the depth and key checks; their shapes
+    only).  ``shared`` (embed, pos, out_norm) is replicated on every rank,
+    ``stacked`` this stage's ``k = depth/S`` contiguous blocks (leaves
+    ``[k, ...]``: rows ``[s*k, (s+1)*k)`` of the stacked tree on pipe rank
+    ``s``), ``tokens`` this data rank's ``[B, L]`` rows, ``B`` divisible
+    into ``num_microbatches``.  The stage runs its k blocks in order,
+    each checkpointed (``torch.utils.checkpoint``) with ``remat``.
+    Microbatches stream through :func:`~distlearn_tpu_torch.parallel.pp.
+    pipeline_apply`, each one's loss share folded on the last rank as it
+    emerges; autograd through the ticks is the GPipe backward.  Shared
+    gradients are summed over (data, pipe) and block gradients over data,
+    both divided by dp; the update is SGD.  ``unroll`` has no effect (no
+    scan).  ``attn_impl`` picks the blocks' attention (``None``: the
+    environment's default, the only choice the JAX step has)."""
+    _pp_checks(mesh, shared_template, stacked_template, pipe_axis)
+    pipe = mesh.axis(pipe_axis)
+
+    def step(shared, stacked, tokens):
+        M = num_microbatches
+        tokens, toks_mb = _pp_tokens(mesh, tokens, M)
+        B, L = tokens.shape
+        sh, blk = _requires_grad(shared), _requires_grad(stacked)
+        cd = compute_dtype or shared["embed"].dtype
+        x = sh["embed"][tokens].to(cd) + sh["pos"][:L].to(cd)[None]
+
+        def consume(out_mb, m):
+            return _head_nll(sh["out_norm"], sh["embed"], out_mb, toks_mb[m],
+                             cd, B * (L - 1))
+
+        local_share = pipeline_apply(_stage_fn(cd, remat, attn_impl), blk,
+                                     x, M, pipe, consume_fn=consume,
+                                     unroll=unroll)
+        leaves, treedef = tree_flatten((sh, blk))
+        grads = torch.autograd.grad(local_share, leaves, allow_unused=True)
+        g_sh, g_blk = tree_unflatten(treedef, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+        return _pp_update(mesh, data_axis, pipe_axis, lr, shared, stacked,
+                          g_sh, g_blk, local_share.detach())
+
+    return step
+
+
+def build_lm_pp_1f1b_step(mesh: Mesh, shared_template, stacked_template,
+                          lr: float, num_microbatches: int,
+                          compute_dtype=None, data_axis: str = "data",
+                          pipe_axis: str = "pipe", remat: bool = False,
+                          attn_impl: str | None = None) -> Callable:
+    """:func:`build_lm_pp_step` with the 1F1B schedule
+    (:func:`~distlearn_tpu_torch.parallel.pp.pipeline_1f1b`): the same
+    contract, sharding and gradient sums, but each microbatch's backward
+    starts in the tick it leaves the last stage, so a stage holds at most
+    ``2S - 1`` microbatch inputs instead of GPipe's residuals of all
+    ``M``.  The embedding's gradient comes back through ``g_x`` (rank 0),
+    the head's through the explicit consume params (the last rank)."""
+    _pp_checks(mesh, shared_template, stacked_template, pipe_axis)
+    pipe = mesh.axis(pipe_axis)
+
+    def step(shared, stacked, tokens):
+        M = num_microbatches
+        tokens, toks_mb = _pp_tokens(mesh, tokens, M)
+        B, L = tokens.shape
+        cd = compute_dtype or shared["embed"].dtype
+        emb = _requires_grad({"embed": shared["embed"],
+                              "pos": shared["pos"]})
+        x = emb["embed"][tokens].to(cd) + emb["pos"][:L].to(cd)[None]
+
+        def consume(cp, out_mb, m):
+            return _head_nll(cp["out_norm"], cp["embed"], out_mb, toks_mb[m],
+                             cd, B * (L - 1))
+
+        cp = {"out_norm": shared["out_norm"], "embed": shared["embed"]}
+        local_share, g_blk, g_cp, g_x = pipeline_1f1b(
+            _stage_fn(cd, remat, attn_impl), stacked, consume, cp,
+            x.detach(), M, pipe)
+        if pipe.index == 0:      # g_x is zeros on every other rank
+            g_embed, g_pos = torch.autograd.grad(
+                x, [emb["embed"], emb["pos"]], g_x.to(x.dtype))
+        else:
+            g_embed, g_pos = (torch.zeros_like(shared["embed"]),
+                              torch.zeros_like(shared["pos"]))
+        g_sh = {"embed": g_embed + g_cp["embed"], "pos": g_pos,
+                "out_norm": g_cp["out_norm"]}
+        return _pp_update(mesh, data_axis, pipe_axis, lr, shared, stacked,
+                          g_sh, g_blk, local_share)
+
+    return step
 
 
 def stack_blocks(params: PyTree, depth: int) -> tuple[PyTree, PyTree]:

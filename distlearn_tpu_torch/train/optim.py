@@ -1,6 +1,6 @@
-"""General optimizers in the replicated data-parallel step, and ZeRO-1 —
-the convnet half of ``distlearn_tpu/train/optim.py`` (the reference's
-``optim`` library slot, SURVEY.md §2b).
+"""General optimizers in the replicated data-parallel step, ZeRO-1 and FSDP
+— counterpart of ``distlearn_tpu/train/optim.py`` (the reference's
+``optim`` library slot, SURVEY.md §2b), the convnet steps and the LM's.
 
 The JAX package drops any optax ``GradientTransformation`` into its fused
 step.  The port has its own small optax-shaped transformations,
@@ -22,6 +22,20 @@ need an update over a bare flat slice.
   (which has no reduce-scatter) an allreduce and this rank's slice; the
   group's backend picks the route.  One ``all_gather_into_tensor``
   reassembles the parameters.
+
+The LM's steps (``tokens`` this rank's block of the global batch, ``tx``
+one of the transformations above):
+
+* :func:`build_lm_optax_step`, :func:`build_lm_mixed_optax_step` —
+  replicated optimizer state over a ``(data, seq)`` mesh, optionally
+  bfloat16 working params over float32 masters.
+* :func:`build_lm_zero_step` — ZeRO-1 over the data axis with float32
+  master slices (``psum_scatter_raw`` of the packed gradient, the update
+  on the slice, one all-gather); :func:`build_lm_zero_mesh_step` composes
+  it with tp and seq over a ``(data, seq, model)`` mesh.
+* :func:`build_lm_fsdp_step` — FSDP: the params stored 1/dp a rank
+  (:func:`fsdp_param_specs`), each leaf gathered by the autograd
+  ``all_gather`` before use, its gradient reduce-scattered back.
 """
 
 from __future__ import annotations
@@ -36,11 +50,15 @@ from distlearn_tpu_torch.models.core import Model
 from distlearn_tpu_torch.ops import flatten as flatten_lib
 from distlearn_tpu_torch.ops.fused_update import cast_scalar
 from distlearn_tpu_torch.parallel import allreduce_sgd
-from distlearn_tpu_torch.parallel.mesh import MeshTree
+from distlearn_tpu_torch.parallel.mesh import (MeshTree, all_gather,
+                                               all_gather_raw, psum_raw,
+                                               psum_scatter_raw)
 from distlearn_tpu_torch.train.trainer import (_timed, init_common,
                                                value_and_grad)
 from distlearn_tpu_torch.utils import metrics as metrics_lib
-from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
+from distlearn_tpu_torch.ops import fused_update
+from distlearn_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
+                                            tree_map, tree_unflatten)
 
 PyTree = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -459,3 +477,354 @@ def build_zero_optax_step(model: Model, tree: MeshTree,
                 mean_loss)
 
     return _timed(step, "zero_optax")
+
+
+# ---------------------------------------------------------------------------
+# The LM's optimizers: optax, mixed optax, ZeRO-1 (data and mesh), FSDP
+# ---------------------------------------------------------------------------
+
+class LMZeroState(NamedTuple):
+    """ZeRO-1 state for the LM: ``params`` this rank's working params in
+    the model dtype (float32, bfloat16 or a mix); ``master`` its ``1/n``
+    slice (``[chunk]``, float32) of the padded packed params, the copy the
+    optimizer updates; ``opt_state`` the optimizer state over that slice.
+    The JAX state's ``[n, chunk]`` master and stacked ``opt_state`` rows
+    are this rank's (``models/convert.py::lm_zero_from_jax``)."""
+    params: PyTree
+    master: torch.Tensor
+    opt_state: PyTree
+
+
+def _lm_zero_layout(params: PyTree, n: int):
+    """``(FlatSpec, padded length rounded up to n, per-rank chunk)`` of the
+    packed params (JAX's ``flatten.make_spec`` padding)."""
+    for leaf in tree_leaves(params):
+        if not leaf.dtype.is_floating_point:
+            raise ValueError(
+                f"ZeRO master copy requires floating leaves, got "
+                f"{leaf.dtype}")
+    spec = flatten_lib.make_spec(params)
+    total = ((spec.padded + n - 1) // n) * n
+    return spec, total, total // n
+
+
+def _data_axis(mesh, data_axis: str):
+    from distlearn_tpu_torch.train.lm import as_mesh
+    return as_mesh(mesh, data_axis).axis(data_axis)
+
+
+def init_lm_zero_state(params: PyTree, tree, tx: GradientTransformation,
+                       data_axis: str = "data") -> LMZeroState:
+    """This rank's slice of the float32 master and its optimizer state over
+    the data axis (``tree``: a :class:`MeshTree` or a :class:`Mesh`).
+    ``tx`` must be elementwise (:func:`_check_elementwise`)."""
+    ax = _data_axis(tree, data_axis)
+    _check_elementwise(tx, ax.size)
+    spec, total, chunk = _lm_zero_layout(params, ax.size)
+    mine = _pack_padded(spec, params, total)[ax.index * chunk:
+                                             (ax.index + 1) * chunk].clone()
+    return LMZeroState(params, mine, tx.init(mine))
+
+
+def _zero_update(st: LMZeroState, spec, total, flat_g, data, tx):
+    """Reduce-scatter the packed gradient over ``data`` (divided by its
+    size), ``tx.update`` on this rank's slice against its master, one
+    all-gather, and the params unpacked in each leaf's dtype."""
+    gslice = psum_scatter_raw(flat_g, data) / cast_scalar(data.size, _F32)
+    updates, opt_state = tx.update(gslice, st.opt_state, st.master)
+    master = st.master + updates
+    params = flatten_lib.unpack(spec, all_gather_raw(master, data, 0))
+    return LMZeroState(params, master, opt_state)
+
+
+def build_lm_zero_step(model: Model, tree, tx: GradientTransformation,
+                       moe_balance_weight: float = 0.0,
+                       data_axis: str = "data") -> Callable:
+    """ZeRO-1 for the transformer LM over the data axis: ``step(st,
+    tokens) -> (st, loss)`` on :class:`LMZeroState`, ``tokens`` this
+    rank's rows.  The packed local gradients (float32) are
+    reduce-scattered, the elementwise ``tx.update`` runs on this rank's
+    slice against its float32 master, one all-gather reassembles the
+    packed params, and unpacking casts each leaf back to its dtype: bf16
+    params train against float32 masters.  ``loss`` is the mean over the
+    data axis.  The (data, seq, model) variant is
+    :func:`build_lm_zero_mesh_step`."""
+    from distlearn_tpu_torch.train.lm import _mean, _tokens_on, _value_and_grad
+    data = _data_axis(tree, data_axis)
+
+    def step(st: LMZeroState, tokens):
+        spec, total, _ = _lm_zero_layout(st.params, data.size)
+        loss, grads = _value_and_grad(
+            model, st.params, _tokens_on(data.mesh, tokens),
+            moe_balance_weight=moe_balance_weight)
+        st = _zero_update(st, spec, total, _pack_padded(spec, grads, total),
+                          data, tx)
+        return st, _mean(loss, (data,))
+
+    return _timed(step, "lm_zero")
+
+
+class LMOptaxState(NamedTuple):
+    """Optimizer training of the LM with replicated state: every rank
+    applies the same summed gradient.  Start from ``LMOptaxState(params,
+    tx.init(params))``."""
+    params: PyTree
+    opt_state: PyTree
+
+
+def _optax_lm_step(model, mesh, tx, data_axis, seq_axis, accum_steps,
+                   moe_balance_weight, seq_layout, grad_dtype, mixed):
+    from distlearn_tpu_torch.train.lm import (_plan, _reduce_grads,
+                                              _step_loss, _tokens_on,
+                                              lm_local_grads)
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    plan = _plan(mesh, data_axis, seq_axis, None, None, seq_layout,
+                 moe_balance_weight)
+
+    def step(st, tokens):
+        local_loss, grads = lm_local_grads(
+            model, st.params, _tokens_on(plan.mesh, tokens),
+            accum_steps=accum_steps, **plan.kw)
+        grads = _reduce_grads(plan, grads, tree_map(lambda _: (), grads),
+                              None, dtype=grad_dtype)
+        target = st.master if mixed else st.params
+        updates, opt_state = tx.update(grads, st.opt_state, target)
+        new = tree_map(lambda p, u: p + u.to(p.dtype), target, updates)
+        loss = _step_loss(plan, local_loss)
+        if mixed:
+            params = tree_map(lambda p, m: m.to(p.dtype), st.params, new)
+            return LMMixedOptaxState(params, new, opt_state), loss
+        return LMOptaxState(new, opt_state), loss
+
+    return step
+
+
+def build_lm_optax_step(model: Model, mesh, tx: GradientTransformation,
+                        data_axis: str = "data",
+                        seq_axis: str | None = None, accum_steps: int = 1,
+                        moe_balance_weight: float = 0.0,
+                        seq_layout: str = "contig") -> Callable:
+    """Any of the optimizers on the LM over a ``(data, seq)`` mesh (or a
+    data-only :class:`MeshTree`): ``step(st, tokens) -> (st, loss)`` on
+    :class:`LMOptaxState`, both replicated.  The gradients of
+    :func:`~distlearn_tpu_torch.train.lm.lm_local_grads` are summed over
+    data and seq and divided by dp, then ``tx.update``.  No tp: sharded
+    leaves would need sharded state (:func:`build_lm_zero_mesh_step`).
+    MoE models run with every expert on the rank; ``moe_balance_weight``
+    adds the balance loss; ``accum_steps`` as in ``build_lm_step``."""
+    return _timed(_optax_lm_step(model, mesh, tx, data_axis, seq_axis,
+                                 accum_steps, moe_balance_weight, seq_layout,
+                                 None, mixed=False), "lm_optax")
+
+
+class LMMixedOptaxState(NamedTuple):
+    """Mixed-precision optimizer training of the LM: bf16 working
+    ``params`` (what the matmuls read), the float32 ``master`` the
+    optimizer walks, and the optimizer state over the master.  Invariant:
+    ``params == master.to(params dtype)``, bit for bit."""
+    params: PyTree
+    master: PyTree
+    opt_state: PyTree
+
+
+def init_lm_mixed_optax_state(params: PyTree, tx: GradientTransformation,
+                              param_dtype=torch.bfloat16
+                              ) -> LMMixedOptaxState:
+    """Master := the float32 init, working copy := its ``param_dtype``
+    cast, optimizer state over the master."""
+    return LMMixedOptaxState(tree_map(lambda p: p.to(param_dtype), params),
+                             params, tx.init(params))
+
+
+def build_lm_mixed_optax_step(model: Model, mesh, tx: GradientTransformation,
+                              data_axis: str = "data",
+                              seq_axis: str | None = None,
+                              accum_steps: int = 1,
+                              moe_balance_weight: float = 0.0,
+                              grad_dtype=torch.float32,
+                              seq_layout: str = "contig") -> Callable:
+    """:func:`build_lm_optax_step` on :class:`LMMixedOptaxState`: the
+    working copy's gradients are cast to ``grad_dtype`` before the sums,
+    ``tx.update`` runs against the float32 master, and the new master is
+    cast into the working copy."""
+    return _timed(_optax_lm_step(model, mesh, tx, data_axis, seq_axis,
+                                 accum_steps, moe_balance_weight, seq_layout,
+                                 grad_dtype, mixed=True), "lm_mixed_optax")
+
+
+def _fsdp_dims(params: PyTree, n: int) -> list:
+    """Per leaf (flatten order), the dimension :func:`fsdp_param_specs`
+    shards over ``n`` ranks, or None: the largest evenly divisible one,
+    the first of equal sizes."""
+    dims = []
+    for leaf in tree_leaves(params):
+        shape = tuple(leaf.shape)
+        for i, _ in sorted(enumerate(shape), key=lambda t: -t[1]):
+            if shape[i] >= n and shape[i] % n == 0:
+                dims.append(i)
+                break
+        else:
+            dims.append(None)
+    return dims
+
+
+def fsdp_param_specs(params: PyTree, mesh, data_axis: str = "data"
+                     ) -> PyTree:
+    """FSDP (ZeRO-3) storage: for each leaf of the whole tree, a spec tuple
+    (``param_specs``' form) naming ``data_axis`` on its largest evenly
+    divisible dimension; ``()`` (replicated) where none divides.  Storage
+    only, no algebra."""
+    leaves, treedef = tree_flatten(params)
+    n = mesh.axis_size(data_axis)
+    return tree_unflatten(treedef, [
+        () if d is None else (None,) * d + (data_axis,)
+        for d in _fsdp_dims(params, n)])
+
+
+def init_lm_fsdp_params(params: PyTree, mesh, data_axis: str = "data"
+                        ) -> PyTree:
+    """This rank's FSDP shards of a whole tree (1/n of every divisible leaf,
+    block ``axis_index`` along its :func:`fsdp_param_specs` dimension) on
+    the mesh's device, for :func:`build_lm_fsdp_step`."""
+    from distlearn_tpu_torch.models.convert import fsdp_shard
+    return fsdp_shard(params, mesh, data_axis)
+
+
+def build_lm_fsdp_step(model: Model, mesh, params_template, lr: float,
+                       data_axis: str = "data",
+                       accum_steps: int = 1) -> Callable:
+    """Fully-sharded data parallelism for the LM: ``step(shards, tokens) ->
+    (shards, loss)``, the params living as this rank's
+    :func:`init_lm_fsdp_params` shards and ``tokens`` its rows.
+
+    The JAX package leaves this to GSPMD; here each leaf is gathered with
+    the autograd :func:`~distlearn_tpu_torch.parallel.mesh.all_gather`
+    before the forward, so its gradient arrives reduce-scattered (summed
+    over the ranks, this rank's block); a replicated leaf's gradient is
+    summed.  Both are divided by dp and the SGD update runs on the shard:
+    the update of ``build_lm_step`` at ``sp = tp = 1``.  ``accum_steps``
+    splits the rows into microbatches, gathers and scatters again for
+    each, and averages.  ``params_template`` is the whole tree (its shapes
+    pick each leaf's sharded dimension, which a shard alone does not
+    tell); the loss is the global mean.  Dense models."""
+    from distlearn_tpu_torch.models.transformer import lm_loss
+    from distlearn_tpu_torch.train.lm import _mean, _tokens_on
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    data = _data_axis(mesh, data_axis)
+    dims = _fsdp_dims(params_template, data.size)
+
+    def loss_and_grads(leaves, treedef, toks):
+        req = [p.detach().requires_grad_() for p in leaves]
+        full = [p if d is None else all_gather(p, data, d)
+                for p, d in zip(req, dims)]
+        loss = lm_loss(model, tree_unflatten(treedef, full), toks)
+        return loss.detach(), list(torch.autograd.grad(loss, req))
+
+    def step(shards, tokens):
+        tokens = _tokens_on(data.mesh, tokens)
+        leaves, treedef = tree_flatten(shards)
+        if accum_steps == 1:
+            loss, grads = loss_and_grads(leaves, treedef, tokens)
+        else:
+            if tokens.shape[0] % accum_steps:
+                raise ValueError(
+                    f"per-device batch {tokens.shape[0]} not divisible by "
+                    f"accum_steps={accum_steps}")
+            micro = tokens.reshape((accum_steps, -1)
+                                   + tuple(tokens.shape[1:]))
+            loss, grads = 0.0, None
+            for toks in micro:
+                li, gi = loss_and_grads(leaves, treedef, toks)
+                loss = loss + li
+                grads = gi if grads is None else \
+                    [a + g for a, g in zip(grads, gi)]
+            loss = loss / accum_steps
+            grads = [g / accum_steps for g in grads]
+        rep = [i for i, d in enumerate(dims) if d is None]
+        if rep and data.size > 1:
+            from distlearn_tpu_torch.train.lm import _psum_leaves
+            for i, g in zip(rep, _psum_leaves([grads[i] for i in rep],
+                                              (data,))):
+                grads[i] = g
+        new = [fused_update.sgd_plain(p, g / data.size if data.size > 1
+                                      else g, lr)
+               for p, g in zip(leaves, grads)]
+        return tree_unflatten(treedef, new), _mean(loss, (data,))
+
+    return _timed(step, "lm_fsdp")
+
+
+def _local_template(params: PyTree, pspecs: PyTree, mesh) -> PyTree:
+    """Meta tensors of each leaf's local shard under ``pspecs``
+    (:func:`~distlearn_tpu_torch.models.transformer.param_specs`' tuples):
+    every named dimension divided by its axis size (JAX's
+    ``ShapeDtypeStruct`` template)."""
+    from distlearn_tpu_torch.train.lm import _spec_leaves
+    leaves, treedef = tree_flatten(params)
+    out = []
+    for leaf, spec in zip(leaves, _spec_leaves(pspecs)):
+        shape = list(leaf.shape)
+        for i, name in enumerate(spec):
+            if name is not None:
+                shape[i] //= mesh.axis_size(name)
+        out.append(torch.empty(shape, dtype=leaf.dtype, device="meta"))
+    return tree_unflatten(treedef, out)
+
+
+def _refuse_moe(params: PyTree) -> None:
+    def walk(t):
+        return isinstance(t, dict) and ("router" in t or any(
+            walk(v) for v in t.values()))
+    if walk(params):
+        raise ValueError(
+            "the ZeRO mesh step supports dense models (expert leaves must "
+            "not reduce over their own axis) — use build_lm_step for MoE "
+            "models")
+
+
+def init_lm_zero_mesh_state(params: PyTree, mesh, tx: GradientTransformation,
+                            data_axis: str = "data",
+                            tp_axis: str | None = None) -> LMZeroState:
+    """ZeRO-1 over a ``(data, seq, model)`` :class:`Mesh`: ``params`` is
+    this rank's tp shard (``lm_shard`` over ``tp_axis``), and the float32
+    master and optimizer state cover its ``1/dp`` slice of that shard
+    packed: the JAX state's ``[dp, tp, chunk]`` row ``[d, t]``.  Every seq
+    rank holds and updates the same slice.  Dense models."""
+    _refuse_moe(params)
+    if tp_axis is not None:
+        mesh.axis(tp_axis)          # the axis is in the mesh
+    return init_lm_zero_state(params, mesh, tx, data_axis)
+
+
+def build_lm_zero_mesh_step(model: Model, mesh, tx: GradientTransformation,
+                            data_axis: str = "data",
+                            seq_axis: str | None = None,
+                            tp_axis: str | None = None,
+                            moe_balance_weight: float = 0.0) -> Callable:
+    """ZeRO-1 composed with tensor and sequence parallelism over a
+    ``(data, seq, model)`` :class:`Mesh`: ``step(st, tokens) -> (st,
+    loss)``, ``st.params`` this rank's tp shard, ``tokens`` its ``[B, L]``
+    block.  The local share's gradients (``build_lm_step``'s math) are
+    packed in float32, summed over seq, then reduce-scattered over data;
+    the update runs on this rank's master slice and one all-gather over
+    data reassembles the local params.  MoE is refused."""
+    from distlearn_tpu_torch.train.lm import (_mean, _plan, _tokens_on,
+                                              _value_and_grad)
+    plan = _plan(mesh, data_axis, seq_axis, tp_axis, None, "contig",
+                 moe_balance_weight)
+    data = plan.mesh.axis(data_axis)
+
+    def step(st: LMZeroState, tokens):
+        _refuse_moe(st.params)
+        spec, total, _ = _lm_zero_layout(st.params, data.size)
+        loss, grads = _value_and_grad(
+            model, st.params, _tokens_on(plan.mesh, tokens), reduce=False,
+            **plan.kw)
+        loss = psum_raw(loss, plan.seq)
+        flat = psum_raw(_pack_padded(spec, grads, total), plan.seq)
+        st = _zero_update(st, spec, total, flat, data, tx)
+        return st, _mean(loss, (data,))
+
+    return _timed(step, "lm_zero_mesh")

@@ -15,7 +15,7 @@ JAX package's runs its xla route off the TPU.
 * two gloo ranks (``tests/torch_lm_dist_worker.py``) against JAX's
   two-device data mesh: the SGD step, the mixed step and
   ``build_lm_ea_steps`` (EAMSGD local steps and the elastic round);
-* the pipeline steps, which wait for ROADMAP A11, raise.
+* the pipeline steps on a data-only tree (no pipe axis) raise.
 
 Tolerances.  float32 across the two packages: ``rtol=1e-4, atol=1e-6``
 (different summation orders; measured at most 6e-8 on gradients and
@@ -284,9 +284,9 @@ def test_stack_blocks_matches_jax():
 
 
 def test_unported_options_raise(cpu_tree):
-    """Only the pipeline-parallel steps still wait (ROADMAP A11).  A data-only
-    MeshTree has no seq or model axis, so asking for one raises; the
-    mesh-axis steps are held against JAX in test_torch_mesh_lm.py."""
+    """A data-only MeshTree has no seq, model or pipe axis, so asking for
+    one raises; the mesh-axis steps are held against JAX in
+    test_torch_mesh_lm.py, the pipeline steps in test_torch_pp.py."""
     model = tt.transformer_lm(**CFG)
     params = lm_from_jax(_jax_params()[1])
     tokens = torch.from_numpy(_tokens(2))
@@ -303,8 +303,9 @@ def test_unported_options_raise(cpu_tree):
     with pytest.raises(ValueError, match="mesh="):
         tt.lm_loss(model, params, tokens, seq_axis="seq")
     for fn in (tlm.build_lm_pp_step, tlm.build_lm_pp_1f1b_step):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn(model, None, params)
+        with pytest.raises(ValueError, match="no mesh axis 'pipe'"):
+            fn(cpu_tree, *tlm.stack_blocks(params, CFG["depth"]), lr=LR,
+               num_microbatches=2)
     with pytest.raises(ValueError, match="accum_steps"):
         tlm.build_lm_step(model, cpu_tree, lr=LR, accum_steps=0)
     with pytest.raises(ValueError, match="not divisible"):

@@ -575,7 +575,8 @@ def test_example_mesh_flags_follow_jax_checks():
                         (["--seqLayout", "diag"], "contig | zigzag"),
                         (["--scanBlocks", "--moeExperts", "2", "--dp", "2"],
                          "homogeneous"),
-                        (["--pp", "2"], "ROADMAP A11")):
+                        (["--pp", "2", "--sp", "2"],
+                         "composes with data parallelism only")):
         with pytest.raises(SystemExit, match=match):
             lm.parse(["--steps", "1"] + argv)
 

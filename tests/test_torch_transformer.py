@@ -166,15 +166,16 @@ def test_init_draws_the_jax_distributions():
 
 
 def test_unported_options_raise():
-    """Only the pipeline-parallel steps still wait (ROADMAP A11); a mesh
-    axis asked for without the mesh names what is missing."""
+    """The pipeline steps without a mesh, and a mesh axis asked for
+    without the mesh, name what is missing."""
     from distlearn_tpu_torch.train import lm as tlm
     _, jp = _jax_params()
     model = tt.transformer_lm(vocab=VOCAB, dim=DIM, depth=DEPTH, heads=HEADS,
                               max_len=MAX_LEN)
     for fn in (tlm.build_lm_pp_step, tlm.build_lm_pp_1f1b_step):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn(model, None, lm_from_jax(jp))
+        with pytest.raises(TypeError, match="Mesh or a MeshTree"):
+            fn(None, *tlm.stack_blocks(lm_from_jax(jp), DEPTH), lr=0.1,
+               num_microbatches=1)
     tokens = torch.zeros((1, 4), dtype=torch.long)
     for kw in ({"seq_axis": "seq"}, {"tp_axis": "model"},
                {"ep_axis": "data"}):

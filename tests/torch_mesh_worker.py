@@ -1,5 +1,6 @@
-"""One rank of the gloo meshes in tests/test_torch_mesh_lm.py and
-tests/test_torch_moe.py.
+"""One rank of the gloo meshes in tests/test_torch_mesh_lm.py,
+tests/test_torch_moe.py, tests/test_torch_pp.py and
+tests/test_torch_optim_lm.py.
 
 Started with ``torch.multiprocessing`` (spawn), so it imports the port and
 nothing of JAX: the parent runs the JAX package on its CPU mesh and
@@ -18,12 +19,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from distlearn_tpu_torch.models import convert
 from distlearn_tpu_torch.models.convert import lm_gather, lm_shard
 from distlearn_tpu_torch.models.transformer import transformer_lm
 from distlearn_tpu_torch.parallel import ep as pep
 from distlearn_tpu_torch.parallel import mesh as pmesh
+from distlearn_tpu_torch.parallel import pp as ppp
 from distlearn_tpu_torch.parallel import sequence as pseq
 from distlearn_tpu_torch.train import lm as tlm
+from distlearn_tpu_torch.train import optim as topt
 from distlearn_tpu_torch.utils.tree import tree_leaves
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64,
@@ -181,9 +185,215 @@ def _moe_ffn(mesh, case):
     return res
 
 
+def _pipeline(mesh, case):
+    """``pipeline_apply`` of ``tanh(h @ w + b)`` stages: the output, and the
+    gradients of one rank's share (1/S) of the replicated ``sum(out**2)``;
+    the errors of a shape-changing stage and an indivisible batch."""
+    ax = mesh.axis("pipe")
+    w = torch.from_numpy(case["w"][ax.index]).requires_grad_()
+    b = torch.from_numpy(case["b"][ax.index]).requires_grad_()
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+    out = ppp.pipeline_apply(stage, {"w": w, "b": b},
+                             torch.from_numpy(case["x"]), case["M"], ax)
+    gw, gb = torch.autograd.grad((out ** 2).sum() / ax.size, (w, b))
+    res = {"out": _np(out), "gw": _np(gw), "gb": _np(gb), "errors": []}
+    x = torch.zeros(16, case["x"].shape[1])
+    for args in (({"w": torch.zeros(x.shape[1], x.shape[1] + 1)},
+                  lambda p, h: h @ p["w"], 2),
+                 ({"w": w, "b": b}, stage, 3)):
+        for fn in ("apply", "1f1b"):
+            try:
+                if fn == "apply":
+                    ppp.pipeline_apply(args[1], args[0], x, args[2], ax)
+                else:
+                    ppp.pipeline_1f1b(args[1], args[0],
+                                      lambda c, o, m: o.sum(), {}, x,
+                                      args[2], ax)
+            except ValueError as e:
+                res["errors"].append(str(e))
+    return res
+
+
+def _pp_step(mesh, case):
+    """One GPipe or 1F1B step from the JAX params on this rank's stage:
+    the loss and the whole updated tree (``lm_pp_gather``)."""
+    depth = case["cfg"]["depth"]
+    shared, stacked = convert.lm_pp_shard(case["params"], mesh, depth)
+    builder = tlm.build_lm_pp_1f1b_step if case["schedule"] == "1f1b" \
+        else tlm.build_lm_pp_step
+    step = builder(mesh, *tlm.stack_blocks(
+        convert.lm_from_jax(case["params"]), depth), lr=case["lr"],
+        num_microbatches=case["M"], remat=case["remat"],
+        **case.get("kw", {}))
+    shared, stacked, loss = step(shared, stacked,
+                                 _tokens_block(mesh, case["tokens"]))
+    return {"loss": float(loss),
+            "params": convert.lm_pp_gather(shared, stacked, mesh, depth)}
+
+
+class _Held:
+    """A saved tensor's storage, counted live while autograd keeps it."""
+
+    def __init__(self, t, live):
+        self.t, self.live = t, live
+        self.key = t.untyped_storage().data_ptr()
+        refs = live["refs"]
+        if refs.get(self.key, 0) == 0:
+            live["bytes"] += t.untyped_storage().nbytes()
+            live["peak"] = max(live["peak"], live["bytes"])
+        refs[self.key] = refs.get(self.key, 0) + 1
+
+    def __del__(self):
+        refs = self.live["refs"]
+        refs[self.key] -= 1
+        if refs[self.key] == 0:
+            self.live["bytes"] -= self.t.untyped_storage().nbytes()
+
+
+def _pp_liveness(mesh, case):
+    """The peak bytes of the storages autograd holds saved during one GPipe
+    and one 1F1B step (``saved_tensors_hooks``), and the bytes of 1F1B's
+    ring of ``2S - 1`` stage inputs, which it holds outside autograd."""
+    depth, M = case["cfg"]["depth"], case["M"]
+    whole = convert.lm_from_jax(case["params"])
+    toks = _tokens_block(mesh, case["tokens"])
+    res = {}
+    for name, builder in (("gpipe", tlm.build_lm_pp_step),
+                          ("1f1b", tlm.build_lm_pp_1f1b_step)):
+        shared, stacked = convert.lm_pp_shard(case["params"], mesh, depth)
+        step = builder(mesh, *tlm.stack_blocks(whole, depth), lr=1.0,
+                       num_microbatches=M)
+        live = {"refs": {}, "bytes": 0, "peak": 0}
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: _Held(t, live), lambda h: h.t):
+            step(shared, stacked, toks)
+        res[name] = live["peak"]
+    S = mesh.axis_size("pipe")
+    mb = toks.shape[0] // M
+    res["ring"] = (2 * S - 1) * mb * toks.shape[1] * case["cfg"]["dim"] * 4
+    return res
+
+
+def _wait_for_pickle(path, timeout=240.0):
+    """The object the parent pickles to ``path`` while the ranks run."""
+    import time
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _opt_states(st):
+    return [_np(t) for t in tree_leaves(st.opt_state)]
+
+
+def _lm_zero(mesh, case):
+    """``steps`` ZeRO-1 steps over the data axis (the data-only mesh) or the
+    (data, seq, model) mesh: losses, the whole params, this rank's master
+    and optimizer rows, and the initial state's rows."""
+    dtype = DTYPES[case.get("dtype", "float32")]
+    model = transformer_lm(dtype=dtype, **case["cfg"])
+    tx = topt.adam(case["lr"])
+    on_mesh = "seq" in mesh.axis_names
+    if on_mesh:
+        params = lm_shard(case["params"], mesh, "model", dtype=dtype)
+        st = topt.init_lm_zero_mesh_state(params, mesh, tx,
+                                          tp_axis="model")
+        step = topt.build_lm_zero_mesh_step(model, mesh, tx,
+                                            seq_axis="seq", tp_axis="model")
+    else:
+        params = convert.lm_from_jax(case["params"], dtype=dtype)
+        st = topt.init_lm_zero_state(params, mesh, tx)
+        step = topt.build_lm_zero_step(model, mesh, tx)
+    res = {"init_master": _np(st.master), "init_opt": _opt_states(st)}
+    if "jax_state_file" in case:   # start from the JAX package's state
+        js = _wait_for_pickle(case["jax_state_file"])
+        if on_mesh:
+            index = (mesh.axis_index("data"), mesh.axis_index("model"))
+            params = lm_shard(js.params, mesh, "model", dtype=dtype)
+        else:
+            index = mesh.axis_index("data")
+            params = convert.lm_from_jax(js.params, dtype=dtype)
+        st = convert.lm_zero_from_jax(js, tx, index, params=params)
+    toks = _tokens_block(mesh, case["tokens"])
+    res["losses"] = []
+    for _ in range(case["steps"]):
+        st, loss = step(st, toks)
+        res["losses"].append(float(loss))
+    res["params"] = lm_gather(st.params, mesh,
+                              "model" if on_mesh else None)
+    res["dtypes"] = sorted({str(t.dtype) for t in tree_leaves(st.params)})
+    res["master"], res["opt"] = _np(st.master), _opt_states(st)
+    res["stacked"] = convert.lm_zero_to_jax([st])
+    return res
+
+
+def _lm_optax(mesh, case):
+    """``steps`` of the replicated-state optimizer step (or the mixed one)
+    over the (data, seq, model) mesh's data and seq axes."""
+    model = transformer_lm(**case["cfg"])
+    tx = getattr(topt, case.get("tx", "adam"))(case["lr"])
+    params = convert.lm_from_jax(case["params"])
+    kw = dict(seq_axis="seq", **case.get("kw", {}))
+    if case.get("mixed"):
+        step = topt.build_lm_mixed_optax_step(model, mesh, tx, **kw)
+        st = topt.init_lm_mixed_optax_state(params, tx,
+                                            param_dtype=torch.float32)
+    else:
+        step = topt.build_lm_optax_step(model, mesh, tx, **kw)
+        st = topt.LMOptaxState(params, tx.init(params))
+    toks = _tokens_block(mesh, case["tokens"])
+    losses = []
+    for _ in range(case["steps"]):
+        st, loss = step(st, toks)
+        losses.append(float(loss))
+    res = {"losses": losses, "params": convert.lm_to_jax(st.params),
+           "opt": _opt_states(st)}
+    if case.get("mixed"):
+        res["master"] = convert.lm_to_jax(st.master)
+    return res
+
+
+def _lm_fsdp(mesh, case):
+    """FSDP steps from the JAX params: this rank's storage (per leaf, shard
+    and whole sizes), losses, the gathered params and the collectives of
+    the last step; and ``build_lm_step`` on the same mesh and rows."""
+    model = transformer_lm(**case["cfg"])
+    whole = convert.lm_from_jax(case["params"])
+    shards = topt.init_lm_fsdp_params(case["params"], mesh)
+    res = {"sizes": [(s.numel(), w.numel()) for s, w in
+                     zip(tree_leaves(shards), tree_leaves(whole))]}
+    step = topt.build_lm_fsdp_step(model, mesh, whole, lr=case["lr"],
+                                   accum_steps=case.get("accum", 1))
+    toks = _tokens_block(mesh, case["tokens"])
+    res["losses"] = []
+    for _ in range(case["steps"]):
+        mesh.stats.reset()
+        shards, loss = step(shards, toks)
+        res["losses"].append(float(loss))
+    res["calls"], res["bytes"] = dict(mesh.stats.calls), \
+        dict(mesh.stats.bytes)
+    res["kept"] = [(s.numel(), w.numel()) for s, w in
+                   zip(tree_leaves(shards), tree_leaves(whole))]
+    res["params"] = convert.fsdp_gather(shards, mesh, whole)
+    if case.get("ref"):
+        ref = tlm.build_lm_step(model, mesh, lr=case["lr"])
+        p, loss = ref(whole, toks)
+        res["ref"] = (float(loss), convert.lm_to_jax(p))
+    return res
+
+
 KINDS = {"collectives": _collectives, "attention": _attention,
          "lm_step": _lm_step, "shard_roundtrip": _shard_roundtrip,
-         "moe_metrics": _moe_metrics, "moe_ffn": _moe_ffn}
+         "moe_metrics": _moe_metrics, "moe_ffn": _moe_ffn,
+         "pipeline": _pipeline, "pp_step": _pp_step,
+         "pp_liveness": _pp_liveness, "lm_zero": _lm_zero,
+         "lm_optax": _lm_optax, "lm_fsdp": _lm_fsdp}
 
 
 def run(rank, world, store_path, cases, out_dir):
