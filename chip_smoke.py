@@ -234,16 +234,42 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``build_lm_fsdp_step`` on dp 4 against ``build_lm_step`` (loss rtol
    1e-6, params rtol 1e-5, atol 1e-6), 1/4 of every leaf stored a rank, its
    gathers and reduce-scatters counted; 3 steps each, every loss finite,
-   B5a-B5c 8 a step by count and profile names.  The phase fails past
-   240 s.
-20. report — a ``{"kernels": [...]}`` line (the flash rows and B1 with
+   B5a-B5c 8 a step by count and profile names.  Inside (c)'s ZeRO-1 run,
+   every rank saves its records of the state after step 2 to a sharded
+   checkpoint (``save_sharded_checkpoint`` of ``lm_zero_records``: its
+   master and Adam rows, the params once); a fresh state restored from the
+   files (``lm_zero_restore``) takes step 3, which must equal the
+   uninterrupted step 3 bit for bit, and the params restored whole from
+   the files must equal ``lm_gather``'s.  The phase fails past 240 s.
+20. fleet — A12, phase 10's LM from its seeded init: (a) the
+   tensor-parallel engine as 2 rank processes on ``cuda:0`` over gloo
+   (each holding 8 of the 16 heads; rank 0 leads, rank 1 replays its ops
+   in ``follow()``): a 1024-token prompt and 16 greedy tokens through the
+   full prefill, 256-token chunks and verify, in float32 (TF32 off) and
+   bfloat16 compute with flash, each stream held against the single-rank
+   engine on the same weights (a mismatch passes only at a near-tie of
+   the reference's logits, reported with its gap); B5a 8 a full prefill
+   on each rank by count and by profile names (tensor cores in
+   bfloat16); a tick's psums and their host seconds (``Mesh.stats``).
+   (b) the fleet: a port ``Router`` over replica A (a single-rank engine
+   serving from a thread here) and replica B (the tp=2 leader and its
+   follower), float32: 8 requests from 4 threads, prompts of 100-1500
+   tokens, 32 new tokens; A stops as request 4 is submitted; every request
+   ends complete (its stream ``greedy_generate``'s) or failed mid-stream
+   on A (a prefix of it); then an epoch-2 checkpoint lands, replica B
+   swaps (each rank reads it and takes its shard) and echoes 2, and 2
+   requests after it are epoch 2 and ``greedy_generate``'s on the new
+   weights; TTFT and TPOT p50 per replica.  The phase fails past 150 s.
+21. report — a ``{"kernels": [...]}`` line (the flash rows and B1 with
    their phase-18 launches under ``mesh_lm_launches``, the flash rows
-   with phase 19's under ``pp_lm_launches``), the nvidia-smi line, and
+   with phase 19's under ``pp_lm_launches``, B5a with phase 20's under
+   ``tp_serve_launches`` and ``fleet_launches``), the nvidia-smi line, and
    last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -765,6 +791,23 @@ KERNEL_CLASSES = (            # (class, substrings of a kernel's name)
 )
 
 
+# torch.profiler records no kernel launched in the first moments of its
+# window (``python -m distlearn_tpu_torch.utils.profiler_probe``): every
+# profile here opens with a device synchronize and this pause
+PROFILE_SETTLE_S = 0.05
+
+
+@contextlib.contextmanager
+def profiler(activities, sync):
+    """``torch.profiler.profile(activities)`` whose window is open and
+    settled (``sync()``, then ``PROFILE_SETTLE_S``) when the block starts."""
+    from torch.profiler import profile
+    with profile(activities=activities) as prof:
+        sync()
+        time.sleep(PROFILE_SETTLE_S)
+        yield prof
+
+
 def profile_step(torch, run, classes=KERNEL_CLASSES,
                  other="elementwise/reduce"):
     """Run ``run()`` once under torch.profiler and log the device's busy
@@ -774,11 +817,11 @@ def profile_step(torch, run, classes=KERNEL_CLASSES,
     milliseconds (busy None if not profiled) and ``{class: [busy ms,
     launches]}``."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                      torch.cuda.synchronize) as prof:
             t0 = time.perf_counter()
             out = run()
             torch.cuda.synchronize()
@@ -969,10 +1012,10 @@ def profile_replay(torch, fn) -> dict:
     of another ``fn()`` by name (graph launches among them), less the
     profiler's own."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  torch.cuda.synchronize) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1591,10 +1634,11 @@ def device_ms(torch, fn, calls=10):
     """Device milliseconds per call of ``fn`` spent in the wire codec's
     kernels, from torch.profiler (NaN if the profiler fails)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiler([ProfilerActivity.CUDA],
+                      torch.cuda.synchronize) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -2452,7 +2496,7 @@ def compare_stream(torch, model, params, prompt, got, ref, tol):
 
 def phase_serve_lm(torch):
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     import numpy as np
     from distlearn_tpu_torch import obs
@@ -2584,7 +2628,8 @@ def phase_serve_lm(torch):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profiler([ProfilerActivity.CUDA],
+                          torch.cuda.synchronize) as prof:
                 fn()
                 torch.cuda.synchronize()
             evs = [e for e in prof.key_averages()
@@ -2894,10 +2939,10 @@ def profiled_keys(torch, fn) -> list[str]:
     """Names of the device events of one profiled, synchronised ``fn()``
     (CPU and CUDA activities, as phase 12's profile)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  torch.cuda.synchronize) as prof:
         fn()
         torch.cuda.synchronize()
     return [e.key for e in prof.key_averages()
@@ -2917,7 +2962,7 @@ def reset_flash_counts(fa):
 
 def phase_train_lm(torch, tree):
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     import numpy as np
     from distlearn_tpu_torch.models.transformer import transformer_lm
@@ -3086,8 +3131,8 @@ def phase_train_lm(torch, tree):
             f"{v['peak_gb']:.2f} GB" for k, v in per_mode.items()))
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  torch.cuda.synchronize) as prof:
         t = time.perf_counter()
         p1, _ = step(params0, tokens)
         torch.cuda.synchronize()
@@ -4391,7 +4436,8 @@ def mesh_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
                 sync()
                 t = time.perf_counter()
                 if i == 2:
-                    with profile(activities=acts) as prof:
+                    with profiler(acts, sync) as prof:
+                        t = time.perf_counter()
                         params, loss = step(params, toks)
                         sync()
                     keys = [e.key for e in prof.key_averages()
@@ -4619,6 +4665,13 @@ def pp_config() -> dict:
             "opt_lr": OPT_LR}
 
 
+def pp_ckpt_dir(cfg: dict) -> dict:
+    """``cfg`` with a new temporary directory for (c)'s sharded ZeRO-1
+    checkpoint."""
+    import tempfile
+    return dict(cfg, ckpt_dir=tempfile.mkdtemp(prefix="chip_smoke_zero_"))
+
+
 def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
     """One rank of phase 19 (a spawned process on ``device``): (a) the
     pipeline cases, (b) the memory of both schedules, (c) the optimizer
@@ -4634,13 +4687,17 @@ def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
                                                         lm_gather,
                                                         lm_pp_gather,
                                                         lm_pp_shard,
-                                                        lm_shard, lm_to_jax)
+                                                        lm_shard, lm_to_jax,
+                                                        lm_zero_records,
+                                                        lm_zero_restore)
         from distlearn_tpu_torch.models.transformer import (lm_loss,
                                                             transformer_lm)
         from distlearn_tpu_torch.ops import flash_attention as fa
         from distlearn_tpu_torch.parallel.mesh import Mesh
         from distlearn_tpu_torch.train import lm as tlm
         from distlearn_tpu_torch.train import optim
+        from distlearn_tpu_torch.utils.checkpoint import (
+            restore_sharded_checkpoint, save_sharded_checkpoint)
         from distlearn_tpu_torch.utils.tree import tree_leaves, tree_map
 
         dev = torch.device(device)
@@ -4684,9 +4741,10 @@ def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
             if cuda:
                 torch.cuda.empty_cache()
 
-        def run_steps(mesh, step, state, toks, steps):
+        def run_steps(mesh, step, state, toks, steps, after=None):
             """``steps`` steps, the second timed (collectives charged), the
-            last profiled: ``(state, record)``."""
+            last profiled, ``after(i, state)`` after step ``i``: ``(state,
+            record)``."""
             reset_flash_counts(fa)
             losses, secs, keys = [], [], []
             coll = calls = nbytes = {}
@@ -4696,7 +4754,8 @@ def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
                 sync()
                 t = time.perf_counter()
                 if i == steps - 1:
-                    with profile(activities=acts) as prof:
+                    with profiler(acts, sync) as prof:
+                        t = time.perf_counter()
                         state, loss = step(state, toks)
                         sync()
                     keys = [e.key for e in prof.key_averages()
@@ -4711,6 +4770,8 @@ def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
                     coll, calls = dict(mesh.stats.seconds), \
                         dict(mesh.stats.calls)
                     nbytes = dict(mesh.stats.bytes)
+                if after is not None:
+                    after(i, state)
             mesh.timed = False
             return state, {
                 "losses": losses, "secs": secs, "coll_s": coll,
@@ -4808,9 +4869,53 @@ def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
         # (c) the optimizer steps, phase 12's batch over the data ranks
         tx = optim.adam(cfg["opt_lr"])
         params = lm_shard(whole, opt_mesh)
+        def zero_save(i, state):
+            """After the second ZeRO-1 step every rank saves its records
+            (the master and Adam rows; the params once, by rank 0)."""
+            if i != 1:
+                return
+            t = time.perf_counter()
+            save_sharded_checkpoint(cfg["ckpt_dir"], 2,
+                                    lm_zero_records(state, opt_mesh),
+                                    process_index=rank)
+            res["ckpt"] = {"save_s": time.perf_counter() - t,
+                           "saved_params": lm_gather(state.params, opt_mesh)
+                           if rank == 0 else None}
+
+        def zero_resume(step, state, losses):
+            """(c)'s resume: a fresh state restored from every rank's file
+            takes step 3, which must equal the uninterrupted step 3 bit for
+            bit; on rank 0 the params restored whole from the files must
+            equal ``lm_gather``'s at the save."""
+            dist.barrier()             # every rank's file is on disk
+            t = time.perf_counter()
+            fresh = optim.init_lm_zero_state(params, opt_mesh, tx)
+            st2, meta = lm_zero_restore(cfg["ckpt_dir"], fresh, opt_mesh)
+            sync()
+            rec = res["ckpt"]
+            rec["restore_s"] = time.perf_counter() - t
+            rec["step"] = meta.get("step")
+            st2, loss = step(st2, rows(opt_mesh, tokens))
+            sync()
+            rec["loss"], rec["loss_ref"] = float(loss), losses[2]
+            rec["equal"] = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(st2), tree_leaves(state)))
+            saved = rec.pop("saved_params")
+            if saved is not None:
+                whole, _ = restore_sharded_checkpoint(
+                    cfg["ckpt_dir"], {"params": saved}, step=2)
+                rec["whole_equal"] = all(
+                    np.array_equal(a, b) for a, b in zip(
+                        tree_leaves(whole["params"]), tree_leaves(saved)))
+            rec["files_mb"] = sum(
+                os.path.getsize(os.path.join(cfg["ckpt_dir"], f))
+                for f in os.listdir(cfg["ckpt_dir"])) / 1e6
+            del st2, fresh
+
         for name in ("optax", "mixed", "zero", "zero_mesh", "fsdp", "sgd"):
             t_case = time.perf_counter()
             mesh = opt_mesh
+            after = None
             if name == "optax":
                 step = optim.build_lm_optax_step(model, mesh, tx)
                 state = optim.LMOptaxState(params, tx.init(params))
@@ -4820,6 +4925,7 @@ def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
             elif name == "zero":
                 step = optim.build_lm_zero_step(model, mesh, tx)
                 state = optim.init_lm_zero_state(params, mesh, tx)
+                after = zero_save
             elif name == "zero_mesh":
                 mesh = zm_mesh
                 step = optim.build_lm_zero_mesh_step(
@@ -4838,7 +4944,9 @@ def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
                 step = tlm.build_lm_step(model, mesh, lr=cfg["lr"])
                 state = params
             state, rec = run_steps(mesh, step, state, rows(mesh, tokens),
-                                   cfg["steps"])
+                                   cfg["steps"], after)
+            if name == "zero":
+                zero_resume(step, state, rec["losses"])
             if name == "mixed":
                 rec["invariant"] = all(
                     torch.equal(p, m.to(torch.bfloat16)) for p, m in
@@ -4914,9 +5022,14 @@ def phase_pp_lm(torch) -> dict:
     cuda = PP_DEVICE == "cuda"
     log(f"[pp] {PP_RANKS} rank processes on {PP_DEVICE}:0 over gloo, every "
         "collective staged through pinned host memory (not NCCL)")
-    results = run_workers(pp_worker, PP_RANKS,
-                          (free_port(), PP_DEVICE, pp_config()),
-                          PP_TIMEOUT_S, "pp LM rank")
+    import shutil
+    cfg = pp_ckpt_dir(pp_config())
+    try:
+        results = run_workers(pp_worker, PP_RANKS,
+                              (free_port(), PP_DEVICE, cfg),
+                              PP_TIMEOUT_S, "pp LM rank")
+    finally:
+        shutil.rmtree(cfg["ckpt_dir"], ignore_errors=True)
     depth = LM_TRAIN["depth"]
     ref = results[0]["ref_loss"]
     launches = {}
@@ -4993,6 +5106,26 @@ def phase_pp_lm(torch) -> dict:
           f"[fsdp] against build_lm_step: losses {l_f} / {l_s}, params "
           f"beyond rtol {OPT_FSDP_TOL[0]}, atol {OPT_FSDP_TOL[1]} by "
           f"{fsdp_err:.3g}")
+    for r, res in enumerate(results):
+        ck = res["ckpt"]
+        check(ck["step"] == 2 and ck["equal"] and ck["loss"] == ck["loss_ref"],
+              f"[zero] rank {r}: the step after restoring the sharded "
+              f"checkpoint of step 2 (loss {ck['loss']}) is not the "
+              f"uninterrupted step 3 (loss {ck['loss_ref']}) bit for bit "
+              f"(state equal: {ck['equal']})")
+    check(results[0]["ckpt"].get("whole_equal") is True,
+          "[zero] the params restored whole from the rank files differ "
+          "from lm_gather's at the save")
+    ck0 = results[0]["ckpt"]
+    log(f"[pp] (c) ZeRO-1 sharded checkpoint after step 2: {PP_RANKS} rank "
+        f"files, {ck0['files_mb']:.1f} MB (the params once, by rank 0; "
+        f"each rank its master and Adam rows), save "
+        f"{max(r['ckpt']['save_s'] for r in results):.2f} s, restore "
+        f"{max(r['ckpt']['restore_s'] for r in results):.2f} s (slowest "
+        f"rank); step 3 from the restored state equal to the "
+        f"uninterrupted step 3 bit for bit on every rank (loss "
+        f"{ck0['loss']:.6f}); the whole params restored from the files "
+        f"equal lm_gather's")
     sizes = results[0]["fsdp_sizes"]
     held = sum(s for s, _ in sizes)
     whole = sum(w for _, w in sizes)
@@ -5021,6 +5154,490 @@ def phase_pp_lm(torch) -> dict:
     check(wall <= PP_BUDGET_S, f"phase 19 took {wall:.1f} s, over its "
           f"{PP_BUDGET_S}-s budget")
     return {"launches": launches, "seconds": wall}
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the serving fleet (tensor-parallel engine, router, hot swap)
+# ---------------------------------------------------------------------------
+
+FLEET_RANKS = 2               # the tp engine's ranks (leader + follower)
+FLEET_DEVICE = "cuda"         # the rank processes' device (cuda:0)
+FLEET_TIMEOUT_S = 300
+FLEET_BUDGET_S = 150          # the phase's wall time
+FLEET_REQUESTS, FLEET_THREADS, FLEET_MAX_NEW = 8, 4, 32
+FLEET_KILL_AT = 4             # replica A stops as request 4 is submitted
+FLEET_SWAP_REQUESTS = 2       # requests after the epoch-2 swap
+FLEET_SLOTS = 4
+# (b)'s prompt lengths, 100-1500 tokens in a seeded order: the two below
+# the 256-token prefill chunk take the full-prompt pass (B5a), the rest the
+# chunk pass
+FLEET_PROMPTS = (100, 200, 400, 600, 800, 1000, 1250, 1500)
+
+
+def fleet_config() -> dict:
+    """Phase 20's sizes, handed to the rank processes (a rehearsal's
+    smaller sizes reach them only this way)."""
+    return {"flags": LM_FLAGS, "check_prompt": LM_CHECK_PROMPT,
+            "check_steps": LM_CHECK_STEPS, "chunk": SERVE_PREFILL_CHUNK,
+            "slots": FLEET_SLOTS}
+
+
+def fleet_model(lm_example, flags, device):
+    """Phase 10's LM from its seeded init, on ``device``: ``(opt, params,
+    heads)``."""
+    opt = lm_example.parse(flags)
+    params = lm_example._init(lm_example._model(opt), opt, device)
+    return opt, params, max(4, opt.dim // 64)
+
+
+def fleet_worker(rank: int, port: int, device: str, cfg: dict, ctl, stop,
+                 q) -> None:
+    """One rank of phase 20's tp=2 engine (a spawned process on
+    ``device``): (a) rank 0 leads the float32 and bfloat16 checks and
+    holds each stream against the single-rank engine on the same weights;
+    (b) rank 0 serves as fleet replica B until ``stop`` is set.  Rank 1
+    follows every engine, profiled."""
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity
+
+        from distlearn_tpu_torch import obs
+        from distlearn_tpu_torch.examples import lm as lm_example
+        from distlearn_tpu_torch.models.transformer import transformer_lm
+        from distlearn_tpu_torch.obs import trace as obs_trace
+        from distlearn_tpu_torch.ops import flash_attention as fa
+        from distlearn_tpu_torch.parallel.mesh import Mesh
+        from distlearn_tpu_torch.serve import DecodeEngine, ServeServer
+
+        dev = torch.device(device)
+        cuda = dev.type == "cuda"
+        if cuda:
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        sync = (lambda: torch.cuda.synchronize(dev)) if cuda else \
+            (lambda: None)
+        acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+        os.environ["DISTLEARN_TPU_ATTN"] = "flash"
+        dist.init_process_group("gloo", rank=rank, world_size=FLEET_RANKS,
+                                init_method=f"tcp://localhost:{port}")
+        mesh = Mesh((FLEET_RANKS,), ("model",), device=dev, backend="gloo")
+        opt, whole, heads = fleet_model(lm_example, cfg["flags"], dev)
+        leader = rank == 0
+        res = {"rank": rank, "checks": {}}
+
+        def engine(cd, slots=1):
+            return DecodeEngine(whole, num_slots=slots, compute_dtype=cd,
+                                mesh=mesh, tp_axis="model")
+
+        def follow(eng):
+            """Replay the leader's ops, every device event profiled:
+            ``(ops, B5a launches, B5a kernels named, routes)``."""
+            fa.flash_attention.launches = 0
+            with profiler(acts, sync) as prof:
+                done = eng.follow()
+                sync()
+            keys = [e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    for _ in range(e.count)]
+            return {"ops": done, "launches": fa.flash_attention.launches,
+                    "named": sum("flash_fwd" in k for k in keys),
+                    "routes": {k: sorted(v) for k, v in
+                               flash_routes(keys).items()}}
+
+        def stream(eng, prompt, n, chunk=None, drafts=None):
+            job = eng.begin(prompt, n)
+            first = eng.prefill_step(job, chunk)
+            while first is None:
+                first = eng.prefill_step(job, chunk)
+            toks = [first]
+            while len(toks) < n:
+                if drafts is None:
+                    toks.append(eng.tick()[job.slot])
+                else:
+                    k = len(toks)
+                    toks.extend(eng.verify(
+                        {job.slot: drafts[k:k + eng.spec_k]})[job.slot])
+            eng.finish(job.slot)
+            return toks[:n]
+
+        rng = np.random.default_rng(20)
+        prompt = rng.integers(0, opt.vocab, cfg["check_prompt"]) \
+            .astype(np.int32)
+        n_new = cfg["check_steps"]
+        for tag, cd in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+            eng = engine(cd)
+            if not leader:
+                res["checks"][tag] = follow(eng)
+                del eng
+                continue
+            rec = {}
+            fa.flash_attention.launches = 0
+            full = stream(eng, prompt, n_new)
+            chunked = stream(eng, prompt, n_new, chunk=cfg["chunk"])
+            wrong = list(full)
+            wrong[5] = (wrong[5] + 1) % opt.vocab
+            verified = stream(eng, prompt, n_new, drafts=wrong)
+            # two full prefills: the plain stream's and verify's
+            rec["launches"] = fa.flash_attention.launches
+            # one full prefill profiled: B5a by name and route
+            sync()
+            with profiler(acts, sync) as prof:
+                job = eng.begin(prompt, 1)
+                eng.prefill_step(job)
+                sync()
+            eng.finish(job.slot)
+            keys = [e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    for _ in range(e.count)]
+            rec["named"] = sum("flash_fwd" in k for k in keys)
+            rec["routes"] = {k: sorted(v) for k, v in
+                             flash_routes(keys).items()}
+            # one tick with its collectives timed
+            job = eng.begin(prompt, 8)
+            eng.prefill_step(job)
+            eng.tick()
+            sync()
+            mesh.stats.reset()
+            mesh.timed = True
+            t = time.perf_counter()
+            eng.tick()
+            sync()
+            rec["tick_ms"] = (time.perf_counter() - t) * 1e3
+            mesh.timed = False
+            rec["tick_psums"] = mesh.stats.calls.get("psum", 0)
+            rec["tick_psum_ms"] = mesh.stats.seconds.get("psum", 0.0) * 1e3
+            rec["tick_psum_bytes"] = mesh.stats.bytes.get("psum", 0)
+            eng.finish(job.slot)
+            # four full prefills in all: the follower replayed them too
+            rec["launches_all"] = fa.flash_attention.launches
+            eng.stop()
+            del eng
+            # the single-rank engine on the same weights
+            ref_eng = DecodeEngine(whole, num_slots=1, compute_dtype=cd,
+                                   device=dev)
+            ref = stream(ref_eng, prompt, n_new)
+            del ref_eng
+            model = transformer_lm(vocab=opt.vocab, dim=opt.dim,
+                                   depth=opt.depth, heads=heads,
+                                   max_len=opt.seqLen, compute_dtype=cd,
+                                   attn_impl="xla")
+            rec["ties"] = {}
+            for name, got in (("full", full), ("chunked", chunked),
+                              ("verify", verified)):
+                tie = compare_stream(torch, model, whole, prompt, got, ref,
+                                     TIE_TOL[tag])
+                rec["ties"][name] = tie
+            rec["equal"] = {name: got == ref for name, got in
+                            (("full", full), ("chunked", chunked),
+                             ("verify", verified))}
+            res["checks"][tag] = rec
+            if cuda:
+                torch.cuda.empty_cache()
+
+        # (b) replica B: tp=2, float32, behind a server until stopped
+        eng = engine(None, cfg["slots"])
+        if not leader:
+            res["serve"] = follow(eng)
+        else:
+            slot, _ = eng.admit(np.ones(4, np.int32), 2)
+            eng.tick()
+            eng.finish(slot)
+            obs_trace.set_ring_size(1 << 16)
+            obs_trace.clear()
+            fa.flash_attention.launches = 0
+            srv = ServeServer(eng, prefill_chunk=cfg["chunk"],
+                              ckpt_dir=cfg["ckpt_dir"], ckpt_poll=0.1,
+                              epoch=1).start()
+            ctl.put(("serving", srv.host, srv.port))
+            stop.wait(FLEET_TIMEOUT_S)
+            sync()
+            launches = fa.flash_attention.launches
+            spans = {}
+            for r_ in obs.spans():
+                spans.setdefault(r_["name"], []).append(r_["dur"] * 1e3)
+            res["serve"] = {"launches": launches,
+                            "ttft_ms": p50(spans.get("serve.ttft", [])),
+                            "tpot_ms": p50(spans.get("serve.tpot", [])),
+                            "prefills": len(spans.get("serve.prefill", [])),
+                            "epoch": srv.epoch, "failed": srv._failed}
+            srv.stop()              # the follower's stop op
+        del eng
+        dist.barrier()
+        dist.destroy_process_group()
+        q.put(("ok", res))
+    except BaseException:  # noqa: BLE001 — the parent fails the phase
+        import traceback
+        q.put(("err", traceback.format_exc()))
+
+
+def fleet_traffic(router, prompts, max_new, kill_at=None, kill=None):
+    """One request per prompt through ``router`` from FLEET_THREADS
+    threads (thread i sends requests i, i + FLEET_THREADS, ...); ``kill``
+    runs as request ``kill_at`` is submitted.  Returns the results (an
+    exception's text where a request raised)."""
+    results = [None] * len(prompts)
+
+    def one(i):
+        for j in range(i, len(prompts), FLEET_THREADS):
+            if j == kill_at:
+                kill()
+            try:
+                results[j] = router.generate(prompts[j], max_new,
+                                             rid=f"f{j}", timeout=240)
+            except Exception as e:  # noqa: BLE001 — checked by the caller
+                results[j] = {"reason": f"raised {e!r}", "tokens": [],
+                              "epoch": None, "replica": None}
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(min(FLEET_THREADS, len(prompts)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(FLEET_TIMEOUT_S)
+    check(not any(t.is_alive() for t in threads), "fleet traffic hung")
+    return results
+
+
+def phase_fleet(torch) -> dict:
+    """Phase 20: see the module docstring."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from distlearn_tpu_torch import obs
+    from distlearn_tpu_torch.examples import lm as lm_example
+    from distlearn_tpu_torch.models.transformer import (greedy_generate,
+                                                        transformer_lm)
+    from distlearn_tpu_torch.obs import core as obs_core
+    from distlearn_tpu_torch.obs import trace as obs_trace
+    from distlearn_tpu_torch.ops import flash_attention as fa
+    from distlearn_tpu_torch.serve import Router
+    from distlearn_tpu_torch.utils.checkpoint import save_checkpoint
+    from distlearn_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    cuda = FLEET_DEVICE == "cuda"
+    log(f"[fleet] a tp=2 engine as {FLEET_RANKS} rank processes on "
+        f"{FLEET_DEVICE}:0 (leader and follower, gloo: every psum staged "
+        "through pinned host memory), a single-rank replica in this "
+        "process, a port Router in front")
+    cfg = dict(fleet_config(),
+               ckpt_dir=tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    ctx = mp.get_context("spawn")
+    q, ctl, stop = ctx.Queue(), ctx.Queue(), ctx.Event()
+    port = free_port()
+    procs = [ctx.Process(target=fleet_worker,
+                         args=(r, port, FLEET_DEVICE, cfg, ctl, stop, q))
+             for r in range(FLEET_RANKS)]
+    for p in procs:
+        p.start()
+    env = os.environ.get("DISTLEARN_TPU_ATTN")
+    os.environ["DISTLEARN_TPU_ATTN"] = "flash"
+    srv_a = router = None
+    try:
+        device = "cuda" if cuda else "cpu"
+        opt, params, heads = fleet_model(lm_example, LM_FLAGS, device)
+        opt.device = device
+        model = transformer_lm(vocab=opt.vocab, dim=opt.dim, depth=opt.depth,
+                               heads=heads, max_len=opt.seqLen,
+                               attn_impl="xla")
+        obs_trace.set_ring_size(1 << 16)
+        obs_trace.clear()
+        srv_a = lm_example.start_server(opt, params, None,
+                                        prefill_chunk=SERVE_PREFILL_CHUNK,
+                                        ckpt_dir=cfg["ckpt_dir"],
+                                        ckpt_poll=0.1, epoch=1)
+        try:
+            kind, host_b, port_b = ctl.get(timeout=FLEET_TIMEOUT_S)
+        except Exception:  # noqa: BLE001 — a rank failed before serving
+            errs = []
+            while not q.empty():
+                errs.append(q.get())
+            raise SmokeFailure(f"replica B never served: {errs[:1]}")
+        t_up = time.perf_counter() - t0
+        name_a = f"{srv_a.host}:{srv_a.port}"
+        name_b = f"{host_b}:{port_b}"
+        router = Router([(srv_a.host, srv_a.port), (host_b, port_b)],
+                        health_ttl=0.05, retry_interval=0.02)
+        check(router.health()["live"] == 2, "the fleet's two replicas are "
+              "not both live")
+        rng = np.random.default_rng(21)
+        lens = rng.permutation(FLEET_PROMPTS)
+        prompts = [rng.integers(0, opt.vocab, n).astype(np.int32)
+                   for n in lens]
+        if cuda:
+            torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        t_traffic = time.perf_counter()
+        results = fleet_traffic(router, prompts, FLEET_MAX_NEW,
+                                kill_at=FLEET_KILL_AT, kill=srv_a.stop)
+        wall = time.perf_counter() - t_traffic
+        launches_a = fa.flash_attention.launches
+        spans = {}
+        for rec in obs.spans():
+            spans.setdefault(rec["name"], []).append(rec["dur"] * 1e3)
+        ttft_a, tpot_a = p50(spans.get("serve.ttft", [])), \
+            p50(spans.get("serve.tpot", []))
+        retries = {}
+        for fam in obs_core.REGISTRY.snapshot():
+            if fam["name"] == "router_retries_total":
+                retries = {s["labels"].get("replica"): s["value"]
+                           for s in fam["samples"]}
+        # every request terminal; complete streams are greedy_generate's,
+        # failed ones (on A when it died mid-stream) a prefix of it
+        ties, by = [], {}
+        for j, r in enumerate(results):
+            check(r["reason"] in ("complete", "failed"),
+                  f"[fleet] request {j} ended {r['reason']!r}")
+            by.setdefault(r["replica"], []).append(r["reason"])
+            ref = greedy_generate(params, prompts[j][None], FLEET_MAX_NEW,
+                                  attn_impl="xla")[0].tolist()
+            got = r["tokens"]
+            if r["reason"] == "failed":
+                check(r["replica"] == name_a and got == ref[:len(got)],
+                      f"[fleet] request {j} failed on {r['replica']} with "
+                      f"{len(got)} tokens off greedy_generate's")
+                continue
+            check(r["epoch"] == 1, f"[fleet] request {j} epoch "
+                  f"{r['epoch']}")
+            tie = compare_stream(torch, model, params, prompts[j], got, ref,
+                                 TIE_TOL["float32"])
+            if tie is not None:
+                ties.append((j,) + tie)
+        check(by.get(name_b), "[fleet] replica B served no request")
+        # the epoch-2 checkpoint: every live replica (B) swaps and echoes 2
+        new_params = tree_map(lambda t: t * 0.5, params)
+        t_swap = time.perf_counter()
+        save_checkpoint(cfg["ckpt_dir"], 1, new_params,
+                        metadata={"epoch": 2})
+        deadline = time.monotonic() + 120
+        while router.health()["epochs"] != [2]:
+            check(time.monotonic() < deadline,
+                  f"[fleet] the live replicas echo epochs "
+                  f"{router.health()['epochs']}, not [2]")
+            time.sleep(0.1)
+        swap_s = time.perf_counter() - t_swap
+        after = [router.generate(prompts[j], FLEET_MAX_NEW, rid=f"s{j}",
+                                 timeout=240)
+                 for j in range(FLEET_SWAP_REQUESTS)]
+        for j, r in enumerate(after):
+            check(r["reason"] == "complete" and r["epoch"] == 2
+                  and r["replica"] == name_b,
+                  f"[fleet] post-swap request {j}: {r['reason']}, epoch "
+                  f"{r['epoch']} on {r['replica']}")
+            ref = greedy_generate(new_params, prompts[j][None],
+                                  FLEET_MAX_NEW, attn_impl="xla")[0].tolist()
+            tie = compare_stream(torch, model, new_params, prompts[j],
+                                 r["tokens"], ref, TIE_TOL["float32"])
+            if tie is not None:
+                ties.append((f"s{j}",) + tie)
+        stop.set()
+        got = [q.get(timeout=FLEET_TIMEOUT_S) for _ in procs]
+    finally:
+        stop.set()
+        if router is not None:
+            router.close()
+        if srv_a is not None:
+            srv_a.stop()
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(cfg["ckpt_dir"], ignore_errors=True)
+        if env is None:
+            os.environ.pop("DISTLEARN_TPU_ATTN", None)
+        else:
+            os.environ["DISTLEARN_TPU_ATTN"] = env
+    errs = [r for kind, r in got if kind == "err"]
+    check(not errs, f"a fleet rank failed: {errs[:1]}")
+    lead, follower = sorted((r for _, r in got), key=lambda r: r["rank"])
+    depth = opt.depth
+    for tag in ("float32", "bfloat16"):
+        c, f = lead["checks"][tag], follower["checks"][tag]
+        check(c["launches"] == 2 * depth and c["launches_all"] == 4 * depth
+              and f["launches"] == c["launches_all"],
+              f"[fleet] (a) {tag}: B5a launched {c['launches']} times in "
+              f"the leader's two full prefills ({c['launches_all']} in its "
+              f"four) and {f['launches']} times on the follower; expected "
+              f"{depth} a full prefill")
+        check(c["named"] == depth and (not cuda or f["named"]
+                                       == f["launches"]),
+              f"[fleet] (a) {tag}: profiles name B5a {c['named']} times "
+              f"in one prefill on the leader (expected {depth}) and "
+              f"{f['named']} times in the follower's run (expected "
+              f"{f['launches']})")
+        if tag == "bfloat16":
+            check(not cuda or c["routes"] == {"B5a": ["mma"]},
+                  f"[fleet] (a) bfloat16 flash routes {c['routes']}")
+        check(c["tick_psums"] == 2 * depth,
+              f"[fleet] (a) {tag}: a tick ran {c['tick_psums']} psums, "
+              f"expected {2 * depth}")
+        log(f"[fleet] (a) {tag}, tp=2 against the single-rank engine on "
+            f"the same weights, {LM_CHECK_STEPS} tokens of a "
+            f"{LM_CHECK_PROMPT}-token prompt: full "
+            f"{fleet_how(c, 'full')}, chunked ({SERVE_PREFILL_CHUNK}) "
+            f"{fleet_how(c, 'chunked')}, verify {fleet_how(c, 'verify')}; "
+            f"B5a {c['launches_all']} launches on the leader, "
+            f"{f['launches']} on the follower ({depth} a full prefill, 4 "
+            f"full prefills), {c['named']} "
+            f"named in the leader's profiled prefill, {f['named']} in the "
+            f"follower's whole run ({f['ops']} ops replayed); a tick "
+            f"{c['tick_ms']:.2f} ms on the host clock, {c['tick_psums']} "
+            f"psums of {c['tick_psum_bytes'] / 1e3:.1f} kB in "
+            f"{c['tick_psum_ms']:.2f} ms (gloo host route)")
+    sv, fv = lead["serve"], follower["serve"]
+    check(sv["failed"] is None and sv["epoch"] == 2,
+          f"[fleet] replica B: failed {sv['failed']}, epoch {sv['epoch']}")
+    check(fv["launches"] == sv["launches"],
+          f"[fleet] replica B's ranks launched B5a {sv['launches']} / "
+          f"{fv['launches']} times")
+    check(launches_a + sv["launches"] > 0 or not cuda,
+          "[fleet] (b) B5a launched no time on the fleet's path")
+    done = sum(r["reason"] == "complete" for r in results)
+    log(f"[fleet] (b) {FLEET_REQUESTS} requests from {FLEET_THREADS} "
+        f"threads, prompts {sorted(int(n) for n in lens)}, "
+        f"{FLEET_MAX_NEW} new tokens, float32: {done} complete, "
+        f"{len(results) - done} failed mid-stream when replica A stopped "
+        f"at request {FLEET_KILL_AT}; by replica "
+        + ", ".join(f"{'A' if k == name_a else 'B'} {v}"
+                    for k, v in by.items())
+        + f"; resubmitted {retries or 'none'}; every stream greedy_generate's"
+        + (f" up to near-ties (request, token, gap, margin) {ties}" if ties
+           else "") + f"; traffic {wall:.1f} s")
+    log(f"[fleet] (b) epoch-2 checkpoint landed: replica B swapped and "
+        f"echoed 2 in {swap_s:.1f} s (each rank reads the checkpoint and "
+        f"takes its shard), {FLEET_SWAP_REQUESTS} requests after it all "
+        "epoch 2, greedy_generate's on the new weights; no stream mixed "
+        "epochs")
+    log(f"[fleet] (b) TTFT / TPOT p50: replica A (one rank) {ttft_a:.2f} / "
+        f"{tpot_a:.2f} ms, replica B (tp=2) {sv['ttft_ms']:.2f} / "
+        f"{sv['tpot_ms']:.2f} ms; B5a launches A {launches_a}, B "
+        f"{sv['launches']} on each rank ({sv['prefills']} full prefills "
+        f"on B)")
+    wall = time.perf_counter() - t0
+    log(f"[fleet] phase 20 took {wall:.1f} s (budget {FLEET_BUDGET_S} s; "
+        f"fleet up after {t_up:.1f} s)")
+    check(wall <= FLEET_BUDGET_S, f"phase 20 took {wall:.1f} s, over its "
+          f"{FLEET_BUDGET_S}-s budget")
+    return {"tp_launches": {t: lead["checks"][t]["launches"]
+                            for t in ("float32", "bfloat16")},
+            "fleet_launches": {"A": launches_a, "B": sv["launches"]},
+            "seconds": wall}
+
+
+def fleet_how(c, name) -> str:
+    if c["equal"][name]:
+        return "equal"
+    tie = c["ties"][name]
+    return (f"equal up to a near-tie at token {tie[0]} (gap {tie[1]:.3g}, "
+            f"top-2 margin {tie[2]:.3g})")
 
 
 def main() -> int:
@@ -5093,6 +5710,7 @@ def main() -> int:
         log(f"[resnet] phase 17 took {time.perf_counter() - t17:.1f} s")
         meshed = phase_mesh_lm(torch)
         piped = phase_pp_lm(torch)
+        fleet = phase_fleet(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -5123,7 +5741,9 @@ def main() -> int:
          "mesh_lm_launches": {k: v[0] for k, v in
                               meshed["launches"].items()},
          "pp_lm_launches": {k: v[0] for k, v in
-                            piped["launches"].items()}},
+                            piped["launches"].items()},
+         "tp_serve_launches": fleet["tp_launches"],
+         "fleet_launches": fleet["fleet_launches"]},
         {"name": "flash_attention_dkv", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"
@@ -5175,7 +5795,7 @@ def main() -> int:
         f"largest bucket {resnet['b1']['ms']:.5f} ms against bound "
         f"{resnet['b1']['bound_ms']:.5f} ms; mesh LM phase "
         f"{meshed['seconds']:.1f} s; pp and optimizer LM phase "
-        f"{piped['seconds']:.1f} s")
+        f"{piped['seconds']:.1f} s; fleet phase {fleet['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

@@ -16,10 +16,14 @@ over a ``(data, seq, model)`` mesh of ``--dp`` x ``--sp`` x ``--tp`` ranks
 and ``--seqLayout contig|zigzag``, Megatron tensor parallelism, and MoE
 blocks (``--moeExperts`` = ``--dp``, one expert a data rank;
 ``--moeTopK``, ``--moeBalanceWeight``).  One process a rank over NCCL,
-one card each (``cuda:<rank>``), or gloo with ``--device cpu``; one rank
-runs in this process.  ``--generate`` and ``--serve`` then run on rank 0
-with the trained params gathered from the shards (``--steps 0``: the
-seeded initialisation; not after ``--pp/--zero/--fsdp``).  ``--pp S``
+one card each (``cuda:<rank>``), or gloo with ``--device cpu``; rank 0
+runs in this process, the others are spawned.  ``--generate`` then runs
+on rank 0 with the trained params gathered from the shards, and
+``--serve`` there too, or with ``--tp > 1`` tensor-parallel over the
+``model`` line of ranks ``0..tp-1`` (``DecodeEngine(mesh=, tp_axis=)``:
+rank 0 leads and serves, the others follow), as the JAX example serves
+over a ``("model",)`` submesh (``--steps 0``: the seeded initialisation;
+not after ``--pp/--zero/--fsdp``).  ``--pp S``
 trains over a ``(data, pipe)`` mesh of ``--dp`` x ``S`` ranks instead,
 GPipe or 1F1B (``--ppSchedule``, ``--microbatches``); ``--optimizer
 adam|adamw`` runs the replicated-state optimizer step (with ``--mixed``
@@ -32,6 +36,8 @@ exits.
         --moeExperts 2 --steps 3 --dim 64 --depth 2 --seqLen 64
     python -m distlearn_tpu_torch.examples.lm --device cpu --pp 2 \
         --ppSchedule 1f1b --steps 3 --dim 64 --depth 2 --seqLen 64
+    python -m distlearn_tpu_torch.examples.lm --device cpu --steps 0 \
+        --serve 2 --tp 2 --dim 64 --depth 2 --seqLen 64
 """
 
 from __future__ import annotations
@@ -271,15 +277,34 @@ def build_model(opt):
     return _init(_model(opt), opt, opt.device), _compute_dtype(opt)
 
 
-def start_server(opt, params, compute_dtype=None, **server_kw):
-    """The engine warmed up (one smallest-bucket prefill and one tick, as
-    the JAX example does) behind a started :class:`ServeServer`."""
-    engine = DecodeEngine(params, num_slots=opt.serve,
-                          compute_dtype=compute_dtype, device=opt.device)
+def _engine(opt, params, compute_dtype, mesh):
+    """The decode engine: one rank's, or over ``mesh``'s ``model`` axis."""
+    if mesh is None:
+        return DecodeEngine(params, num_slots=opt.serve,
+                            compute_dtype=compute_dtype, device=opt.device)
+    return DecodeEngine(params, num_slots=opt.serve,
+                        compute_dtype=compute_dtype, mesh=mesh,
+                        tp_axis="model")
+
+
+def start_server(opt, params, compute_dtype=None, mesh=None, **server_kw):
+    """The engine (tensor-parallel over ``mesh``'s ``model`` axis when
+    given: this rank leads) warmed up (one smallest-bucket prefill and one
+    tick, as the JAX example does) behind a started :class:`ServeServer`."""
+    engine = _engine(opt, params, compute_dtype, mesh)
     slot, _ = engine.admit(np.ones(4, np.int32), 2)
     engine.tick()
     engine.finish(slot)
     return ServeServer(engine, port=opt.servePort, **server_kw).start()
+
+
+def _follow(opt, params, compute_dtype, mesh) -> None:
+    """A follower rank of the tensor-parallel engine: replay the leader's
+    ops (its warm-up included) until the server stops."""
+    engine = _engine(opt, params, compute_dtype, mesh)
+    done = engine.follow()
+    print(f"[rank {mesh.axis_index('model')}] follower stopped after "
+          f"{done} engine ops", flush=True)
 
 
 def _corpus(opt) -> np.ndarray:
@@ -367,10 +392,12 @@ def _build_step(opt, lm, mesh, whole, log):
 def train(opt, rank: int = 0, init_method: str | None = None):
     """``opt.steps`` steps of this rank of the ``(dp, sp, tp)`` mesh (``(dp,
     pp)`` with ``--pp``) on its block of the corpus; returns ``(params,
-    compute_dtype, corpus)`` with the trained params gathered whole (the
-    working copy under ``--mixed``; None where neither ``--generate`` nor
-    ``--serve`` asks for them).  The mesh's process group starts here and
-    is destroyed before returning."""
+    compute_dtype, corpus, mesh)`` with the trained params gathered whole
+    (the working copy under ``--mixed``; None where neither
+    ``--generate`` nor ``--serve`` asks for them).  The mesh's process
+    group starts here; the caller destroys it
+    (``torch.distributed.destroy_process_group``) when done with the mesh,
+    which serves under ``--tp > 1``."""
     import torch.distributed as dist
 
     from distlearn_tpu_torch.models.convert import lm_from_jax, lm_gather
@@ -457,20 +484,44 @@ def train(opt, rank: int = 0, init_method: str | None = None):
             whole = lm_from_jax(lm_gather(getattr(params, "params", params),
                                           mesh, "model", ep_axis),
                                 device=mesh.device)
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    return whole, _compute_dtype(opt), corpus, mesh
+
+
+def _rank_main(index: int, opt, init_method: str, first: int = 0) -> None:
+    """Rank ``first + index`` of the mesh: trains, then rank 0 generates,
+    and rank 0 serves (with ``--tp > 1`` the ``model`` line of ranks
+    ``0..tp-1`` does, rank 0 leading)."""
+    import torch.distributed as dist
+    rank = first + index
+    params, cd, corpus, mesh = train(opt, rank, init_method)
+    try:
+        if rank == 0 or opt.serve and opt.tp > 1:
+            _after_training(opt, params, cd, corpus, mesh)
     finally:
         dist.destroy_process_group()
-    return whole, _compute_dtype(opt), corpus
 
 
-def _rank_main(rank: int, opt, init_method: str) -> None:
-    """A spawned rank of the mesh: trains, then rank 0 runs the rest."""
-    params, cd, corpus = train(opt, rank, init_method)
-    if rank == 0:
-        _after_training(opt, params, cd, corpus)
+def _serving_line(opt, mesh) -> bool:
+    """This rank is on the ``model`` line that serves under ``--tp > 1``
+    (data and seq index 0)."""
+    return mesh is not None and opt.tp > 1 and \
+        mesh.axis_index("data") == 0 and mesh.axis_index("seq") == 0
 
 
-def _after_training(opt, params, cd, corpus) -> None:
-    """``--generate`` and ``--serve`` on the whole ``params``."""
+def _after_training(opt, params, cd, corpus, mesh=None) -> None:
+    """``--generate`` on rank 0 and ``--serve`` on the whole ``params``:
+    on rank 0, or with ``--tp > 1`` tensor-parallel over ``mesh``'s
+    ``model`` line through data and seq index 0."""
+    if _serving_line(opt, mesh):
+        rank = mesh.axis_index("model")
+        if rank != 0:
+            _follow(opt, params, cd, mesh)
+            return
+    elif mesh is not None and opt.tp > 1:
+        return                       # not on the serving line
     log = root_print(0)
     if opt.generate:
         Pq = max(4, opt.seqLen // 8)
@@ -487,10 +538,12 @@ def _after_training(opt, params, cd, corpus) -> None:
             log(f"generated {gen.shape[1]} tokens (KV-cached greedy, "
                 f"prompt len {L}): {gen[b].tolist()}")
     if opt.serve:
-        srv = start_server(opt, params, cd)
+        srv = start_server(opt, params, cd, mesh=mesh
+                           if _serving_line(opt, mesh) else None)
         install_signal_flush(srv)
         log(f"serving on {srv.host}:{srv.port} ({opt.serve} slots, max_len "
-            f"{srv.engine.max_len}, {srv.engine.device}) — drive with: "
+            f"{srv.engine.max_len}, {srv.engine.device}"
+            + (f", tp={opt.tp}" if opt.tp > 1 else "") + ") — drive with: "
             f"python -m distlearn_tpu_torch.examples.lm_client --port "
             f"{srv.port}")
         try:
@@ -511,7 +564,7 @@ def main(argv=None) -> int:
     if opt.obsLog:
         obs.set_spill(opt.obsLog)
     http = obs.start_http_server(opt.obsPort) if opt.obsPort else None
-    if opt.steps > 0 and _ranks(opt) > 1:
+    if _ranks(opt) > 1 and (opt.steps > 0 or opt.serve and opt.tp > 1):
         import torch.multiprocessing as mp
 
         from distlearn_tpu_torch.parallel.mesh import local_init_method
@@ -521,11 +574,20 @@ def main(argv=None) -> int:
         if avail is not None and avail < _ranks(opt):
             raise SystemExit(f"need {_ranks(opt)} devices (dp*sp*tp*pp), "
                              f"have {avail}")
-        mp.start_processes(_rank_main, args=(opt, local_init_method()),
-                           nprocs=_ranks(opt), start_method="spawn")
+        init = local_init_method()
+        # rank 0 here (it serves, and takes SIGTERM/Ctrl-C), the rest
+        # spawned
+        others = mp.start_processes(_rank_main, args=(opt, init, 1),
+                                    nprocs=_ranks(opt) - 1, join=False,
+                                    start_method="spawn")
+        _rank_main(0, opt, init)
+        while not others.join():
+            pass
     else:
         if opt.steps > 0:
-            params, cd, corpus = train(opt)
+            import torch.distributed as dist
+            params, cd, corpus, _ = train(opt)
+            dist.destroy_process_group()
         else:
             params, cd = build_model(opt)
             corpus = _corpus(opt) if opt.generate else None

@@ -9,9 +9,12 @@ shard over a :class:`~distlearn_tpu_torch.parallel.mesh.Mesh` and
 :func:`lm_gather` puts the shards back together; :func:`lm_pp_shard`,
 :func:`fsdp_shard` and :func:`lm_zero_from_jax` carry the pipeline
 stages, the FSDP shards and the ZeRO-1 state across (each with its
-inverse).  The JAX side is nested dicts of numpy arrays (``jax.device_get``
-of its pytrees; optax states are named tuples, walked as tuples), so this
-module needs no JAX.
+inverse); :func:`lm_shard_records` and :func:`lm_zero_records` give the
+regions of the JAX package's global arrays that a rank holds, for
+sharded checkpoints both packages read (:func:`lm_zero_restore`).  The
+JAX side is nested dicts of numpy arrays (``jax.device_get`` of its
+pytrees; optax states are named tuples, walked as tuples), so this module
+needs no JAX.
 
 :data:`CONVNET_WIRE` is the convnets' layout on the AsyncEA wire: the JAX
 package's, so that a JAX peer and a port peer exchange the same leaves.
@@ -120,12 +123,13 @@ def lm_shard(params, mesh, tp_axis: str | None = None,
     param_specs` assigns to a mesh axis is cut into that axis's size equal
     blocks and this rank keeps block ``axis_index`` (heads and the MLP
     hidden over ``tp_axis``, experts over ``ep_axis``).  Returns tensors on
-    ``device`` (the mesh's by default), cast to ``dtype`` when given."""
+    ``device`` (the mesh's by default), cast to ``dtype`` when given; a
+    tensor leaf is cut on its own device."""
     from distlearn_tpu_torch.models.transformer import param_specs
     device = mesh.device if device is None else device
 
     def leaf(a, spec):
-        t = _lm_leaf(a, "cpu", None)
+        t = _lm_leaf(a, None, None)
         for dim, name in enumerate(spec):
             if name is None:
                 continue
@@ -265,6 +269,95 @@ def lm_zero_to_jax(states, shape=None):
     opt = [stack(col) for col in zip(*(tree_leaves(s.opt_state)
                                        for s in states))]
     return stack([s.master for s in states]), opt
+
+
+def _replicas_elsewhere(mesh, cut) -> bool:
+    """True unless this rank is at index 0 of every axis of ``mesh`` not in
+    ``cut`` (the axes a leaf is split over): a replicated region is
+    written once, by that rank."""
+    return any(mesh.axis_index(a) for a in mesh.axis_names if a not in cut)
+
+
+def lm_shard_records(shard, mesh, tp_axis: str | None = None,
+                     ep_axis: str | None = None, once: bool = True):
+    """This rank's :class:`~distlearn_tpu_torch.utils.checkpoint.Shard`
+    records of an :func:`lm_shard` tree: each leaf as its region of the
+    whole leaf (the dimensions ``param_specs`` assigns to a mesh axis cut
+    at this rank's index).  With ``once``, a region that other ranks hold
+    too (along the axes that do not cut the leaf) is left to the rank at
+    index 0 of those axes (``None`` here), so that the files hold it once;
+    ``once=False`` gives every rank its records (restore templates)."""
+    from distlearn_tpu_torch.models.transformer import param_specs
+    from distlearn_tpu_torch.utils.checkpoint import Shard
+
+    def leaf(t, spec):
+        if once and _replicas_elsewhere(mesh, spec):
+            return None
+        shape, index = list(t.shape), [[0, d] for d in t.shape]
+        for dim, name in enumerate(spec):
+            if name is not None:
+                n, i = mesh.axis_size(name), mesh.axis_index(name)
+                shape[dim] = t.shape[dim] * n
+                index[dim] = [i * t.shape[dim], (i + 1) * t.shape[dim]]
+        return Shard(t, index, shape)
+    return _specs_walk(shard, param_specs(shard, tp_axis, ep_axis), leaf)
+
+
+def lm_zero_records(state, tree, data_axis: str = "data",
+                    tp_axis: str | None = None, once: bool = True) -> dict:
+    """This rank's records of a port
+    :class:`~distlearn_tpu_torch.train.optim.LMZeroState` in the JAX
+    package's layout, keyed as its ``LMZeroState._asdict()``: the master
+    row ``[chunk]`` as region ``[[r, r+1], [0, chunk]]`` of JAX's ``[n,
+    chunk]`` (data rank ``r``), each optimizer leaf the same way (``count``
+    region ``[[r, r+1]]`` of ``[n]``), the params
+    (:func:`lm_shard_records`) whole.  With ``tp_axis`` (the ``(data, seq,
+    model)`` mesh's state) the master is row ``[d, t]`` of ``[dp, tp,
+    chunk]`` and the params their tp regions.
+    ``once`` as in :func:`lm_shard_records`: replicated regions are written
+    by one rank."""
+    from distlearn_tpu_torch.train.lm import as_mesh
+    from distlearn_tpu_torch.utils.checkpoint import Shard
+    from distlearn_tpu_torch.utils.tree import tree_map
+    mesh = as_mesh(tree, data_axis)
+    cut = (data_axis,) if tp_axis is None else (data_axis, tp_axis)
+    lead = [mesh.axis(a) for a in cut]
+    skip = once and _replicas_elsewhere(mesh, cut)
+
+    def row(t):
+        if skip:
+            return None
+        return Shard(t.reshape((1,) * len(lead) + tuple(t.shape)),
+                     [[a.index, a.index + 1] for a in lead]
+                     + [[0, d] for d in t.shape],
+                     tuple(a.size for a in lead) + tuple(t.shape))
+    return {"params": lm_shard_records(state.params, mesh, tp_axis,
+                                       once=once),
+            "master": row(state.master),
+            "opt_state": tree_map(row, state.opt_state)}
+
+
+def lm_zero_restore(directory: str, like, tree, data_axis: str = "data",
+                    tp_axis: str | None = None, step: int | None = None):
+    """This rank's :class:`~distlearn_tpu_torch.train.optim.LMZeroState`
+    from a sharded checkpoint of the whole state, written by the port's
+    ranks (:func:`lm_zero_records`) or by the JAX package (its
+    ``LMZeroState._asdict()``): ``like`` is a state of the same layout on
+    the wanted device (a fresh ``init_lm_zero_state``), of which only the
+    shapes, dtypes and device are used.  Reads only this rank's regions.
+    Returns ``(state, metadata)``."""
+    from distlearn_tpu_torch.train.optim import LMZeroState
+    from distlearn_tpu_torch.utils.checkpoint import restore_sharded_checkpoint
+    from distlearn_tpu_torch.utils.tree import tree_map
+    got, meta = restore_sharded_checkpoint(
+        directory, lm_zero_records(like, tree, data_axis, tp_axis,
+                                   once=False), step=step)
+
+    def put(t, ref):
+        return t.reshape(ref.shape).to(device=ref.device)
+    return LMZeroState(tree_map(put, got["params"], like.params),
+                       put(got["master"], like.master),
+                       tree_map(put, got["opt_state"], like.opt_state)), meta
 
 
 class WireLayout(NamedTuple):

@@ -18,8 +18,20 @@ outside Pallas too.  The K/V pools ``[depth, num_pages, page, heads,
 head_dim]`` are device tensors updated in place, where the JAX package
 donates them.  The weights are cast to the compute dtype once, at
 construction and at every swap, which gives the same values as casting at
-each use.  The tensor-parallel engine (``mesh``/``tp_axis``) waits for
-ROADMAP A12.
+each use.
+
+Tensor parallelism (``mesh``/``tp_axis``): each rank of the tp axis keeps
+its shard of the weights (heads and the MLP hidden, ``param_specs``) and
+of the K/V pools (its heads), and the block functions psum over the axis
+as the training step does.  Where the JAX package runs one program over
+the tp devices from one process, here each rank is a process: rank 0 of
+the axis is the **leader**, which owns the host state (the paged cache's
+tables, the scheduler and server above it) and samples; before each
+device pass it broadcasts the op and its host arrays on a gloo group
+(:meth:`DecodeEngine._send`), and every other rank runs
+:meth:`DecodeEngine.follow`, which replays them on its shard and pools.
+The logits leave the psum replicated, so only the leader's draw counts —
+the JAX package's rule that sampling sits outside the mapped region.
 
 Sampling (temperature > 0) keeps the JAX package's top-k and top-p rule;
 its draw comes from a ``torch.Generator`` seeded from (seed, position)
@@ -29,13 +41,16 @@ are not JAX's threefry draws.  Temperature 0 is the plain argmax.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distlearn_tpu_torch import obs
+from distlearn_tpu_torch.models.convert import lm_shard
 from distlearn_tpu_torch.models.transformer import (_rmsnorm, attn_out,
                                                     attn_qkv, decode_attend,
                                                     ffn_apply,
@@ -47,7 +62,12 @@ from distlearn_tpu_torch.utils.tree import tree_flatten, tree_map
 
 PyTree = Any
 
-__all__ = ["DecodeEngine", "CacheFull", "PrefillJob"]
+__all__ = ["DecodeEngine", "CacheFull", "LeaderLost", "PrefillJob"]
+
+
+class LeaderLost(ConnectionError):
+    """A follower's control channel failed: the leader died or the group
+    timed out."""
 
 
 def _draw_key(seed: int, position: int) -> int:
@@ -132,13 +152,23 @@ class DecodeEngine:
                  compute_dtype=None, mesh=None, tp_axis: str | None = None,
                  spec_k: int = 4, num_pages: int | None = None,
                  device=None):
-        if mesh is not None or tp_axis is not None:
-            raise NotImplementedError(
-                "the tensor-parallel engine (mesh/tp_axis) waits for ROADMAP "
-                "A12 (tensor-parallel serving)")
-        self.device = resolve_device(device)
-        params, self.depth = generate_params(params)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        if (mesh is None) != (tp_axis is None):
+            raise ValueError("mesh and tp_axis come together (both or "
+                             "neither)")
+        self.device = resolve_device(device if device is not None or
+                                     mesh is None else mesh.device)
+        whole, self.depth = generate_params(params)
+        heads = whole["block0"]["wq"].shape[1]
+        self.mesh, self.tp_axis = mesh, tp_axis
+        self._tp = None if mesh is None else mesh.axis(tp_axis)
+        if self._tp is not None and heads % self._tp.size:
+            raise ValueError(f"{heads} heads not divisible by the {tp_axis} "
+                             f"axis ({self._tp.size})")
+        #: the whole tree's structure, shapes and dtypes (meta tensors):
+        #: what a swap and a checkpoint tailer are checked against
+        self.template = tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta"), whole)
+        self.params = self._shard(whole)
         self.cd = compute_dtype or self.params["embed"].dtype
         self._run = self._cast(self.params)
         pos_len = self.params["pos"].shape[0]
@@ -147,6 +177,7 @@ class DecodeEngine:
             raise ValueError(f"max_len={self.max_len} exceeds the model's "
                              f"positional table {pos_len}")
         wq = self.params["block0"]["wq"]
+        # this rank's heads: all of them, or its shard under tp
         self.heads, self.head_dim = wq.shape[1], wq.shape[2]
         if spec_k < 1:
             raise ValueError(f"spec_k={spec_k} must be >= 1")
@@ -179,6 +210,113 @@ class DecodeEngine:
             "tokens emitted per slot per verify tick (accepted drafts + "
             "the bonus token; 1 == plain-tick throughput)",
             buckets=(1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0))
+        self.is_leader = self._tp is None or self._tp.index == 0
+        self._ctl = None
+        self._stopped = False
+        self._send_lock = threading.Lock()
+        if self._tp is not None and self._tp.size > 1:
+            # the control channel: the axis's own group when it is gloo,
+            # else a gloo group over the axis's ranks (host messages)
+            self._ctl = self._tp.group if mesh.backend == "gloo" else \
+                dist.new_group(list(self._tp.ranks), backend="gloo",
+                               use_local_synchronization=True)
+            self._check_same_program(num_slots, page, num_pages)
+
+    # -- tensor parallelism: shards, leader and followers -------------------
+    def _shard(self, whole: PyTree) -> PyTree:
+        """This rank's shard of a whole (per-block) tree on the engine's
+        device (``lm_shard``: heads and the MLP hidden cut over the tp
+        axis)."""
+        if self._tp is None:
+            return tree_map(lambda t: t.to(self.device), whole)
+        return lm_shard(whole, self.mesh, self.tp_axis, device=self.device)
+
+    def _check_same_program(self, num_slots, page, num_pages) -> None:
+        """Every rank of the axis must build the same engine: the same
+        whole tree's shapes and the same cache."""
+        mine = (num_slots, page, num_pages, self.max_len, self.spec_k,
+                str(self.cd), [(tuple(t.shape), str(t.dtype))
+                               for t in tree_flatten(self.template)[0]])
+        everyone = [None] * self._tp.size
+        dist.all_gather_object(everyone, mine, group=self._ctl)
+        if any(x != everyone[0] for x in everyone):
+            raise ValueError("the tp ranks built different engines "
+                             "(cache sizes, compute dtype or weights)")
+
+    def _send(self, op: str, *args) -> None:
+        """The leader's half of the protocol: broadcast ``(op, args)`` to
+        the followers before running the op itself (nothing without tp)."""
+        if self._ctl is None:
+            return
+        if not self.is_leader:
+            raise RuntimeError("a follower's engine takes its ops from the "
+                               "leader: run follow()")
+        with self._send_lock:      # one message at a time on the channel
+            if self._stopped:
+                raise RuntimeError("the followers were stopped")
+            dist.broadcast_object_list([(op, args)], src=self._tp.ranks[0],
+                                       group=self._ctl)
+            self._stopped = op == "stop"
+
+    def follow(self) -> int:
+        """A follower's loop: receive the leader's ops and replay each on
+        this rank's shard and pools, until the leader sends ``stop``;
+        returns the number of ops replayed.  Raises :class:`LeaderLost`
+        when the channel fails (the leader died, or the group's timeout
+        passed)."""
+        if self._ctl is None or self.is_leader:
+            raise RuntimeError("follow() runs on the non-leader ranks of a "
+                               "tensor-parallel engine")
+        done = 0
+        while True:
+            box = [None]
+            try:
+                dist.broadcast_object_list(box, src=self._tp.ranks[0],
+                                           group=self._ctl)
+            except RuntimeError as e:
+                raise LeaderLost(f"the leader's channel failed after {done} "
+                                 f"ops: {e}") from e
+            op, args = box[0]
+            if op == "stop":
+                self._stopped = True
+                return done
+            self._replay(op, args)
+            done += 1
+
+    def _replay(self, op: str, args: tuple) -> None:
+        t = self._t
+        if op == "prefill":
+            btrow, padded, plen = args
+            self._prefill(t(btrow), t(padded), plen)
+        elif op == "chunk":
+            btrow, padded, p0, take = args
+            self._chunk(t(btrow), t(padded), p0, take)
+        elif op == "tick":
+            self._tick_pass(*map(t, args))
+        elif op == "verify":
+            self._verify_pass(*map(t, args))
+        elif op == "swap":
+            self._install(self._swap_tree(*args))
+        elif op not in ("finish", "abort_prefill"):
+            raise ValueError(f"unknown engine op {op!r}")
+
+    def _swap_tree(self, source: tuple) -> PyTree:
+        """The whole tree a swap op names: ``("tree", tree)`` carries it,
+        ``("ckpt", directory, step)`` names a checkpoint this rank reads."""
+        if source[0] == "tree":
+            return source[1]
+        from distlearn_tpu_torch.serve.server import load_weights
+        return load_weights(source[1], self.template, source[2])[0]
+
+    def stop(self) -> None:
+        """The leader ends its followers' :meth:`follow` loops (once; a
+        no-op without tp and on a follower)."""
+        if self._ctl is not None and self.is_leader and not self._stopped:
+            try:
+                self._send("stop")
+            except RuntimeError:
+                if not self._stopped:    # another thread stopped them first
+                    raise
 
     def _cast(self, params: PyTree) -> PyTree:
         """The weights in the compute dtype (the same tensors when they
@@ -204,15 +342,16 @@ class DecodeEngine:
     def _layers(self, x, pages, offs, attend):
         """The block stack: each layer scatters this pass's K/V into the
         pools at ``(pages, offs)``, then attends with ``attend(i, q, k,
-        v)``."""
-        p, cd = self._run, self.cd
+        v)``; under tp on this rank's heads and hidden, with the two psums
+        a block of JAX's ``tick_core``/``prefill_core``."""
+        p, cd, tp = self._run, self.cd, self._tp
         for i in range(self.depth):
             blk = p[f"block{i}"]
-            q, k, v = attn_qkv(blk, x, cd)
+            q, k, v = attn_qkv(blk, x, cd, tp)
             self._k[i, pages, offs] = k.reshape(pages.shape + k.shape[2:])
             self._v[i, pages, offs] = v.reshape(pages.shape + v.shape[2:])
-            x = attn_out(blk, x, attend(i, q, k, v), cd)
-            x = ffn_apply(blk, x, cd)
+            x = attn_out(blk, x, attend(i, q, k, v), cd, tp)
+            x = ffn_apply(blk, x, cd, tp=tp)
         return _rmsnorm(p["out_norm"], x)
 
     def _paged(self, bt: torch.Tensor, pos: torch.Tensor):
@@ -359,12 +498,14 @@ class DecodeEngine:
             raise ValueError("prefill_step on a finished job")
         plen = len(job.prompt)
         remaining = plen - job.pos
-        btrow = self._t(self.cache.block_table[job.slot])
+        row = self.cache.block_table[job.slot].copy()
+        btrow = self._t(row)
         if job.pos == 0 and (chunk is None or chunk >= plen):
             bucket = self.bucket_for(plen)
             padded = np.zeros((1, bucket), np.int32)
             padded[0, :plen] = job.prompt
             with obs.span("serve.prefill", slot=job.slot, bucket=bucket):
+                self._send("prefill", row, padded, plen)
                 lg = self._prefill(btrow, self._t(padded), plen)
                 # the first generated token occupies position plen
                 first = self._sample(lg, job.slot, plen)
@@ -377,6 +518,7 @@ class DecodeEngine:
             padded[0, :take] = job.prompt[job.pos:job.pos + take]
             with obs.span("serve.prefill_chunk", slot=job.slot,
                           bucket=bucket, p0=job.pos):
+                self._send("chunk", row, padded, job.pos, take)
                 lg = self._chunk(btrow, self._t(padded), job.pos, take)
                 # only the final chunk's token is consumed
                 first = self._sample(lg, job.slot, job.pos + take) \
@@ -395,6 +537,7 @@ class DecodeEngine:
     def abort_prefill(self, job: PrefillJob):
         """Release a job that will never finish (deadline/cancel
         mid-prefill): frees the slot and drops its page references."""
+        self._send("abort_prefill", job.slot)
         job.done = True
         self.cache.release(job.slot)
 
@@ -424,8 +567,9 @@ class DecodeEngine:
             return {}
         t0 = time.perf_counter()
         with obs.span("serve.tick", slots=int(runnable.sum())):
-            lg = self._tick_pass(self._t(c.block_table), self._t(c.lengths),
-                                 self._t(c.last_tok), self._t(runnable))
+            host = (c.block_table, c.lengths, c.last_tok, runnable)
+            self._send("tick", *host)
+            lg = self._tick_pass(*map(self._t, host))
             nxt = torch.argmax(lg, dim=-1).cpu().numpy()
             for slot in np.flatnonzero(runnable & (self._temp > 0)):
                 # the sampled token occupies position lengths + 1
@@ -470,9 +614,9 @@ class DecodeEngine:
         t0 = time.perf_counter()
         with obs.span("serve.verify", slots=int(part.sum()),
                       drafted=int(nd.sum())):
-            out = self._verify_pass(
-                self._t(c.block_table), self._t(c.lengths), self._t(toks),
-                self._t(part), self._t(nd)).cpu().numpy()
+            host = (c.block_table, c.lengths, toks, part, nd)
+            self._send("verify", *host)
+            out = self._verify_pass(*map(self._t, host)).cpu().numpy()
         self._h_tick.observe(time.perf_counter() - t0)
         self._m_verifies.inc()
         res: dict[int, list[int]] = {}
@@ -493,18 +637,24 @@ class DecodeEngine:
 
     def finish(self, slot: int):
         """Release the slot's pages (request done or evicted)."""
+        self._send("finish", int(slot))
         self.cache.release(slot)
 
-    def swap_params(self, params: PyTree) -> None:
+    def swap_params(self, params: PyTree, source: tuple | None = None
+                    ) -> None:
         """Hot-swap the served weights between ticks (``serve.server``
-        fences admissions around the call).  Structure, shape and dtype
-        must match the engine's, so a layout drift fails the swap, not the
-        next request."""
+        fences admissions around the call).  ``params`` is the whole tree;
+        its structure, shapes and dtypes must match the engine's
+        :attr:`template`, so a layout drift fails the swap, not the next
+        request.  Under tp every rank takes its own shard: ``source =
+        (directory, step)`` names the checkpoint ``params`` came from, and
+        each follower reads it itself; without it the tree travels on the
+        control channel."""
         new, depth = generate_params(params)
         if depth != self.depth:
             raise ValueError(f"swap depth {depth} != engine depth "
                              f"{self.depth}")
-        old_leaves, old_def = tree_flatten(self.params)
+        old_leaves, old_def = tree_flatten(self.template)
         new_leaves, new_def = tree_flatten(new)
         if old_def != new_def:
             raise ValueError("swap param tree structure differs from the "
@@ -514,5 +664,12 @@ class DecodeEngine:
                 raise ValueError(
                     f"swap leaf mismatch: {tuple(n.shape)}/{n.dtype} where "
                     f"the engine holds {tuple(o.shape)}/{o.dtype}")
-        self.params = tree_map(lambda t: t.to(self.device), new)
+        if self._ctl is not None:
+            self._send("swap", ("ckpt", *source) if source is not None else
+                       ("tree", tree_map(lambda t: t.detach().cpu(), new)))
+        self._install(new)
+
+    def _install(self, whole: PyTree) -> None:
+        whole, _ = generate_params(whole)
+        self.params = self._shard(whole)
         self._run = self._cast(self.params)

@@ -79,6 +79,16 @@ def restore_center(directory: str, like, step: int | None = None):
                                     for i in range(len(leaves))]), meta
 
 
+def load_weights(directory: str, like, step: int | None = None):
+    """``(tree, metadata)`` of a checkpoint in either layout the repo
+    writes: params-shaped (``save_checkpoint(dir, step, params)``), else
+    the HA center layout (:func:`restore_center`)."""
+    try:
+        return restore_checkpoint(directory, like, step=step)
+    except (KeyError, ValueError):
+        return restore_center(directory, like, step=step)
+
+
 class WeightTailer:
     """Tail a checkpoint directory for new weights to serve — the
     ``ha.StandbyCenter`` watch-probe pattern pointed at serving instead
@@ -103,6 +113,11 @@ class WeightTailer:
     def poll_step(self) -> int | None:
         return latest_step(self.directory)
 
+    @property
+    def step(self) -> int | None:
+        """The step of the last tree :meth:`maybe_load` returned."""
+        return self._last_step
+
     def maybe_load(self, now: float):
         """``(params, meta)`` for an unseen newest step, else ``None``.
         A torn or foreign file is skipped (warned once) and re-tried
@@ -125,10 +140,7 @@ class WeightTailer:
         return tree, meta
 
     def _restore(self, step: int):
-        try:
-            return restore_checkpoint(self.directory, self.like, step=step)
-        except (KeyError, ValueError):
-            return restore_center(self.directory, self.like, step=step)
+        return load_weights(self.directory, self.like, step)
 
 
 class ServeServer:
@@ -140,13 +152,20 @@ class ServeServer:
                  ckpt_like=None, epoch: int | None = None,
                  prefix_cache: bool = False, spec_k: int | None = None,
                  prefill_chunk: int | None = None):
-        """Raw-speed knobs (all default OFF — the plain serve path stays
+        """``engine`` is a single-rank engine or a tensor-parallel engine's
+        leader (its followers run ``engine.follow()``; :meth:`stop` and the
+        end of the request loop stop them).
+
+        Raw-speed knobs (all default OFF — the plain serve path stays
         byte-identical): ``prefix_cache`` retains finished prompts' K/V
         pages in a :class:`RadixPrefixCache` so shared-prefix traffic
         prefills only its suffix; ``spec_k`` enables n-gram speculative
         decoding with that many draft tokens per verify; ``prefill_chunk``
         bounds prompt positions prefilled per round while streams decode
         (chunked prefill — long prompts stop stalling TPOT)."""
+        if not engine.is_leader:
+            raise ValueError("a tensor-parallel engine serves from its "
+                             "leader; the other ranks run follow()")
         self.engine = engine
         self.prefix_cache = (RadixPrefixCache(engine.cache)
                              if prefix_cache else None)
@@ -196,8 +215,9 @@ class ServeServer:
         #: epoch, both valid ("telemetry tolerates a torn view").
         self.epoch = epoch
         self.ckpt_step: int | None = None
+        # the whole tree's shapes (a tp engine holds only its shard)
         self._tailer = (WeightTailer(ckpt_dir,
-                                     engine.params if ckpt_like is None
+                                     engine.template if ckpt_like is None
                                      else ckpt_like, poll=ckpt_poll)
                         if ckpt_dir else None)
         self._swap_pending: tuple | None = None   # (params, meta) loaded
@@ -252,9 +272,19 @@ class ServeServer:
         if self._thread is not None and self._thread.is_alive():
             self._thread.join(10.0)
         self._thread = None
+        self._stop_followers()
         self._lst.close()
         self._g_queue.set(0)
         self._g_active.set(0)
+
+    def _stop_followers(self):
+        """End a tp engine's followers (once: the loop's exit and
+        :meth:`stop` both call this); a dead channel is reported, not
+        raised."""
+        try:
+            self.engine.stop()
+        except Exception as e:  # noqa: BLE001 — followers already gone
+            print_server(f"stopping the engine's followers failed: {e!r}")
 
     # -- request loop -------------------------------------------------------
     def serve_forever(self):
@@ -282,6 +312,7 @@ class ServeServer:
                     for c in list(self._lst.conns):
                         c.close()
         finally:
+            self._stop_followers()
             self._drained.set()
             self._g_queue.set(0)
             self._g_active.set(0)
@@ -310,7 +341,9 @@ class ServeServer:
         self._swap_pending = None
         self.sched.hold = False
         try:
-            self.engine.swap_params(tree)
+            # under tp each follower reads the same checkpoint itself
+            self.engine.swap_params(
+                tree, source=(self._tailer.directory, self._tailer.step))
         except ValueError as e:
             # layout drift (wrong depth/shape): refuse the swap, keep
             # serving the old weights — availability over freshness (and

@@ -256,9 +256,12 @@ def test_engine_validation(port_params):
         pe.admit(np.zeros((0,), np.int32), 4)
     with pytest.raises(ValueError):
         pe.admit(np.ones(MAX_LEN, np.int32), 1)
-    with pytest.raises(NotImplementedError, match="A12"):
-        PortEngine(port_params, mesh=object(), tp_axis="model",
-                   device="cpu")
+    # JAX's check: mesh and tp_axis come together (the tp engine itself
+    # is held in tests/test_torch_serve_tp.py)
+    with pytest.raises(ValueError, match="come together"):
+        PortEngine(port_params, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="come together"):
+        PortEngine(port_params, tp_axis="model", device="cpu")
 
 
 # -- sampling -----------------------------------------------------------------

@@ -1,6 +1,6 @@
 """One rank of the gloo meshes in tests/test_torch_mesh_lm.py,
-tests/test_torch_moe.py, tests/test_torch_pp.py and
-tests/test_torch_optim_lm.py.
+tests/test_torch_moe.py, tests/test_torch_pp.py,
+tests/test_torch_optim_lm.py and tests/test_torch_checkpoint_sharded.py.
 
 Started with ``torch.multiprocessing`` (spawn), so it imports the port and
 nothing of JAX: the parent runs the JAX package on its CPU mesh and
@@ -388,12 +388,70 @@ def _lm_fsdp(mesh, case):
     return res
 
 
+def _zero_ckpt(mesh, case):
+    """The ZeRO-1 LM resume through sharded checkpoints (over the data
+    axis, or the (data, seq, model) mesh's state): two steps, every rank
+    saves its records, two more steps (the reference); a fresh state
+    restored from the files takes the same two steps.  Then, given the
+    JAX package's checkpoint of its own state, this rank's state restored
+    from it."""
+    from distlearn_tpu_torch.utils.checkpoint import save_sharded_checkpoint
+    model = transformer_lm(**case["cfg"])
+    tx = topt.adam(case["lr"])
+    on_mesh = "model" in mesh.axis_names
+    tp = "model" if on_mesh else None
+    if on_mesh:
+        params = lm_shard(case["params"], mesh, tp)
+        step = topt.build_lm_zero_mesh_step(model, mesh, tx, seq_axis="seq",
+                                            tp_axis=tp)
+    else:
+        params = convert.lm_from_jax(case["params"])
+        step = topt.build_lm_zero_step(model, mesh, tx)
+    toks = _tokens_block(mesh, case["tokens"])
+    st = topt.init_lm_zero_state(params, mesh, tx)
+    for _ in range(2):
+        st, _ = step(st, toks)
+    save_sharded_checkpoint(case["dir"], 2,
+                            convert.lm_zero_records(st, mesh, tp_axis=tp),
+                            metadata={"note": "zero"},
+                            process_index=dist.get_rank())
+    res = {"saved": convert.lm_zero_to_jax([st]),
+           "params": lm_gather(st.params, mesh, tp),
+           "index": tuple(mesh.axis_index(a) for a in mesh.axis_names)}
+    ref = st
+    for _ in range(2):
+        ref, ref_loss = step(ref, toks)
+    dist.barrier()                 # every rank's file is on disk
+    fresh = topt.init_lm_zero_state(params, mesh, tx)
+    st2, meta = convert.lm_zero_restore(case["dir"], fresh, mesh,
+                                        tp_axis=tp)
+    res["meta"] = meta
+    res["restored_equal"] = all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(st2),
+                                          tree_leaves(st)))
+    for _ in range(2):
+        st2, loss2 = step(st2, toks)
+    res["losses"] = (float(ref_loss), float(loss2))
+    res["params_equal"] = all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(ref.params),
+                                          tree_leaves(st2.params)))
+    if "jax_state_file" in case:
+        # the JAX package's checkpoint of its own state after two steps
+        js = _wait_for_pickle(case["jax_state_file"])
+        st3, _ = convert.lm_zero_restore(case["jax_dir"], fresh, mesh)
+        want = convert.lm_zero_from_jax(js, tx, mesh.axis_index("data"))
+        res["from_jax_equal"] = [torch.equal(a, b) for a, b in
+                                 zip(tree_leaves(st3), tree_leaves(want))]
+    return res
+
+
 KINDS = {"collectives": _collectives, "attention": _attention,
          "lm_step": _lm_step, "shard_roundtrip": _shard_roundtrip,
          "moe_metrics": _moe_metrics, "moe_ffn": _moe_ffn,
          "pipeline": _pipeline, "pp_step": _pp_step,
          "pp_liveness": _pp_liveness, "lm_zero": _lm_zero,
-         "lm_optax": _lm_optax, "lm_fsdp": _lm_fsdp}
+         "lm_optax": _lm_optax, "lm_fsdp": _lm_fsdp,
+         "zero_ckpt": _zero_ckpt}
 
 
 def run(rank, world, store_path, cases, out_dir):
