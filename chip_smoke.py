@@ -260,11 +260,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    swaps (each rank reads it and takes its shard) and echoes 2, and 2
    requests after it are epoch 2 and ``greedy_generate``'s on the new
    weights; TTFT and TPOT p50 per replica.  The phase fails past 150 s.
-21. report — a ``{"kernels": [...]}`` line (the flash rows and B1 with
+21. tools — A13, the port's fleet tools (``distlearn_tpu_torch/tools``)
+   on the card: (a) ``chaos.run_parity`` (8 rounds, a kill at round 3 on
+   a round boundary and mid-flight, S = 4) and ``run_churn`` (3 clients:
+   raw, int8, fp16; 1 center kill) on the convnet's 18 leaves (17.3 MB),
+   the promoted centers bit for bit the unkilled run's; B3's and B4's
+   launches in the churn equal the int8 encodes and fused applies that
+   ``diststat``'s codec table reads from the run's trail, and the
+   profile's kernel names; (b) ``run_scenario`` ``zipf_mix`` (128-token
+   shared prefixes), ``replica_kill`` (prompts of 100-1500 tokens) and
+   ``flash_crowd`` (the JAX tool's 3-8-token prompts, its bounds kept)
+   over phase 10's LM at full width in float32 with flash: B5a's launches
+   equal 8 (depth) a ``serve.prefill`` span of bucket >= 128 in the
+   trails, and one profiled 1000-token prefill launches it 8 times and
+   names it on its float32 CUDA-core route; (c)
+   ``diststat merge`` and ``tracecat`` over every trail: non-empty fleet
+   tables, one stitched router-to-replica trace a request; (d)
+   ``ea_convergence`` SGD and EA (tau 4), 4 ranks of 3 s: the EA curve
+   descends, B2 once a rank an elastic round; (e) ``profile_resnet`` at
+   batch 256 for 4 bfloat16 steps through ``utils/profiling.trace``, then
+   ``analyze_trace`` on its trace: B1 named 8 times a step, the class
+   shares beside phase 17's.  The phase fails past 150 s.
+22. report — a ``{"kernels": [...]}`` line (the flash rows and B1 with
    their phase-18 launches under ``mesh_lm_launches``, the flash rows
    with phase 19's under ``pp_lm_launches``, B5a with phase 20's under
-   ``tp_serve_launches`` and ``fleet_launches``), the nvidia-smi line, and
-   last ``{"ok": true, "device": {...}}``.
+   ``tp_serve_launches`` and ``fleet_launches``, B1-B5a with phase 21's
+   under ``tools_launches``), the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -791,23 +813,6 @@ KERNEL_CLASSES = (            # (class, substrings of a kernel's name)
 )
 
 
-# torch.profiler records no kernel launched in the first moments of its
-# window (``python -m distlearn_tpu_torch.utils.profiler_probe``): every
-# profile here opens with a device synchronize and this pause
-PROFILE_SETTLE_S = 0.05
-
-
-@contextlib.contextmanager
-def profiler(activities, sync):
-    """``torch.profiler.profile(activities)`` whose window is open and
-    settled (``sync()``, then ``PROFILE_SETTLE_S``) when the block starts."""
-    from torch.profiler import profile
-    with profile(activities=activities) as prof:
-        sync()
-        time.sleep(PROFILE_SETTLE_S)
-        yield prof
-
-
 def profile_step(torch, run, classes=KERNEL_CLASSES,
                  other="elementwise/reduce"):
     """Run ``run()`` once under torch.profiler and log the device's busy
@@ -818,10 +823,11 @@ def profile_step(torch, run, classes=KERNEL_CLASSES,
     launches]}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    from distlearn_tpu_torch.utils.profiling import settled_profile
     torch.cuda.synchronize()
     try:
-        with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                      torch.cuda.synchronize) as prof:
+        with settled_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             torch.cuda.synchronize) as prof:
             t0 = time.perf_counter()
             out = run()
             torch.cuda.synchronize()
@@ -1013,9 +1019,10 @@ def profile_replay(torch, fn) -> dict:
     profiler's own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    from distlearn_tpu_torch.utils.profiling import settled_profile
     torch.cuda.synchronize()
-    with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                  torch.cuda.synchronize) as prof:
+    with settled_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         torch.cuda.synchronize) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1635,10 +1642,11 @@ def device_ms(torch, fn, calls=10):
     kernels, from torch.profiler (NaN if the profiler fails)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    from distlearn_tpu_torch.utils.profiling import settled_profile
     torch.cuda.synchronize()
     try:
-        with profiler([ProfilerActivity.CUDA],
-                      torch.cuda.synchronize) as prof:
+        with settled_profile([ProfilerActivity.CUDA],
+                             torch.cuda.synchronize) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -2497,6 +2505,7 @@ def compare_stream(torch, model, params, prompt, got, ref, tol):
 def phase_serve_lm(torch):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    from distlearn_tpu_torch.utils.profiling import settled_profile
 
     import numpy as np
     from distlearn_tpu_torch import obs
@@ -2628,8 +2637,8 @@ def phase_serve_lm(torch):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-            with profiler([ProfilerActivity.CUDA],
-                          torch.cuda.synchronize) as prof:
+            with settled_profile([ProfilerActivity.CUDA],
+                                 torch.cuda.synchronize) as prof:
                 fn()
                 torch.cuda.synchronize()
             evs = [e for e in prof.key_averages()
@@ -2800,7 +2809,7 @@ def phase_flash_backward(torch, card):
                                          "B5c": {"core"}}),
                         (torch.bfloat16, FLASH_BF16_ROUTES)):
         q, k, v, do = flash_inputs(torch, route_gen, *FLASH_TRAIN, dtype, 4)
-        keys = profiled_keys(torch, lambda: [fa.flash_attention_bwd(
+        keys = profiled_counts(torch, lambda: [fa.flash_attention_bwd(
             q, k, v, *fa.flash_attention_fwd(q, k, v), do)
             for _ in range(5)])
         routes = flash_routes(keys)
@@ -2935,18 +2944,20 @@ def flash_routes(keys) -> dict:
     return routes
 
 
-def profiled_keys(torch, fn) -> list[str]:
-    """Names of the device events of one profiled, synchronised ``fn()``
-    (CPU and CUDA activities, as phase 12's profile)."""
+def profiled_counts(torch, fn) -> dict:
+    """``{name: launches}`` of the device events of one profiled,
+    synchronised ``fn()`` (CPU and CUDA activities, as phase 12's
+    profile)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    from distlearn_tpu_torch.utils.profiling import settled_profile
     torch.cuda.synchronize()
-    with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                  torch.cuda.synchronize) as prof:
+    with settled_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         torch.cuda.synchronize) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
 
 
 def flash_counts(fa):
@@ -2963,6 +2974,7 @@ def reset_flash_counts(fa):
 def phase_train_lm(torch, tree):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    from distlearn_tpu_torch.utils.profiling import settled_profile
 
     import numpy as np
     from distlearn_tpu_torch.models.transformer import transformer_lm
@@ -3131,8 +3143,8 @@ def phase_train_lm(torch, tree):
             f"{v['peak_gb']:.2f} GB" for k, v in per_mode.items()))
 
     torch.cuda.synchronize()
-    with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                  torch.cuda.synchronize) as prof:
+    with settled_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         torch.cuda.synchronize) as prof:
         t = time.perf_counter()
         p1, _ = step(params0, tokens)
         torch.cuda.synchronize()
@@ -4355,6 +4367,7 @@ def mesh_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
         import torch.distributed as dist
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+        from distlearn_tpu_torch.utils.profiling import settled_profile
 
         from distlearn_tpu_torch.models.convert import lm_gather, lm_shard
         from distlearn_tpu_torch.models.transformer import (lm_loss,
@@ -4436,7 +4449,7 @@ def mesh_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
                 sync()
                 t = time.perf_counter()
                 if i == 2:
-                    with profiler(acts, sync) as prof:
+                    with settled_profile(acts, sync) as prof:
                         t = time.perf_counter()
                         params, loss = step(params, toks)
                         sync()
@@ -4682,6 +4695,7 @@ def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
         import torch.distributed as dist
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+        from distlearn_tpu_torch.utils.profiling import settled_profile
 
         from distlearn_tpu_torch.models.convert import (fsdp_gather,
                                                         lm_gather,
@@ -4754,7 +4768,7 @@ def pp_worker(rank: int, port: int, device: str, cfg: dict, q) -> None:
                 sync()
                 t = time.perf_counter()
                 if i == steps - 1:
-                    with profiler(acts, sync) as prof:
+                    with settled_profile(acts, sync) as prof:
                         t = time.perf_counter()
                         state, loss = step(state, toks)
                         sync()
@@ -5203,6 +5217,7 @@ def fleet_worker(rank: int, port: int, device: str, cfg: dict, ctl, stop,
         import torch.distributed as dist
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity
+        from distlearn_tpu_torch.utils.profiling import settled_profile
 
         from distlearn_tpu_torch import obs
         from distlearn_tpu_torch.examples import lm as lm_example
@@ -5237,7 +5252,7 @@ def fleet_worker(rank: int, port: int, device: str, cfg: dict, ctl, stop,
             """Replay the leader's ops, every device event profiled:
             ``(ops, B5a launches, B5a kernels named, routes)``."""
             fa.flash_attention.launches = 0
-            with profiler(acts, sync) as prof:
+            with settled_profile(acts, sync) as prof:
                 done = eng.follow()
                 sync()
             keys = [e.key for e in prof.key_averages()
@@ -5286,7 +5301,7 @@ def fleet_worker(rank: int, port: int, device: str, cfg: dict, ctl, stop,
             rec["launches"] = fa.flash_attention.launches
             # one full prefill profiled: B5a by name and route
             sync()
-            with profiler(acts, sync) as prof:
+            with settled_profile(acts, sync) as prof:
                 job = eng.begin(prompt, 1)
                 eng.prefill_step(job)
                 sync()
@@ -5640,6 +5655,397 @@ def fleet_how(c, name) -> str:
             f"top-2 margin {tie[2]:.3g})")
 
 
+# Phase 21: the fleet tools (ROADMAP A13) driving the port
+TOOLS_DEVICE = "cuda"
+TOOLS_BUDGET_S = 150          # the phase's wall time
+TOOLS_ROUNDS = 8
+TOOLS_KILLS = (3,)
+TOOLS_SHARDS = 4
+TOOLS_CHURN_CLIENTS, TOOLS_CHURN_KILLS = 3, 1
+TOOLS_PREFIX = 128            # zipf_mix's system prompts (16 pages of 8)
+TOOLS_PROMPTS = (100, 1501)   # replica_kill's prompt lengths, [lo, hi)
+TOOLS_CHUNK = 256             # the replicas' prefill chunk (phase 10's)
+TOOLS_EA_RANKS, TOOLS_EA_BUDGET_S, TOOLS_EA_LINK = 4, 3.0, 20e6
+TOOLS_EA_TAU, TOOLS_EA_ALPHA = 4, 0.225
+TOOLS_RESNET_BATCH, TOOLS_RESNET_STEPS = 256, 4
+# PERF.md section 5, phase 17's profiled bfloat16 ResNet-50 step (NVIDIA
+# H100 80GB HBM3 at 700 W): busy 248.3 ms of 269.5, elementwise 82.1%
+PHASE17_BF16 = {"busy_ms": 248.3, "wall_ms": 269.5, "elementwise": 0.821}
+
+
+def names_with(counts: dict, sub: str) -> int:
+    return sum(n for k, n in counts.items() if sub in k)
+
+
+def tool_run(what: str, fn, *args, **kw) -> dict:
+    """A chaos run whose report must list no failure: the tool raises
+    AssertionError with its report on any."""
+    try:
+        report = fn(*args, **kw)
+    except AssertionError as exc:
+        raise SmokeFailure(f"[tools] {what}: {str(exc)[:3000]}") from exc
+    check(report["failures"] == [], f"[tools] {what}: {report['failures']}")
+    return report
+
+
+def phase_tools(torch) -> dict:
+    """Phase 21: see the module docstring."""
+    import shutil
+    import tempfile
+
+    from distlearn_tpu_torch.examples import lm as lm_example
+    from distlearn_tpu_torch.obs import trace as obs_trace
+    from distlearn_tpu_torch.ops import flash_attention as fa
+    from distlearn_tpu_torch.ops import fused_update as fu
+    from distlearn_tpu_torch.ops import wire_kernels as wk
+    from distlearn_tpu_torch.tools import (analyze_trace, chaos, diststat,
+                                           ea_convergence, profile_resnet,
+                                           tracecat)
+    from distlearn_tpu_torch.utils import logging as port_logging
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cuda = TOOLS_DEVICE == "cuda"
+    device = torch.device(TOOLS_DEVICE)
+    out = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    trails = {k: os.path.join(out, f"{k}.jsonl") for k in (
+        "parity_boundary", "parity_mid_flight", "churn", "zipf_mix",
+        "replica_kill", "flash_crowd")}
+    shapes = tuple((f"leaf{i:02d}", s) for i, s in enumerate(convnet_shapes()))
+    n_params = sum(math.prod(s) for _, s in shapes)
+    port_logging.set_verbose(False)
+    env = os.environ.get("DISTLEARN_TPU_ATTN")
+    os.environ["DISTLEARN_TPU_ATTN"] = "flash"
+    launches = {}
+    try:
+        # (a) AsyncEA chaos on the convnet's leaves
+        ta = time.perf_counter()
+        for mode, mid in (("boundary", False), ("mid_flight", True)):
+            rep = tool_run(
+                f"(a) parity {mode}", chaos.run_parity,
+                rounds=TOOLS_ROUNDS, kills=TOOLS_KILLS, shards=TOOLS_SHARDS,
+                mid_flight=mid, shapes=shapes, device=device,
+                trail=trails[f"parity_{mode}"])
+            check(rep["promotions"] == len(TOOLS_KILLS),
+                  f"[tools] (a) parity {mode}: {rep['promotions']} "
+                  "promotions")
+            log(f"[tools] (a) parity, {mode} kill at round "
+                f"{TOOLS_KILLS[0]} of {TOOLS_ROUNDS}, S = {TOOLS_SHARDS}, "
+                f"the convnet's {len(shapes)} leaves ({n_params:,} params) "
+                f"on {device}: promoted center and client params bit for "
+                f"bit the unkilled S = 1 run's; promotions "
+                f"{rep['promotions']}, re-dials {rep['redials']}, replays "
+                f"{rep['replays']}, checkpoints {rep['ckpt_saves']}")
+        reset_wire_counts(wk)
+        box = {}
+        counts = profiled_counts(torch, lambda: box.setdefault(
+            "churn", tool_run(
+                "(a) churn", chaos.run_churn, rounds=TOOLS_ROUNDS,
+                num_clients=TOOLS_CHURN_CLIENTS, shards=TOOLS_SHARDS,
+                server_kills=TOOLS_CHURN_KILLS, shapes=shapes,
+                device=device, trail=trails["churn"])))
+        rep = box["churn"]
+        amax, quant = b3_launches(wk)
+        b4 = b4_launches(wk)
+        codec = diststat.summarize_run([trails["churn"]])["codec"]
+        stripes = codec.get("stripes", {})
+        encodes = sum(r["encodes"] for r in stripes.values())
+        applies = sum(r["applies"] for r in stripes.values())
+        # the trail's spans by codec: the int8 client's encodes (B3 each)
+        # and the weight-1 int8 applies (B4 each); the codec table counts
+        # every lossy encode and weight-1 lossy apply, as JAX's does
+        wire = {}
+        for r in trail_spans(trails["churn"]):
+            lb = r.get("labels") or {}
+            if r["name"] in ("async_ea.encode", "async_ea.apply") \
+                    and "err" not in r and lb.get("path", "fused") == "fused":
+                key = (r["name"].split(".")[1], lb.get("codec"))
+                wire[key] = wire.get(key, 0) + 1
+        int8_enc, int8_app = wire.get(("encode", "int8"), 0), wire.get(
+            ("apply", "int8"), 0)
+        lossy = {op: sum(n for (o, c), n in wire.items()
+                         if o == op and c != "raw")
+                 for op in ("encode", "apply")}
+        log(f"[tools] (a) churn: {TOOLS_CHURN_CLIENTS} clients (raw, int8, "
+            f"fp16), {TOOLS_ROUNDS} rounds, S = {TOOLS_SHARDS}, "
+            f"{rep['server_kills']} center kill: promotions "
+            f"{rep['promotions']}, evictions {rep['evictions']}, rejoins "
+            f"{rep['rejoins']}; B3 {amax} amax + {quant} quantize, B4 {b4} "
+            f"launches; the trail's spans: {int8_enc} int8 encodes, "
+            f"{int8_app} weight-1 int8 applies; diststat's codec table: "
+            f"{encodes} lossy encodes, {applies} fused lossy applies over "
+            f"stripes {sorted(stripes)} (spans {lossy}); "
+            f"profile names: amax_leaves {names_with(counts, 'amax_leaves')}"
+            f", quant_ef_leaves {names_with(counts, 'quant_ef_leaves')}, "
+            f"dequant_add_leaves {names_with(counts, 'dequant_add')}")
+        check(rep["promotions"] == TOOLS_CHURN_KILLS,
+              f"[tools] (a) churn: {rep['promotions']} promotions")
+        check(quant > 0 and b4 > 0 or not cuda,
+              "[tools] (a) B3 or B4 never launched in the churn")
+        check(amax == quant == int8_enc or not cuda,
+              f"[tools] (a) B3 launched {amax} amax / {quant} quantize, "
+              f"the trail holds {int8_enc} int8 encodes")
+        check(b4 == int8_app or not cuda,
+              f"[tools] (a) B4 launched {b4} times, the trail holds "
+              f"{int8_app} weight-1 int8 applies")
+        check((encodes, applies) == (lossy["encode"], lossy["apply"]),
+              f"[tools] (a) the codec table reads {encodes} encodes and "
+              f"{applies} applies, the trail's lossy spans {lossy}")
+        check((names_with(counts, "amax_leaves") == amax
+               and names_with(counts, "quant_ef_leaves") == quant
+               and names_with(counts, "dequant_add") == b4) or not cuda,
+              f"[tools] (a) the churn's profile names B3/B4 other than "
+              f"their launches: {counts}")
+        launches.update(quantize_ef=quant, amax=amax, dequant_add=b4)
+        log(f"[tools] (a) took {time.perf_counter() - ta:.1f} s")
+
+        # (b) serving chaos with phase 10's LM at full width, float32
+        tb = time.perf_counter()
+        opt, params, heads = fleet_model(lm_example, LM_FLAGS, device)
+        lm = dict(vocab=opt.vocab, dim=opt.dim, depth=opt.depth,
+                  heads=heads, max_len=opt.seqLen)
+        obs_trace.set_propagate(True)
+        fa.flash_attention.launches = 0
+        try:
+            serving = {}
+            for name, sizes in (
+                    ("zipf_mix", dict(prefix_len=TOOLS_PREFIX)),
+                    ("replica_kill", dict(prompt_lens=TOOLS_PROMPTS)),
+                    ("flash_crowd", {})):
+                ts = time.perf_counter()
+                serving[name] = tool_run(
+                    f"(b) {name}", chaos.run_scenario, name,
+                    rounds=TOOLS_ROUNDS, device=device, trail=trails[name],
+                    lm=lm, params=params, prefill_chunk=TOOLS_CHUNK,
+                    **sizes)
+                serving[name]["seconds"] = time.perf_counter() - ts
+        finally:
+            obs_trace.set_propagate(None)
+        b5a = fa.flash_attention.launches
+        prefills = [r for name in serving for r in trail_spans(trails[name])
+                    if r.get("name") == "serve.prefill"
+                    and int((r.get("labels") or {}).get("bucket", 0)) >= 128]
+        z, k, f = (serving[n] for n in ("zipf_mix", "replica_kill",
+                                        "flash_crowd"))
+        log(f"[tools] (b) zipf_mix ({TOOLS_PREFIX}-token shared prefixes): "
+            f"{z['completed']}/{z['requests']} complete, prefix-cache hits "
+            f"{z['prefix_cache_hits']}, cached streams "
+            f"{z['cached_streams']}, TTFT p95 bucket {z['ttft_p95']} s, "
+            f"{z['seconds']:.1f} s; replica_kill (prompts "
+            f"{TOOLS_PROMPTS[0]}-{TOOLS_PROMPTS[1] - 1}): "
+            f"{k['completed']} complete, {k['failed_mid_stream']} failed "
+            f"mid-stream, {k['retries']} resubmitted, "
+            f"{k['seconds']:.1f} s; flash_crowd (JAX's 3-8-token prompts): "
+            f"{f['completed']} complete, peak {f['peak_size']} replicas, "
+            f"scale ups {f['scale_ups']} / downs {f['scale_downs']}, "
+            f"breaches {f['breaches']} / recoveries {f['recoveries']}, "
+            f"{f['seconds']:.1f} s")
+        log(f"[tools] (b) B5a {b5a} launches, {len(prefills)} full-prompt "
+            f"prefills of bucket >= 128 in the trails (x {opt.depth} "
+            "layers)")
+        check(b5a == opt.depth * len(prefills) or not cuda,
+              f"[tools] (b) B5a launched {b5a} times, the trails hold "
+              f"{len(prefills)} full prefills of bucket >= 128 "
+              f"({opt.depth} layers each)")
+        check(len(prefills) > 0, "[tools] (b) no full prefill of bucket "
+              ">= 128 ran: B5a was never on the path")
+        if cuda:
+            # in a fresh process: late in this one torch.profiler drops
+            # chunks of 45-84 kernel records from a window that the runtime
+            # saw launched, after any pause (PERF.md section 7)
+            prof = run_workers(prefill_profile_worker, 1, (), 300,
+                               "(b) profiled prefill process")[0]
+            routes = flash_routes(prof["counts"])
+            named = names_with(prof["counts"], "flash_fwd")
+            log(f"[tools] (b) one profiled {prof['plen']}-token prefill "
+                f"(after one unprofiled, in a fresh process, "
+                f"{prof['seconds']:.1f} s) names B5a {named} times for "
+                f"{prof['window']} launches, routes {routes}")
+            check(prof["window"] == named == opt.depth
+                  and routes == {"B5a": {"core"}},
+                  f"[tools] (b) the profiled prefill launched "
+                  f"{prof['window']} B5a kernels and its profile named "
+                  f"{named}, routes {routes} (expected {opt.depth} float32 "
+                  "CUDA-core flash_fwd)")
+        launches["flash_attention"] = b5a
+        log(f"[tools] (b) took {time.perf_counter() - tb:.1f} s")
+
+        # (c) the trails: the fleet view and one stitched trace a request
+        paths = list(trails.values())
+        doc = diststat.merge_runs(paths)
+        tables = {n: diststat.summarize_run([trails[src]])[n]
+                  for n, src in (("codec", "churn"), ("failover", "churn"),
+                                 ("serving", "zipf_mix"),
+                                 ("router", "replica_kill"))}
+        check(doc["counters"] and doc["histograms"] and doc["spans"]
+              and all(tables.values()),
+              f"[tools] (c) an empty fleet table: merge counters "
+              f"{len(doc['counters'])}, histograms "
+              f"{len(doc['histograms'])}, spans {len(doc['spans'])}; "
+              f"{[n for n, t in tables.items() if not t]}")
+        stitched = {}
+        for name in serving:
+            traces = tracecat.group_traces(
+                tracecat.load_spans([trails[name]]))
+            roots = sum(1 for r in trail_spans(trails[name])
+                        if r.get("name") == "router.generate")
+            bad = []
+            for tid, recs in traces.items():
+                top, _ = tracecat.build_tree(recs)
+                if ([r["name"] for r in top] != ["router.generate"]
+                        or not any(r["name"].startswith("serve.")
+                                   for r in recs)):
+                    bad.append(tid)
+            stitched[name] = (len(traces), roots)
+            check(not bad and len(traces) == roots,
+                  f"[tools] (c) {name}: {len(traces)} traces for {roots} "
+                  f"routed requests, {len(bad)} not one router-to-replica "
+                  "trace")
+        merge_text = io_text(diststat.main, ["merge", *paths])
+        log(f"[tools] (c) diststat merge over {len(paths)} trails: "
+            f"{len(doc['counters'])} counters, {len(doc['histograms'])} "
+            f"histograms, {len(doc['spans'])} span names "
+            f"({len(merge_text.splitlines())} lines of text); one "
+            "stitched router-to-replica trace a request: "
+            + ", ".join(f"{n} {t}" for n, (t, _) in stitched.items()))
+
+        # (d) ea_convergence: SGD and EA over the host tree on the card
+        td = time.perf_counter()
+        curves = {}
+        for algo, kw in (("sgd", {}), ("ea", {"tau": TOOLS_EA_TAU,
+                                              "alpha": TOOLS_EA_ALPHA})):
+            fu.fused_elastic.launches = 0
+            res = ea_convergence.run_algo(
+                algo, TOOLS_EA_RANKS, TOOLS_EA_BUDGET_S, free_port(),
+                TOOLS_EA_LINK, device=device, **kw)
+            curves[algo] = (res, fu.fused_elastic.launches)
+        (ea_res, b2) = curves["ea"]
+        rounds = sum(r[2] for r in ea_res)
+        curve = ea_res[0][0]
+        log(f"[tools] (d) ea_convergence, {TOOLS_EA_RANKS} ranks, "
+            f"{TOOLS_EA_BUDGET_S:.0f} s each at {TOOLS_EA_LINK / 1e6:.0f} "
+            f"MB/s links: sgd {max(len(c) for c, _, _ in curves['sgd'][0])}"
+            f" curve points, final loss "
+            f"{np.mean([f for _, f, _ in curves['sgd'][0]]):.4f}; ea tau "
+            f"{TOOLS_EA_TAU} loss {curve[0][1]:.4f} -> {curve[-1][1]:.4f}, "
+            f"final {np.mean([f for _, f, _ in ea_res]):.4f}, {rounds} "
+            f"elastic rounds over the ranks, B2 {b2} launches; "
+            f"{time.perf_counter() - td:.1f} s")
+        check(len(curve) >= 2 and curve[-1][1] < curve[0][1],
+              f"[tools] (d) the EA curve did not descend: {curve[:3]} ... "
+              f"{curve[-3:]}")
+        check(all(math.isfinite(f) for _, f, _ in ea_res + curves["sgd"][0]),
+              "[tools] (d) a non-finite final loss")
+        check(rounds > 0 and (b2 == rounds or not cuda),
+              f"[tools] (d) B2 launched {b2} times in {rounds} elastic "
+              "rounds (one a rank a round)")
+        launches["fused_elastic"] = b2
+
+        # (e) profile_resnet and analyze_trace
+        te = time.perf_counter()
+        prof_dir = os.path.join(out, "prof_resnet")
+        # 8 buckets a step: B1 launches 8 times in each warm-up step and
+        # each traced one, and the trace names the traced steps' launches
+        want_b1 = (8 * (profile_resnet.WARMUP + TOOLS_RESNET_STEPS),
+                   8 * TOOLS_RESNET_STEPS)
+        fu.fused_sgd.launches = 0
+        text = io_text(profile_resnet.main, [
+            prof_dir, "--batch", str(TOOLS_RESNET_BATCH), "--steps",
+            str(TOOLS_RESNET_STEPS), "--device", TOOLS_DEVICE])
+        b1 = fu.fused_sgd.launches
+        kernels = analyze_trace.load_kernels(
+            analyze_trace.find_trace(prof_dir))
+        check(bool(kernels) or not cuda,
+              "[tools] (e) the trace holds no device kernel")
+        att = analyze_trace.attribute(kernels) if kernels else {
+            "classes": {}, "total_us": 0.0, "launches": 0}
+        named_b1 = att["classes"].get("B1 fused_sgd", {}).get("launches", 0)
+        log(f"[tools] (e) {text.strip().splitlines()[-1]}")
+        log(f"[tools] (e) analyze_trace: {att['total_us'] / 1e3:.1f} ms of "
+            f"kernels in {att['launches']} launches over "
+            f"{TOOLS_RESNET_STEPS} steps; "
+            + "; ".join(f"{c} {r['share']:.1%} ({r['launches']})"
+                        for c, r in att["classes"].items())
+            + f"; beside phase 17's bfloat16 step (PERF.md section 5):"
+            f" busy {PHASE17_BF16['busy_ms']} ms a step, elementwise "
+            f"{PHASE17_BF16['elementwise']:.1%}")
+        check((b1, named_b1) == want_b1 or not cuda,
+              f"[tools] (e) B1 launched {b1} times in "
+              f"{profile_resnet.WARMUP} warm-up and {TOOLS_RESNET_STEPS} "
+              f"traced steps and the trace names it {named_b1} times, "
+              f"expected {want_b1} (8 buckets a step)")
+        launches["fused_sgd"] = b1
+        log(f"[tools] (e) took {time.perf_counter() - te:.1f} s")
+    finally:
+        if env is None:
+            os.environ.pop("DISTLEARN_TPU_ATTN", None)
+        else:
+            os.environ["DISTLEARN_TPU_ATTN"] = env
+        port_logging.set_verbose(True)
+        shutil.rmtree(out, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"[tools] phase 21 took {wall:.1f} s (budget {TOOLS_BUDGET_S} s)")
+    check(wall <= TOOLS_BUDGET_S, f"phase 21 took {wall:.1f} s, over its "
+          f"{TOOLS_BUDGET_S}-s budget")
+    return {"launches": launches, "seconds": wall}
+
+
+def prefill_profile_worker(rank: int, q) -> None:
+    """Phase 21(b)'s profiled prefill, in a fresh process on the card:
+    phase 10's LM from its seeded init, one full prefill outside the
+    window, then one in ``profiled_counts``.  Puts the B5a launches of
+    the window and its ``{kernel name: records}``."""
+    try:
+        t0 = time.perf_counter()
+        import numpy as np
+        import torch
+
+        from distlearn_tpu_torch.examples import lm as lm_example
+        from distlearn_tpu_torch.ops import flash_attention as fa
+        from distlearn_tpu_torch.serve.engine import DecodeEngine
+        from distlearn_tpu_torch.utils import logging as port_logging
+        port_logging.set_verbose(False)
+        opt, params, _ = fleet_model(lm_example, LM_FLAGS, "cuda")
+        eng = DecodeEngine(params, num_slots=1, max_len=opt.seqLen, page=8,
+                           device="cuda")
+        plen = min(PROFILE_PROMPT, opt.seqLen - 1)
+        prompt = np.arange(1, plen + 1, dtype=np.int32) % opt.vocab
+        eng.finish(eng.admit(prompt, 1)[0])
+        before = fa.flash_attention.launches
+        counts = profiled_counts(torch, lambda: eng.admit(prompt, 1))
+        q.put(("ok", {"rank": rank, "plen": plen, "counts": counts,
+                      "window": fa.flash_attention.launches - before,
+                      "seconds": time.perf_counter() - t0}))
+    except BaseException:  # noqa: BLE001 — the parent fails the phase
+        import traceback
+        q.put(("err", traceback.format_exc()))
+
+
+def trail_spans(path: str) -> list[dict]:
+    """Every span record of a JSONL trail (traced or not)."""
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if rec.get("type") == "span":
+                out.append(rec)
+    return out
+
+
+def io_text(main, argv) -> str:
+    """What ``main(argv)`` printed; a non-zero return fails the run."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    check(not rc, f"[tools] {main.__module__} {argv[:2]} returned {rc}")
+    return buf.getvalue()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5711,6 +6117,7 @@ def main() -> int:
         meshed = phase_mesh_lm(torch)
         piped = phase_pp_lm(torch)
         fleet = phase_fleet(torch)
+        tools = phase_tools(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -5721,18 +6128,22 @@ def main() -> int:
         {"name": "fused_sgd", "route": "cuda", "source": src,
          "replaces": "distlearn_tpu/ops/fused_update.py:71",
          "launches": sgd["launches"], **kernel_rows["fused_sgd"],
-         "mesh_lm_launches": {"tp": meshed["b1"]}},
+         "mesh_lm_launches": {"tp": meshed["b1"]},
+         "tools_launches": tools["launches"]["fused_sgd"]},
         {"name": "fused_elastic", "route": "cuda", "source": src,
          "replaces": "distlearn_tpu/ops/fused_update.py:96",
-         "launches": ea["launches"], **kernel_rows["fused_elastic"]},
+         "launches": ea["launches"], **kernel_rows["fused_elastic"],
+         "tools_launches": tools["launches"]["fused_elastic"]},
         {"name": "quantize_ef", "route": "cuda", "source": wire_src,
          "replaces": "distlearn_tpu/ops/wire_kernels.py:267",
          "launches": async_run["launches"]["quantize_ef"],
-         **kernel_rows["quantize_ef"]},
+         **kernel_rows["quantize_ef"],
+         "tools_launches": tools["launches"]["quantize_ef"]},
         {"name": "dequant_add", "route": "cuda", "source": wire_src,
          "replaces": "distlearn_tpu/ops/wire_kernels.py:335",
          "launches": async_run["launches"]["dequant_add"],
-         **kernel_rows["dequant_add"]},
+         **kernel_rows["dequant_add"],
+         "tools_launches": tools["launches"]["dequant_add"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758"
@@ -5743,7 +6154,8 @@ def main() -> int:
          "pp_lm_launches": {k: v[0] for k, v in
                             piped["launches"].items()},
          "tp_serve_launches": fleet["tp_launches"],
-         "fleet_launches": fleet["fleet_launches"]},
+         "fleet_launches": fleet["fleet_launches"],
+         "tools_launches": tools["launches"]["flash_attention"]},
         {"name": "flash_attention_dkv", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"
@@ -5795,7 +6207,8 @@ def main() -> int:
         f"largest bucket {resnet['b1']['ms']:.5f} ms against bound "
         f"{resnet['b1']['bound_ms']:.5f} ms; mesh LM phase "
         f"{meshed['seconds']:.1f} s; pp and optimizer LM phase "
-        f"{piped['seconds']:.1f} s; fleet phase {fleet['seconds']:.1f} s")
+        f"{piped['seconds']:.1f} s; fleet phase {fleet['seconds']:.1f} s; "
+        f"tools phase {tools['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

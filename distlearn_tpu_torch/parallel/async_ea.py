@@ -412,6 +412,19 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
         like.dtype))).to(like.device)
 
 
+def _apply_path(w: float) -> str:
+    """A center apply's path label: 'fused' at weight 1 (the int8 leaves
+    through B4), 'scaled' under a capacity weight (decode, scale, add)."""
+    return "fused" if w == 1.0 else "scaled"
+
+
+def _fused_wire_apply(payload: "wire.PackedPayload", w: float) -> bool:
+    """Whether an apply counts in ``center_apply_seconds``, as in the JAX
+    package: a lossy (int8 or fp16) payload folded in at weight 1, never
+    decoded (a raw delta, or any under a capacity weight, is not)."""
+    return w == 1.0 and payload.codec != "raw"
+
+
 class _LeafSlab:
     """A list of leaves stored in ONE flat byte buffer on a device (each
     leaf a typed view at a 16-byte aligned offset, so the kernels' vector
@@ -615,6 +628,12 @@ class AsyncEAServer:
             "center applies (a stripe's or a whole delta's), by path: "
             "'fused' (weight 1: B4 over the int8 leaves) or 'scaled' "
             "(a capacity weight: decode, scale, add)", labels=("path",))
+        self._h_center_apply = obs.histogram(
+            "center_apply_seconds",
+            "fused dequantize+apply of one received lossy wire payload "
+            "onto the center (weight 1, no decoded float32 copy), by "
+            "stripe ('all' = whole-tree)",
+            labels=("shard",))
 
     # -- center storage -----------------------------------------------------
     def init_server(self, params: PyTree):
@@ -835,7 +854,7 @@ class AsyncEAServer:
                 c.add_(b)
         if cs:
             wire_kernels.dequant_add_leaves_cuda(cs, qs, scales, outs=cs)
-        self._c_applies.labels(path="fused" if w == 1.0 else "scaled").inc()
+        self._c_applies.labels(path=_apply_path(w)).inc()
 
     def _record_applied(self, cid: int, idx: int, seq: int):
         """Mark stripe ``idx`` of client ``cid``'s sync ``seq`` applied
@@ -855,7 +874,8 @@ class AsyncEAServer:
         returning, so ``rx`` is free for the next frame.  ``ha=(cid, seq)``
         records the apply on every stripe of the ledger."""
         t0 = time.perf_counter()
-        with obs.span("async_ea.apply"), self._on_stream():
+        with obs.span("async_ea.apply", codec=payload.codec,
+                      path=_apply_path(w)), self._on_stream():
             bufs = self._device_bufs(payload, rx)
             with contextlib.ExitStack() as held:
                 held.enter_context(self._apply_lock)
@@ -871,6 +891,9 @@ class AsyncEAServer:
             self._wait(ev)
         self._c_syncs.inc()
         if self._obs_on:
+            if _fused_wire_apply(payload, w):
+                self._h_center_apply.labels(shard="all").observe(
+                    time.perf_counter() - t0)
             self._h_apply.observe(time.perf_counter() - t0)
 
     def _apply_stripe(self, idx: int, payload: "wire.PackedPayload",
@@ -882,7 +905,8 @@ class AsyncEAServer:
         applied, in the same hold."""
         lo, hi = self.stripes[idx]
         t0 = time.perf_counter()
-        with obs.span("async_ea.apply", shard=idx), self._on_stream():
+        with obs.span("async_ea.apply", shard=idx, codec=payload.codec,
+                      path=_apply_path(w)), self._on_stream():
             bufs = self._device_bufs(payload, rx)
             with self._stripe_locks[idx]:
                 self._apply_into(self._vcenter[lo:hi], payload, bufs, w)
@@ -892,6 +916,9 @@ class AsyncEAServer:
                 ev = self._fence()
             self._wait(ev)
         if self._obs_on:
+            if _fused_wire_apply(payload, w):
+                self._h_center_apply.labels(shard=idx).observe(
+                    time.perf_counter() - t0)
             self._h_shard_apply.labels(shard=idx).observe(
                 time.perf_counter() - t0)
 
@@ -2663,7 +2690,7 @@ class AsyncEAClient:
         striped)."""
         t0 = time.perf_counter()
         sl = deltas[lo:hi]
-        with obs.span("async_ea.encode", shard=idx):
+        with obs.span("async_ea.encode", shard=idx, codec=self.codec):
             if self.codec == "raw":
                 payload = wire_kernels.encode_ef_into(
                     sl, None, "raw", out=self._framebuf(idx))
@@ -2673,7 +2700,7 @@ class AsyncEAClient:
                     d += r
                 payload = wire_kernels.encode_ef_into(
                     sl, res, self.codec, out=self._framebuf(idx))
-        if self._obs_on:
+        if self._obs_on and self.codec != "raw":
             self._h_encode.labels(shard=idx).observe(
                 time.perf_counter() - t0)
         return payload

@@ -10,7 +10,8 @@ recorded on the host side), and the head's adds among them.  ``--settle``
 lists the pauses tried between the profiler's start and the first launch (a
 device synchronize and a sleep); ``--procs`` the numbers of processes
 sharing card 0 at once.
-``chip_smoke.py`` opens its profiles with such a pause (``PROFILE_SETTLE_S``).
+``utils/profiling.py::settled_profile`` opens every profile of the port and of
+``chip_smoke.py`` with such a pause (``SETTLE_S``).
 Prints the card's name and power limit (``nvidia-smi``), then one JSON
 line per (processes, pause).  Nothing in the port imports
 it.  Run on one card from the repo's root:

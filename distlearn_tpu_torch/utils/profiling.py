@@ -15,18 +15,44 @@ import numpy as np
 from distlearn_tpu_torch.utils.platform import resolve_device
 
 
+#: seconds the profiler's window stays open and idle before the profiled
+#: work starts: torch.profiler on the card drops kernels launched just
+#: after its window opens, none after a synchronize and this pause
+#: (``python -m distlearn_tpu_torch.utils.profiler_probe`` measures it).
+SETTLE_S = 0.05
+
+
+@contextlib.contextmanager
+def settled_profile(activities, sync=None):
+    """``torch.profiler.profile(activities=activities)`` whose window is
+    open and settled when the block starts: ``sync()`` (a device
+    synchronize; nothing when ``None``), then ``SETTLE_S`` seconds, both
+    inside the window.  Yields the profiler."""
+    from torch.profiler import profile
+    with profile(activities=activities) as prof:
+        if sync is not None:
+            sync()
+        time.sleep(SETTLE_S)
+        yield prof
+
+
 @contextlib.contextmanager
 def trace(log_dir: str, device=None):
     """Profile the enclosed steps with ``torch.profiler`` (host activity,
     and the card's unless ``device="cpu"``) and write a Chrome/Perfetto
-    trace, ``<log_dir>/trace.json``, when the block exits.  Yields the
+    trace, ``<log_dir>/trace.json``, when the block exits.  The window is
+    settled first (:func:`settled_profile`: a synchronize of the card and
+    ``SETTLE_S``), so no kernel of the block is lost.  Yields the
     profiler, so a caller can read ``key_averages()``."""
-    from torch.profiler import ProfilerActivity, profile
-    cuda = resolve_device(device).type == "cuda"
+    import torch
+    from torch.profiler import ProfilerActivity
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
     activities = [ProfilerActivity.CPU] + \
         ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else None
+    with settled_profile(activities, sync) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

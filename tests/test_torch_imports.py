@@ -63,7 +63,11 @@ def test_port_sources_found():
                 "parallel/ha.py", "models/resnet.py", "train/optim.py",
                 "examples/resnet50.py", "examples/sync_backends.py",
                 "parallel/mesh.py", "parallel/tp.py", "parallel/ep.py",
-                "models/convert.py", "parallel/pp.py"):
+                "models/convert.py", "parallel/pp.py", "obs/agg.py",
+                "tools/__init__.py", "tools/chaos.py", "tools/autoscaler.py",
+                "tools/diststat.py", "tools/tracecat.py",
+                "tools/ea_convergence.py", "tools/profile_resnet.py",
+                "tools/analyze_trace.py"):
         assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "distlearn_tpu_torch/ops/csrc/flash_attention.cu").exists()
@@ -181,3 +185,35 @@ def test_async_fleet_entry_points_raise_without_gpu(no_gpu):
                                   standby=True, device="cpu")
     assert srv.device.type == "cpu" and srv.evicted == {1}
     srv.close()
+
+
+def _from_root_tools(mod: str) -> bool:
+    """A module of the root ``tools/`` directory (imported by name once
+    ``tools/`` is on ``sys.path``)."""
+    return mod.split(".")[0] in {p.stem for p in (ROOT / "tools").glob("*.py")}
+
+
+def test_port_tools_import_nothing_of_the_root_tools():
+    """``distlearn_tpu_torch/tools`` reaches the port only: no module of
+    the root ``tools/`` (JAX's copies), no ``sys.path`` edits."""
+    for path in sorted((ROOT / "distlearn_tpu_torch" / "tools").glob("*.py")):
+        mods = list(_imported_modules(path))
+        assert not [m for m in mods if _from_root_tools(m)], path.name
+        assert "sys.path" not in path.read_text(), path.name
+
+
+def test_tool_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    """The port's tools run their roles and models on the card unless the
+    CPU is asked for."""
+    from distlearn_tpu_torch.tools import chaos, ea_convergence, profile_resnet
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos.run_parity(rounds=4, kills=(1,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos.run_churn(rounds=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos.run_scenario("zipf_mix", rounds=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ea_convergence.run_algo("sgd", 2, 0.1, 1, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_resnet.main([str(tmp_path)])
+    assert not dist.is_initialized()
