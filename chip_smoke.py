@@ -281,11 +281,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    batch 256 for 4 bfloat16 steps through ``utils/profiling.trace``, then
    ``analyze_trace`` on its trace: B1 named 8 times a step, the class
    shares beside phase 17's.  The phase fails past 150 s.
-22. report — a ``{"kernels": [...]}`` line (the flash rows and B1 with
+22. lint — A14, the port's distlint (``python -m
+   distlearn_tpu_torch.tools.distlint --all --device cuda --format
+   json``) in a fresh process: its 8 gloo rank processes share ``cuda:0``
+   and run every step family once.  Exit 0 and no finding in all 14
+   families (so the tp engine's leader and follower records are equal:
+   DL002 quiet); every unit's peak memory rise within the lockfile's
+   memory tolerance of the committed card figure; each unit's launches on
+   its first rank, by the wrappers' counters and by profile names, equal
+   to ``lint_expected`` (B3 amax + quantize in ``wirek:quant_ef``, B4 in
+   ``dequant_add``, B1 a fused step, B2 a round, B5a-B5c as the pipeline
+   schedules, the MoE LM, Ulysses and the 128-token prefill run them, 0
+   elsewhere).  The phase fails past 150 s.
+23. report — a ``{"kernels": [...]}`` line (the flash rows and B1 with
    their phase-18 launches under ``mesh_lm_launches``, the flash rows
    with phase 19's under ``pp_lm_launches``, B5a with phase 20's under
    ``tp_serve_launches`` and ``fleet_launches``, B1-B5a with phase 21's
-   under ``tools_launches``), the nvidia-smi line, and last
+   under ``tools_launches``, every row with phase 22's by unit under
+   ``lint_launches``), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -6046,6 +6059,130 @@ def io_text(main, argv) -> str:
     return buf.getvalue()
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: distlint on the port (A14)
+# ---------------------------------------------------------------------------
+
+LINT_BUDGET_S = 150           # the phase's wall time
+LINT_TIMEOUT_S = 600
+#: The lint's CLI device: its 8 rank processes share ``cuda:0`` over gloo.
+LINT_DEVICE = "cuda"
+#: The lint report's kernels, by the rows of the ``kernels`` line.
+LINT_KERNEL_ROWS = {"fused_sgd": ("B1",), "fused_elastic": ("B2",),
+                    "quantize_ef": ("B3_amax", "B3_quant"),
+                    "dequant_add": ("B4",), "flash_attention": ("B5a",),
+                    "flash_attention_dkv": ("B5b",),
+                    "flash_attention_dq": ("B5c",)}
+
+
+def lint_expected() -> dict:
+    """``{family:unit: {kernel: launches}}`` on a unit's first rank, from
+    the registry's sizes (every other unit and kernel: 0).  B3 is two
+    launches a delta (amax, quantize), B4 one; the convnet's gradients are
+    one bucket (B1 once a fused step, K = 3 in the scan); B2 once a round;
+    the pipeline as ported (:func:`pp_launches`, S = 2, M = 2, one block a
+    stage); a flash launch a layer and pass of the MoE LM (depth 2), one
+    in Ulysses' head shard, one a layer in the decode engine's 128-token
+    prefill (the only bucket >= 128)."""
+    flash = ("B5a", "B5b", "B5c")
+    exp = {"wirek:quant_ef": {"B3_amax": 1, "B3_quant": 1},
+           "wirek:dequant_add": {"B4": 1},
+           "wirek:wire_amax": {"B3_amax": 1},
+           "sgd:sgd_step": {"B1": 1}, "sgd:sgd_scan_step": {"B1": 3},
+           "ea:ea_round": {"B2": 1}, "ea:ea_cycle": {"B2": 1},
+           "pp:lm_pp_step": dict(zip(flash, pp_launches("gpipe", 2, 2, 1))),
+           "pp:lm_pp_1f1b_step": dict(zip(flash,
+                                          pp_launches("1f1b", 2, 2, 1))),
+           "ep:lm_moe_step": {k: 2 for k in flash},
+           "seq:ulysses_attention": {"B5a": 1},
+           "decode:decode_prefill[128]": {"B5a": 2}}
+    return exp
+
+
+def lint_launches(linted: dict, row: str) -> dict:
+    """One ``kernels`` row's phase-22 launches: ``{unit: n}``, or for B3
+    ``{"amax": {unit: n}, "quantize": {unit: n}}``."""
+    keys = LINT_KERNEL_ROWS[row]
+    got = [linted["launches"].get(k, {}) for k in keys]
+    return got[0] if len(keys) == 1 else {"amax": got[0], "quantize": got[1]}
+
+
+def phase_lint(torch) -> dict:
+    """Phase 22: see the module docstring."""
+    from distlearn_tpu_torch.lint import budget as budget_mod
+    from distlearn_tpu_torch.lint import registry
+    from distlearn_tpu_torch.lint.core import RULES
+
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "distlearn_tpu_torch.tools.distlint",
+           "--all", "--device", LINT_DEVICE, "--format", "json"]
+    try:
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                              timeout=LINT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"lint: the CLI ran past {LINT_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"lint: the CLI exited {proc.returncode}: "
+          f"{proc.stderr.strip()[-2000:]} {proc.stdout[-2000:]}")
+    doc = json.loads(proc.stdout)
+    check(not doc["findings"] and doc["errors"] == 0,
+          f"lint: findings {doc['findings'][:10]}")
+    fams = registry.families()
+    check(sorted(doc["costs"]) == sorted(fams) and len(fams) == 14,
+          f"lint: families {sorted(doc['costs'])}")
+    check(doc["rules"] == sorted(RULES), "lint: the rule list differs")
+    log(f"[lint] {' '.join(cmd[1:])}: exit 0, {doc['units']} units, no "
+        f"finding, {seconds:.1f} s ({len(fams)} families)")
+    info = doc["info"]
+    # every measured unit's peak memory within its lockfile's tolerance
+    worst = (0.0, "")
+    for fam, reports in sorted(doc["costs"].items()):
+        budget = budget_mod.load_budget(fam) or {"units": {}}
+        tol = budget.get("tolerance", budget_mod.DEFAULT_TOLERANCE)["memory"]
+        for unit, rep in sorted(reports.items()):
+            peak = rep["peak_bytes"]
+            committed = budget["units"].get(unit, {}).get("peak_bytes")
+            check(peak is not None and committed,
+                  f"lint: {fam}:{unit} has no peak memory ({peak}) or no "
+                  f"committed one ({committed})")
+            ratio = peak / committed
+            check(ratio <= 1 + tol, f"lint: {fam}:{unit} peak {peak} B "
+                  f"against {committed} B committed (tolerance {tol:.0%})")
+            worst = max(worst, (ratio, f"{fam}:{unit}"))
+    log(f"[lint] peak memory a unit within {budget_mod.DEFAULT_TOLERANCE['memory']:.0%} "
+        f"of the lockfiles; largest ratio {worst[0]:.3f} ({worst[1]})")
+    # launches by the wrappers' counters and by profile names
+    expected = lint_expected()
+    launches: dict = {}
+    for name, got in sorted(info.items()):
+        if "launches" not in got:
+            continue
+        want = {k: expected.get(name, {}).get(k, 0) for k in got["launches"]}
+        check(got["launches"] == want,
+              f"lint: {name} launched {got['launches']}, expected {want}")
+        check(got["named"] == got["launches"],
+              f"lint: {name} profile names {got['named']} against "
+              f"launches {got['launches']}")
+        for k, n in got["launches"].items():
+            if n:
+                launches.setdefault(k, {})[name] = n
+    missing = sorted(set(expected) - {n for n, g in info.items()
+                                      if "launches" in g})
+    check(not missing, f"lint: no launch record for {missing}")
+    log(f"[lint] launches on each unit's first rank, by count and by "
+        f"profile names: {launches}")
+    # the tp engine: the follower replayed exactly the leader's calls
+    tp = info.get("decode:tp_follow", {}).get("calls_by_rank", {})
+    check(len(tp) == 2 and len(set(tp.values())) == 1,
+          f"lint: decode leader and follower records {tp}")
+    log(f"[lint] decode tp=2: leader and follower each {list(tp.values())[0]} "
+        "recorded calls, equal (DL002 quiet)")
+    check(seconds <= LINT_BUDGET_S,
+          f"lint: phase 22 took {seconds:.1f} s (budget {LINT_BUDGET_S} s)")
+    return {"seconds": seconds, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6118,6 +6255,7 @@ def main() -> int:
         piped = phase_pp_lm(torch)
         fleet = phase_fleet(torch)
         tools = phase_tools(torch)
+        linted = phase_lint(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -6129,21 +6267,25 @@ def main() -> int:
          "replaces": "distlearn_tpu/ops/fused_update.py:71",
          "launches": sgd["launches"], **kernel_rows["fused_sgd"],
          "mesh_lm_launches": {"tp": meshed["b1"]},
-         "tools_launches": tools["launches"]["fused_sgd"]},
+         "tools_launches": tools["launches"]["fused_sgd"],
+         "lint_launches": lint_launches(linted, "fused_sgd")},
         {"name": "fused_elastic", "route": "cuda", "source": src,
          "replaces": "distlearn_tpu/ops/fused_update.py:96",
          "launches": ea["launches"], **kernel_rows["fused_elastic"],
-         "tools_launches": tools["launches"]["fused_elastic"]},
+         "tools_launches": tools["launches"]["fused_elastic"],
+         "lint_launches": lint_launches(linted, "fused_elastic")},
         {"name": "quantize_ef", "route": "cuda", "source": wire_src,
          "replaces": "distlearn_tpu/ops/wire_kernels.py:267",
          "launches": async_run["launches"]["quantize_ef"],
          **kernel_rows["quantize_ef"],
-         "tools_launches": tools["launches"]["quantize_ef"]},
+         "tools_launches": tools["launches"]["quantize_ef"],
+         "lint_launches": lint_launches(linted, "quantize_ef")},
         {"name": "dequant_add", "route": "cuda", "source": wire_src,
          "replaces": "distlearn_tpu/ops/wire_kernels.py:335",
          "launches": async_run["launches"]["dequant_add"],
          **kernel_rows["dequant_add"],
-         "tools_launches": tools["launches"]["dequant_add"]},
+         "tools_launches": tools["launches"]["dequant_add"],
+         "lint_launches": lint_launches(linted, "dequant_add")},
         {"name": "flash_attention", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758"
@@ -6155,7 +6297,8 @@ def main() -> int:
                             piped["launches"].items()},
          "tp_serve_launches": fleet["tp_launches"],
          "fleet_launches": fleet["fleet_launches"],
-         "tools_launches": tools["launches"]["flash_attention"]},
+         "tools_launches": tools["launches"]["flash_attention"],
+         "lint_launches": lint_launches(linted, "flash_attention")},
         {"name": "flash_attention_dkv", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"
@@ -6165,7 +6308,8 @@ def main() -> int:
          "mesh_lm_launches": {k: v[1] for k, v in
                               meshed["launches"].items()},
          "pp_lm_launches": {k: v[1] for k, v in
-                            piped["launches"].items()}},
+                            piped["launches"].items()},
+         "lint_launches": lint_launches(linted, "flash_attention_dkv")},
         {"name": "flash_attention_dq", "route": "cuda",
          "source": "distlearn_tpu_torch/ops/csrc/flash_attention.cu",
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"
@@ -6175,7 +6319,8 @@ def main() -> int:
          "mesh_lm_launches": {k: v[2] for k, v in
                               meshed["launches"].items()},
          "pp_lm_launches": {k: v[2] for k, v in
-                            piped["launches"].items()}},
+                            piped["launches"].items()},
+         "lint_launches": lint_launches(linted, "flash_attention_dq")},
     ]
     log(f"[report] total {time.perf_counter() - t_start:.1f} s; "
         f"sgd {sgd['steps_per_s']:.2f} steps/s at batch {SGD_BATCH}; graph "
@@ -6208,7 +6353,8 @@ def main() -> int:
         f"{resnet['b1']['bound_ms']:.5f} ms; mesh LM phase "
         f"{meshed['seconds']:.1f} s; pp and optimizer LM phase "
         f"{piped['seconds']:.1f} s; fleet phase {fleet['seconds']:.1f} s; "
-        f"tools phase {tools['seconds']:.1f} s")
+        f"tools phase {tools['seconds']:.1f} s; lint phase "
+        f"{linted['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi_line)
     log(json.dumps({"ok": True, "device": {

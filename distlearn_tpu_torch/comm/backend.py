@@ -45,6 +45,7 @@ import torch
 
 from distlearn_tpu_torch import obs
 from distlearn_tpu_torch.comm import wire
+from distlearn_tpu_torch.lint import spmd as lint_spmd
 from distlearn_tpu_torch.ops import staging
 from distlearn_tpu_torch.utils.platform import resolve_device
 from distlearn_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
@@ -485,6 +486,8 @@ class MeshBackend(_StackedRows):
         self._check_rows(leaves)
         cvec = _contrib_rows(contrib, self.num_nodes)
         out = [_to_rows(_row_sum(x, cvec), self.num_nodes) for x in leaves]
+        for x in leaves:        # one psum a leaf over the row axis
+            lint_spmd.note("all-reduce", "data", x[0])
         n = self.num_nodes if cvec is None else sum(cvec)
         self._c_rounds.labels(backend="mesh").inc()
         self._c_logical.labels(backend="mesh").inc(
@@ -672,13 +675,7 @@ class HybridBackend(_StackedRows):
         L = self.local_nodes
         cvec = _contrib_rows(contrib, L)
         plans = self._groups(leaves)
-        sums = []
-        for dt, idxs, total, padded in plans:
-            parts = [leaves[i].reshape(L, -1) for i in idxs]
-            if padded > total:
-                parts.append(torch.zeros((L, padded - total), dtype=dt,
-                                         device=leaves[idxs[0]].device))
-            sums.append(_row_sum(torch.cat(parts, dim=1), cvec))
+        sums = self._local_sums(leaves, cvec, plans)
         n_local = L if cvec is None else sum(cvec)
         r_local = int(rider) * L
         logical = sum(_nbytes(x) for x in sums)
@@ -703,20 +700,47 @@ class HybridBackend(_StackedRows):
             sums = staging.unstage(self._fb, views, self.device)
         else:
             n_total, r_total = n_local, r_local
-        out: list = [None] * len(leaves)
-        for (dt, idxs, total, padded), flat in zip(plans, sums):
-            o = 0
-            for i in idxs:
-                shape = tuple(leaves[i].shape[1:])
-                size = leaves[i][0].numel()
-                out[i] = _to_rows(flat[o:o + size].view(shape), L)
-                o += size
+        out = self._back_to_rows(leaves, plans, sums)
         t3 = time.perf_counter()
         self.last_split = (t1 - t0, t2 - t1, t3 - t2)
         self._c_rounds.labels(backend="hybrid").inc()
         self._c_logical.labels(backend="hybrid").inc(logical)
         self._h_secs.labels(backend="hybrid").observe(t3 - t0)
         return tree_unflatten(treedef, out), n_total, r_total
+
+    def _local_sums(self, leaves: list[torch.Tensor], cvec, plans
+                    ) -> list[torch.Tensor]:
+        """Step 1: each dtype group's rows (masked by ``cvec``) flattened,
+        padded to L equal chunks and summed over the rows, the JAX
+        package's in-mesh reduce-scatter (each row's chunk of the sum)."""
+        L = self.local_nodes
+        sums = []
+        for dt, idxs, total, padded in plans:
+            parts = [leaves[i].reshape(L, -1) for i in idxs]
+            if padded > total:
+                parts.append(torch.zeros((L, padded - total), dtype=dt,
+                                         device=leaves[idxs[0]].device))
+            s = _row_sum(torch.cat(parts, dim=1), cvec)
+            lint_spmd.note("reduce-scatter", "data", s,
+                           nbytes=s.numel() * s.element_size() // L)
+            sums.append(s)
+        return sums
+
+    def _back_to_rows(self, leaves: list[torch.Tensor], plans,
+                      sums: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Step 3: every row of each leaf gets its part of the reduced
+        flat sums, the JAX package's all-gather of the chunks."""
+        L = self.local_nodes
+        out: list = [None] * len(leaves)
+        for (dt, idxs, total, padded), flat in zip(plans, sums):
+            lint_spmd.note("all-gather", "data", flat)
+            o = 0
+            for i in idxs:
+                shape = tuple(leaves[i].shape[1:])
+                size = leaves[i][0].numel()
+                out[i] = _to_rows(flat[o:o + size].view(shape), L)
+                o += size
+        return out
 
     def scatter(self, value: PyTree, src: int = 0) -> PyTree:
         """Logical node ``src``'s row on every row of every host: the owning

@@ -542,7 +542,7 @@ class AsyncEAServer:
         self._ckpt_every = 1
         self._ckpt_count = 0
         # lock order: _ckpt_lock -> _apply_lock -> stripe locks (ascending)
-        # -> _lock
+        # -> _lock; _frames_lock is a leaf (nothing is taken under it)
         self._ckpt_lock = threading.Lock()
         self._lock = threading.Lock()
         self._apply_lock = threading.Lock()
@@ -555,6 +555,7 @@ class AsyncEAServer:
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
         self._frames: dict[tuple, wire.FrameBuffer] = {}
+        self._frames_lock = threading.Lock()
         self._tls = threading.local()
         if standby:
             # warm standby: every cid starts evicted, so admission happens
@@ -722,10 +723,13 @@ class AsyncEAServer:
         snapshots, "rx" for received deltas), page-locked on the card."""
         key = (kind, getattr(self._tls, "key", None)
                or threading.get_ident())
-        fb = self._frames.get(key)
-        if fb is None:
-            fb = self._frames[key] = wire.FrameBuffer(
-                pinned=self.device.type == "cuda")
+        # the stripe legs and a checkpoint thread look up and insert at
+        # once: the check-then-insert is one critical section
+        with self._frames_lock:
+            fb = self._frames.get(key)
+            if fb is None:
+                fb = self._frames[key] = wire.FrameBuffer(
+                    pinned=self.device.type == "cuda")
         return fb
 
     def _fence(self):

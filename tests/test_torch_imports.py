@@ -19,7 +19,8 @@ PORT_FILES = sorted((ROOT / "distlearn_tpu_torch").rglob("*.py")) + \
      ROOT / "tests" / "torch_lm_dist_worker.py",
      ROOT / "tests" / "torch_scan_dist_worker.py",
      ROOT / "tests" / "torch_optim_dist_worker.py",
-     ROOT / "tests" / "torch_mesh_worker.py"]
+     ROOT / "tests" / "torch_mesh_worker.py",
+     ROOT / "tests" / "torch_lint_worker.py"]
 
 
 def _imported_modules(path: Path):
@@ -67,7 +68,11 @@ def test_port_sources_found():
                 "tools/__init__.py", "tools/chaos.py", "tools/autoscaler.py",
                 "tools/diststat.py", "tools/tracecat.py",
                 "tools/ea_convergence.py", "tools/profile_resnet.py",
-                "tools/analyze_trace.py"):
+                "tools/analyze_trace.py", "tools/distlint.py",
+                "lint/__init__.py", "lint/core.py", "lint/protocol.py",
+                "lint/races.py", "lint/model.py", "lint/conformance.py",
+                "lint/spmd.py", "lint/cost.py", "lint/budget.py",
+                "lint/registry.py"):
         assert f"distlearn_tpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
     assert (ROOT / "distlearn_tpu_torch/ops/csrc/flash_attention.cu").exists()
