@@ -14,8 +14,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    together) into the git-ignored build directory; B1's two 128-bit loads
    before its first store (``cuobjdump -sass``); per flash kernel, ptxas's
    registers and spills (none allowed in the D=64 bfloat16 B5a, B5b and
-   B5c) and the HMMA count of its SASS (``cuobjdump -sass``): non-zero in
-   exactly the tensor-core kernels, the bfloat16 B5a, B5b and B5c.
+   B5c and the D=64 float32 B5b and B5c) and the HMMA count of its SASS
+   (``cuobjdump -sass``): non-zero in exactly the tensor-core kernels, the
+   bfloat16 B5a, B5b and B5c and the float32 (3xTF32) B5b and B5c; zero in
+   the float32 B5a.
 3. kernels — each kernel against its plain PyTorch version, bit for bit, at
    the full-width CIFAR-10 bucket and at a ragged length, aligned and one
    element in, B1 also at lengths 1, 3 and around four chunks, one launch a
@@ -127,8 +129,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    beside the twins, the bound, and the backward of
    ``F.scaled_dot_product_attention(is_causal=True)`` (timed as the
    library yardstick only) against B5c + B5b together; the FLASH_BF16_CASES
-   checked the same way, untimed; a profiled float32 call names only the
-   CUDA-core kernels, a bfloat16 one only the tensor-core ones.
+   and FLASH_F32_CASES checked the same way, untimed; a profiled float32
+   call names only the CUDA-core B5a and the 3xTF32 tensor-core B5b and B5c
+   (``*_tf32x3``), a bfloat16 one only the tensor-core kernels (``*_mma``).
 12. train LM — the full-width LM of ``bench.py:1690-1713`` (vocab 32768,
    dim 1024, depth 8, 16 heads, max_len 1024, bfloat16 compute, float32
    params, batch 8 of uniform tokens, lr 1e-2) on one NCCL rank with
@@ -141,7 +144,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    memory per mode, one profiled step (device busy, B5a/B5b/B5c shares,
    each by its tensor-core kernel's name and with 8 launches: the profile
    lost no device event) and MFU against the bfloat16 dense peak (the run
-   fails above 1).
+   fails above 1); (f) the float32 leg: float32 compute (TF32 off), flash,
+   one step whose loss and every leaf's update are held against the xla
+   route's, then 3 timed steps and one profiled: B5c and B5b 8 launches a
+   step by count and by the 3xTF32 kernels' names, and the pair's share
+   of the step's device time.
 13. examples — ``python -m distlearn_tpu_torch.examples.cifar10
    --numEpochs 1 --numExamples 2048 --testExamples 512 --batchSize 256
    --learningRate 0.01 --parity``, plain and with ``--deviceData --bf16``;
@@ -375,11 +382,14 @@ EXAMPLES = (_CIFAR, _CIFAR + ["--deviceData", "--bf16"],
             ["mnist", "--numNodes", "4", "--numEpochs", "1", "--parity"])
 
 # Card rates for the bound (NVIDIA's H100 and H200 SXM data sheets): HBM
-# bytes/s by part, FP32 (non-tensor-core) FLOP/s, dense bf16 tensor-core
-# FLOP/s.
+# bytes/s by part, FP32 (non-tensor-core) FLOP/s, dense bf16 and TF32
+# tensor-core FLOP/s.
 HBM_BYTES_PER_S = {"H200": 4.8e12, "H100": 3.35e12}
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
+# TF32 passes a float32 product of the 3xTF32 kernels (float32 B5b, B5c)
+TF32_PASSES = 3
 
 # Phase 9: B5a at (B, H, D, L): the served LM's head shape at the prompt
 # buckets phase 10 prefills at, one shape per other head dim the kernel is
@@ -414,6 +424,14 @@ FLASH_BF16_TOL = 2e-2
 FLASH_BF16_CASES = ((2, 4, 64, 512, False, 1.0), (2, 4, 64, 64, True, 1.0),
                     (1, 16, 64, 1024, True, 8.0),
                     (4, 8, 128, 1024, True, 8.0))
+# Phase 11, float32, untimed: q multiplied by 8 at D = 64 and D = 128, where
+# dP - di cancels wherever P is nearly one-hot and the 3xTF32 products
+# meet their largest scores.  The rule of the bfloat16 cases above: held
+# against the twins at FLASH_BWD_TOL float32 with dK's atol times 8 (even
+# plain float32 puts dK past the unscaled atol there: a rounding in dS
+# moves dK by it times |q|), the xla route's distance measured, not held.
+FLASH_F32_CASES = ((1, 16, 64, 1024, True, 8.0),
+                   (4, 8, 128, 1024, True, 8.0))
 
 # Phase 10: the LM of bench.py:1705, served at 4 slots.
 LM_FLAGS = ["--steps", "0", "--serve", "4", "--vocab", "32768", "--dim",
@@ -463,6 +481,16 @@ LM_TIMED_STEPS = 5        # per mode in (e), after 2 untimed steps
 # JAX's remat tolerance (tests/test_transformer.py:107-112), rtol 1e-5 and
 # atol 1e-7 on params, 1e-6 on the loss.
 LM_ROUTE_LOSS_RTOL, LM_ROUTE_UPDATE_TOL = 2e-3, 5e-2
+# (f) flash against xla in float32 compute (TF32 off), the reference's
+# float32 tolerances for another attention route: the LM loss within rtol
+# 1e-4 (tests/test_transformer.py:78, lm_loss over a sequence mesh
+# against one device), each leaf's gradient within rtol 2e-3, atol 2e-4
+# (tests/test_sequence.py:61-62, ring attention's gradients against local
+# attention's), held on the update p1 - p0 = -lr g as rtol 2e-3 and atol
+# lr * 2e-4.
+LM_F32_LOSS_RTOL = 1e-4
+LM_F32_GRAD_TOL = (2e-3, 2e-4)
+LM_F32_TIMED_STEPS = 3    # after 1 untimed (the compared step)
 
 
 class SmokeFailure(Exception):
@@ -563,8 +591,10 @@ def phase_device(torch):
 
 
 def kernel_label(sym: str) -> str | None:
-    """``flash_fwd_mma<bf16, 64>`` from a flash kernel's mangled name."""
-    m = re.search(r"(flash_[a-z_]+?)I(f|13__nv_bfloat16)?Li(\d+)E", sym)
+    """``flash_fwd_mma<bf16, 64>`` or ``flash_bwd_dq_tf32x3<f32, 64>`` from
+    a flash kernel's mangled name."""
+    m = re.search(r"(flash_(?:fwd|bwd)[a-z0-9_]*?)I(f|13__nv_bfloat16)?"
+                  r"Li(\d+)E", sym)
     if m is None:
         return None
     name, t, d = m.groups()
@@ -644,8 +674,8 @@ def phase_build():
             if "ptxas" in line and ("registers" in line or "spill" in line
                                     or "Compiling" in line):
                 log(f"[build] {src}: {line.strip()}")
-    # the bfloat16 B5a, B5b and B5c run on tensor cores, the float32 ones
-    # on CUDA cores
+    # the bfloat16 B5a, B5b and B5c and the float32 B5b and B5c run on
+    # tensor cores, the float32 B5a on CUDA cores
     if "flash_attention.cu" in logs:
         info = ptxas_report(logs["flash_attention.cu"])
         log("[build] flash kernels (registers, spill stores/loads bytes): "
@@ -653,7 +683,9 @@ def phase_build():
                         f"{v.get('spill')}" for k, v in sorted(info.items())))
         for label in ("flash_fwd_mma<bf16, 64>",
                       "flash_bwd_dkv_mma<bf16, 64>",
-                      "flash_bwd_dq_mma<bf16, 64>"):
+                      "flash_bwd_dq_mma<bf16, 64>",
+                      "flash_bwd_dkv_tf32x3<f32, 64>",
+                      "flash_bwd_dq_tf32x3<f32, 64>"):
             check(label in info and info[label].get("spill") == (0, 0),
                   f"{label}: ptxas reports spills or no entry: "
                   f"{info.get(label)}")
@@ -671,9 +703,10 @@ def phase_build():
         + ", ".join(f"{k} {n}" for k, n in sorted(hmma.items())))
     check(len(hmma) == 18, f"expected 18 flash kernels, found {sorted(hmma)}")
     for label, n in hmma.items():
-        check((n > 0) == ("_mma<" in label),
+        check((n > 0) == ("_mma<" in label or "_tf32x3<" in label),
               f"{label}: {n} HMMA instructions; exactly the bfloat16 B5a, "
-              "B5b and B5c kernels run on tensor cores")
+              "B5b and B5c and the float32 (3xTF32) B5b and B5c kernels run "
+              "on tensor cores")
 
 
 # ---------------------------------------------------------------------------
@@ -2371,12 +2404,21 @@ def phase_async_concurrent(torch, card):
 # Phase 9: kernel B5a against its plain twin and the xla route
 # ---------------------------------------------------------------------------
 
-def attn_bound(torch, nbytes, flops, dtype, rate):
+def attn_bound(torch, nbytes, flops, dtype, rate, core_flops=None):
     """(bound ms, bound_by): bytes over the HBM rate against operations over
-    the peak for the dtype (CUDA cores for float32, tensor cores for
-    bfloat16)."""
-    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-    by_bytes, by_ops = nbytes / rate * 1e3, flops / peak * 1e3
+    the peaks of the units the kernel's route runs them on.  bfloat16:
+    every flop on the tensor cores.  float32: ``core_flops`` of them on the
+    CUDA cores (all of B5a's; the score product, and di, of B5b and B5c)
+    and the rest in 3xTF32, three TF32 tensor-core passes a product; the
+    two units run side by side, so the slower of them bounds."""
+    if dtype != torch.float32:
+        ops_s = flops / BF16_FLOPS
+    elif core_flops is None:
+        ops_s = flops / FP32_FLOPS
+    else:
+        ops_s = max(core_flops / FP32_FLOPS,
+                    TF32_PASSES * (flops - core_flops) / TF32_FLOPS)
+    by_bytes, by_ops = nbytes / rate * 1e3, ops_s * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -2725,14 +2767,17 @@ def phase_serve_lm(torch):
 # ---------------------------------------------------------------------------
 
 def flash_work(B, H, D, L, elt):
-    """Compulsory bytes and flops of B5a (with m, l), B5c (with di) and B5b
-    at one causal shape: N = B*H*L*(L+1)/2 (query, key) pairs; each
-    [B, L, H, D] tensor read or written once, m, l and di 4 bytes a row."""
+    """Compulsory bytes, flops and the flops float32 runs on the CUDA cores
+    (:func:`attn_bound`) of B5a (with m, l), B5c (with di) and B5b at one
+    causal shape: N = B*H*L*(L+1)/2 (query, key) pairs; each [B, L, H, D]
+    tensor read or written once, m, l and di 4 bytes a row; the score
+    product S = Q K^T is 2*D*N of each."""
     pairs = B * H * L * (L + 1) // 2
     t, st = B * L * H * D * elt, B * H * L * 4
-    return {"fwd": (4 * t + 2 * st, 4 * D * pairs),
-            "dq": (6 * t + 3 * st, 6 * D * pairs + 2 * B * H * L * D),
-            "dkv": (6 * t + 3 * st, 8 * D * pairs)}
+    di = 2 * B * H * L * D
+    return {"fwd": (4 * t + 2 * st, 4 * D * pairs, None),
+            "dq": (6 * t + 3 * st, 6 * D * pairs + di, 2 * D * pairs + di),
+            "dkv": (6 * t + 3 * st, 8 * D * pairs, 2 * D * pairs)}
 
 
 def within(torch, got, want, rtol, atol) -> tuple[bool, float]:
@@ -2745,7 +2790,7 @@ def check_backward(torch, name, q, k, v, do, causal=True, mult=1.0):
     (on the kernels' own residuals) and the xla route's autograd, the
     backward repeated bit for bit.  Returns ``(o, m, l, di)``, the max abs
     errors ``{"dq": (twin, xla, twin's own from xla), ...}`` and B5a's
-    against its twin.  With q scaled by ``mult`` != 1 (FLASH_BF16_CASES)
+    against its twin.  With q scaled by ``mult`` != 1 (FLASH_*_CASES)
     the gradients' distance from the xla route is measured, not held, and
     two absolute tolerances scale with ``mult``: m's (its float32 rounding
     scales with the scores) and dK's against its twin (see there)."""
@@ -2818,8 +2863,7 @@ def phase_flash_backward(torch, card):
     # timing loops below the profiler was seen to drop a session's first
     # device events (one after one shape, all of one call after all)
     route_gen = torch.Generator(device=dev).manual_seed(12)
-    for dtype, want in ((torch.float32, {"B5a": {"core"}, "B5b": {"core"},
-                                         "B5c": {"core"}}),
+    for dtype, want in ((torch.float32, FLASH_F32_ROUTES),
                         (torch.bfloat16, FLASH_BF16_ROUTES)):
         q, k, v, do = flash_inputs(torch, route_gen, *FLASH_TRAIN, dtype, 4)
         keys = profiled_counts(torch, lambda: [fa.flash_attention_bwd(
@@ -2830,8 +2874,9 @@ def phase_flash_backward(torch, card):
             + ", ".join(f"{t} {'/'.join(sorted(r))}"
                         for t, r in sorted(routes.items())))
         check(routes == want, f"{dtype} flash call ran {routes}, expected "
-              f"{want} (mma: tensor cores, core: CUDA cores); device "
-              f"events {[key[:60] for key in keys]}")
+              f"{want} (mma: bfloat16 tensor cores, tf32x3: float32 tensor "
+              f"cores in 3xTF32, core: CUDA cores); device events "
+              f"{[key[:60] for key in keys]}")
     del q, k, v, do
     rows = {}
     for B, H, D, L in FLASH_BWD_SHAPES:
@@ -2862,16 +2907,22 @@ def phase_flash_backward(torch, card):
             }
             line = []
             for kern, (fn, plain) in timed.items():
-                nbytes, flops = work[kern]
+                nbytes, flops, core_flops = work[kern]
                 bound, bound_by = attn_bound(torch, nbytes, flops, dtype,
-                                             rate)
+                                             rate, core_flops)
                 ms = time_ms(torch, fn, flush)
                 row = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
                        "plain_ms": time_ms(torch, plain, flush) if main
                        else None}
+                core = ""
+                if dtype == torch.float32 and kern != "fwd":
+                    # what the CUDA cores alone would bound it at
+                    row["core_bound_ms"] = max(nbytes / rate,
+                                               flops / FP32_FLOPS) * 1e3
+                    core = f", CUDA-core bound {row['core_bound_ms']:.4f}"
                 rows[(B, H, D, L, dname, kern)] = row
                 line.append(f"{kern} {ms:.4f} ms (bound {bound:.4f}, "
-                            f"{bound_by}; {bound / ms:.1%})")
+                            f"{bound_by}; {bound / ms:.1%}{core})")
             sdpa_ms = time_ms(torch, lambda: torch.autograd.grad(
                 so, (qt, kt, vt), dot, retain_graph=True), flush)
             with torch.no_grad():
@@ -2898,10 +2949,11 @@ def phase_flash_backward(torch, card):
             rows[(B, H, D, L, dname, "fwd")]["max_abs_err"] = e_o
             del so, qt, kt, vt, q, k, v, do, o, m, l, di
     del flush
-    for B, H, D, L, causal, mult in FLASH_BF16_CASES:
-        name = case_name(B, H, D, L, torch.bfloat16, causal, mult)
-        q, k, v, do = flash_inputs(torch, gen, B, H, D, L, torch.bfloat16, 4,
-                                   mult)
+    for dtype, (B, H, D, L, causal, mult) in (
+            [(torch.bfloat16, c) for c in FLASH_BF16_CASES]
+            + [(torch.float32, c) for c in FLASH_F32_CASES]):
+        name = case_name(B, H, D, L, dtype, causal, mult)
+        q, k, v, do = flash_inputs(torch, gen, B, H, D, L, dtype, 4, mult)
         _, errs, e_o = check_backward(torch, name, q, k, v, do, causal,
                                       mult)
         log(f"[flash-bwd] {name}: max abs err (twin, xla; the twin's own "
@@ -2917,9 +2969,13 @@ def phase_flash_backward(torch, card):
         f"within rtol = atol = {FLASH_BF16_TOL}; a second backward equal bit "
         "for bit; bounds at "
         f"{rate / 1e12:.2f} TB/s ({part}), {FP32_FLOPS / 1e12:.0f} TFLOP/s "
-        f"float32, {BF16_FLOPS / 1e12:.0f} TFLOP/s bfloat16")
+        f"float32 CUDA cores (B5a; S and di of B5b, B5c), "
+        f"{TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 / {TF32_PASSES} passes (the "
+        "other float32 B5b, B5c products), "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bfloat16")
     B, H, D, L = FLASH_TRAIN
-    return {kern: rows[(B, H, D, L, "bfloat16", kern)]
+    return {kern: dict(rows[(B, H, D, L, "bfloat16", kern)],
+                       float32=rows[(B, H, D, L, "float32", kern)])
             for kern in ("fwd", "dq", "dkv")}
 
 
@@ -2942,19 +2998,34 @@ FLASH_KERNELS = (("B5a", "flash_fwd"), ("B5b", "flash_bwd_dkv"),
                  ("B5c", "flash_bwd_dq"))
 # the kernels a bfloat16 call runs: all three on tensor cores (mma)
 FLASH_BF16_ROUTES = {"B5a": {"mma"}, "B5b": {"mma"}, "B5c": {"mma"}}
+# the kernels a float32 call runs: B5a on the CUDA cores, B5b and B5c on
+# the tensor cores in 3xTF32
+FLASH_F32_ROUTES = {"B5a": {"core"}, "B5b": {"tf32x3"}, "B5c": {"tf32x3"}}
 
 
 def flash_routes(keys) -> dict:
     """{"B5a": {"mma"}, ...}: the flash kernels that profiler ``keys`` name,
-    each with the routes seen, "mma" (``*_mma``: tensor cores) or "core"
-    (CUDA cores)."""
+    each with the routes seen, "mma" (``*_mma``: bfloat16 tensor cores),
+    "tf32x3" (``*_tf32x3``: float32 on the tensor cores in 3xTF32) or
+    "core" (CUDA cores)."""
     routes = {}
     for key in keys:
         for tag, sub in FLASH_KERNELS:
             if sub in key:
                 routes.setdefault(tag, set()).add(
-                    "mma" if f"{sub}_mma" in key else "core")
+                    "mma" if f"{sub}_mma" in key else "tf32x3"
+                    if f"{sub}_tf32x3" in key else "core")
     return routes
+
+
+def flash_profile(evs) -> tuple[dict, dict, dict]:
+    """Each flash kernel's device ms, launches and routes among profiler
+    events ``evs``."""
+    shares = {tag: sum(e.self_device_time_total for e in evs
+                       if key in e.key) / 1e3 for tag, key in FLASH_KERNELS}
+    counts = {tag: sum(e.count for e in evs if key in e.key)
+              for tag, key in FLASH_KERNELS}
+    return shares, counts, flash_routes(e.key for e in evs)
 
 
 def profiled_counts(torch, fn) -> dict:
@@ -3166,11 +3237,7 @@ def phase_train_lm(torch, tree):
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     check(busy > 0, "torch.profiler saw no device time in the LM step")
-    shares = {tag: sum(e.self_device_time_total for e in evs
-                       if key in e.key) / 1e3 for tag, key in FLASH_KERNELS}
-    counts = {tag: sum(e.count for e in evs if key in e.key)
-              for tag, key in FLASH_KERNELS}
-    routes = flash_routes(e.key for e in evs)
+    shares, counts, routes = flash_profile(evs)
     check(routes == FLASH_BF16_ROUTES,
           f"the bfloat16 LM step ran flash kernels {routes}, expected "
           f"{FLASH_BF16_ROUTES} (mma: tensor cores, core: CUDA cores)")
@@ -3189,11 +3256,112 @@ def phase_train_lm(torch, tree):
     check(counts == {tag: depth for tag, _ in FLASH_KERNELS},
           f"the profiled step names flash launches {counts}, expected "
           f"{depth} of each: the profile lost device events")
+    del models, step
+    torch.cuda.empty_cache()
+    f32 = train_lm_float32(torch, tree, params0, tokens)
     return {"launches": {"flash_attention_dkv": launches[1],
                          "flash_attention_dq": launches[2],
                          "flash_attention_train": launches[0]},
             "modes": per_mode, "busy_ms": busy, "wall_ms": wall_ms,
-            "shares": shares}
+            "shares": shares, "float32": f32}
+
+
+def train_lm_float32(torch, tree, params0, tokens):
+    """Phase 12(f): the LM step in float32 compute (TF32 off since phase
+    1) on the flash route, B5b and B5c on their 3xTF32 kernels: the first
+    step's loss and every leaf's update against the xla route's, 3 timed
+    steps after it, one profiled step.  Returns the launches, the step
+    time and the pair's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from distlearn_tpu_torch.models.transformer import transformer_lm
+    from distlearn_tpu_torch.ops import flash_attention as fa
+    from distlearn_tpu_torch.train import lm as tlm
+    from distlearn_tpu_torch.utils.profiling import settled_profile
+    from distlearn_tpu_torch.utils.tree import tree_leaves
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32,
+          "the float32 leg needs TF32 off for matmuls and cuDNN")
+    depth, lr = LM_TRAIN["depth"], LM_TRAIN_LR
+    step = tlm.build_lm_step(transformer_lm(attn_impl="flash", **LM_TRAIN),
+                             tree, lr=lr)
+    xla_step = tlm.build_lm_step(transformer_lm(attn_impl="xla",
+                                                **LM_TRAIN), tree, lr=lr)
+    # the first step against the xla route's
+    p_x, loss_x = xla_step(params0, tokens)
+    loss_x = float(loss_x)
+    torch.cuda.synchronize()
+    reset_flash_counts(fa)
+    params, loss = step(params0, tokens)
+    loss = float(loss)
+    dl = abs(loss - loss_x)
+    rtol, atol = LM_F32_GRAD_TOL
+    worst, worst_leaf = 0.0, None
+    for i, (a, b, z) in enumerate(zip(tree_leaves(params), tree_leaves(p_x),
+                                      tree_leaves(params0))):
+        ua, ub = a.double() - z.double(), b.double() - z.double()
+        # the largest ratio of |difference| to its allowance, 1 at the edge
+        ratio = float(((ua - ub).abs() / (lr * atol + rtol * ub.abs()))
+                      .max())
+        if ratio > worst:
+            worst, worst_leaf = ratio, (i, tuple(a.shape))
+    del p_x
+    log(f"[train] (f) float32 compute, TF32 off, one step, flash against "
+        f"xla: loss {loss:.7f} against {loss_x:.7f} (|diff| {dl:.3g}, rtol "
+        f"{LM_F32_LOSS_RTOL}); every leaf's update within rtol {rtol}, atol "
+        f"lr x {atol} of the xla route's, worst at {worst:.3g} of its "
+        f"allowance (leaf {worst_leaf})")
+    check(math.isfinite(loss) and dl <= LM_F32_LOSS_RTOL * abs(loss_x),
+          "float32: the flash and xla routes' losses differ")
+    check(worst <= 1.0, f"float32: leaf {worst_leaf}'s update is off the "
+          "xla route's")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = []
+    for _ in range(LM_F32_TIMED_STEPS):
+        params, loss = step(params, tokens)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) / LM_F32_TIMED_STEPS * 1e3
+    launches = flash_counts(fa)
+    n = LM_F32_TIMED_STEPS + 1
+    check(all(math.isfinite(x) for x in losses),
+          f"float32: non-finite loss {losses}")
+    check(launches == (depth * n,) * 3,
+          f"float32: B5a/B5b/B5c launched {launches} times in {n} steps, "
+          f"expected {depth} each a step")
+    torch.cuda.synchronize()
+    with settled_profile([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         torch.cuda.synchronize) as prof:
+        params, _ = step(params, tokens)
+        torch.cuda.synchronize()
+    del params
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    check(busy > 0, "torch.profiler saw no device time in the float32 step")
+    shares, counts, routes = flash_profile(evs)
+    pair = shares["B5b"] + shares["B5c"]
+    log(f"[train] (f) float32 step: {step_ms:.2f} ms (mean of "
+        f"{LM_F32_TIMED_STEPS} after 1, host clock, synchronised), losses "
+        f"{' '.join(f'{x:.5f}' for x in losses)}; launches B5a "
+        f"{launches[0]}, B5b {launches[1]}, B5c {launches[2]} in {n} steps; "
+        f"one profiled step: device busy {busy:.2f} ms, B5c + B5b "
+        f"{pair:.2f} ms = {pair / busy:.1%} (B5b {shares['B5b']:.2f}, B5c "
+        f"{shares['B5c']:.2f}, B5a {shares['B5a']:.2f} ms), names "
+        f"{counts}, routes {routes}")
+    check(routes == FLASH_F32_ROUTES,
+          f"the float32 LM step ran flash kernels {routes}, expected "
+          f"{FLASH_F32_ROUTES}")
+    check(counts == {tag: depth for tag, _ in FLASH_KERNELS},
+          f"the profiled float32 step names flash launches {counts}, "
+          f"expected {depth} of each")
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
+    for e in top:
+        log(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms  "
+            f"x{e.count:<4d} {e.key[:90]}")
+    return {"launches": launches, "step_ms": step_ms, "busy_ms": busy,
+            "pair_ms": pair, "loss_diff": dl, "update_ratio": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -6305,6 +6473,9 @@ def main() -> int:
                      " via distlearn_tpu/parallel/sequence.py:420",
          "launches": trained["launches"]["flash_attention_dkv"],
          **bwd_rows["dkv"],
+         "float32": dict(bwd_rows["dkv"]["float32"],
+                         route="cuda (3xTF32 tensor cores)",
+                         launches=trained["float32"]["launches"][1]),
          "mesh_lm_launches": {k: v[1] for k, v in
                               meshed["launches"].items()},
          "pp_lm_launches": {k: v[1] for k, v in
@@ -6316,6 +6487,9 @@ def main() -> int:
                      " via distlearn_tpu/parallel/sequence.py:420",
          "launches": trained["launches"]["flash_attention_dq"],
          **bwd_rows["dq"],
+         "float32": dict(bwd_rows["dq"]["float32"],
+                         route="cuda (3xTF32 tensor cores)",
+                         launches=trained["float32"]["launches"][2]),
          "mesh_lm_launches": {k: v[2] for k, v in
                               meshed["launches"].items()},
          "pp_lm_launches": {k: v[2] for k, v in
@@ -6331,7 +6505,9 @@ def main() -> int:
         f"{served['ttft_ms']:.2f} ms, TPOT p50 {served['tpot_ms']:.2f} ms, "
         f"{served['tokens_per_s']:.1f} tokens/s; LM training "
         f"{trained['modes']['none']['steps_per_s']:.2f} steps/s, MFU "
-        f"{trained['modes']['none']['mfu']:.3f}; host tree sync stage / "
+        f"{trained['modes']['none']['mfu']:.3f}, float32 "
+        f"{trained['float32']['step_ms']:.2f} ms a step (B5c + B5b "
+        f"{trained['float32']['pair_ms']:.2f} ms); host tree sync stage / "
         f"round / return {host['tree']['stage_ms']:.3f} / "
         f"{host['tree']['round_ms']:.3f} / {host['tree']['return_ms']:.3f} "
         f"ms, ring {host['ring']['stage_ms']:.3f} / "

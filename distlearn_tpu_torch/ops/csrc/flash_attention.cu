@@ -27,7 +27,8 @@
 //   dV = P^T dO      (B5b)    dK = dS^T Q     (B5b)    dQ = dS K     (B5c)
 //
 // Roundings, as in the Pallas kernels: scores and dO V^T are float32 sums of
-// products of the input-dtype operands; for bfloat16 inputs P is rounded to
+// products of the input-dtype operands (3xTF32 products for float32 B5b
+// and B5c, see below); for bfloat16 inputs P is rounded to
 // bfloat16 before the PV and P^T dO products and dS before the dS^T Q and
 // dS K products, while l sums the float32 P; every accumulator is float32
 // and the outputs are written in the input dtype.  di is folded into B5c's
@@ -48,17 +49,47 @@
 // bfloat16 tensor cores (989 TFLOP/s) and HBM (3.35 TB/s) the bounds are
 // 0.0203 ms (B5a, bytes), 0.0348 ms (B5b, operations) and 0.0305 ms (B5c,
 // bytes): every kernel sits near the ridge, so in bfloat16 only the tensor
-// cores can approach its bound.  In float32 the CUDA cores bound them
-// (0.26, 0.51, 0.39 ms at 67 TFLOP/s).
+// cores can approach its bound.  In float32 (twice the bytes) the CUDA
+// cores alone would bound them at 0.2567, 0.5133 and 0.3852 ms (67
+// TFLOP/s).  Float32 B5b and B5c form S on the CUDA cores (2*D*N: 0.1283
+// ms, 0.1286 with di) and their other products in 3xTF32, three TF32
+// tensor-core passes a product at 495 TFLOP/s (B5b 6*D*N: 0.1563 ms; B5c
+// 4*D*N: 0.1042 ms); the two units run side by side, so B5b is bound at
+// 0.1563 ms by its tensor-core work and B5c at 0.1286 ms by its CUDA-core
+// work (their 203 MB of float32 traffic take 0.0606 ms).
 //
 // Which kernel runs where:
 //
-//   bfloat16 B5a  flash_fwd_mma      tensor cores (mma.sync m16n8k16)
-//   bfloat16 B5b  flash_bwd_dkv_mma  tensor cores (mma.sync m16n8k16)
-//   bfloat16 B5c  flash_bwd_dq_mma   tensor cores (mma.sync m16n8k16)
-//   float32 B5a, B5b, B5c            CUDA cores: on tensor cores float32
-//                                    means TF32 (10-bit mantissas), which
-//                                    the float32 tolerances do not allow
+//   bfloat16 B5a  flash_fwd_mma         tensor cores (mma.sync m16n8k16)
+//   bfloat16 B5b  flash_bwd_dkv_mma     tensor cores (mma.sync m16n8k16)
+//   bfloat16 B5c  flash_bwd_dq_mma      tensor cores (mma.sync m16n8k16)
+//   float32 B5b   flash_bwd_dkv_tf32x3  tensor cores (mma.sync m16n8k8,
+//   float32 B5c   flash_bwd_dq_tf32x3   3xTF32) for dP and the gradient
+//                                       products; S on the CUDA cores
+//   float32 B5a   flash_fwd<float>      CUDA cores (FFMA)
+//
+// Why 3xTF32 keeps float32 accuracy.  One TF32 pass rounds each operand to
+// 11 significant bits (relative error up to 2^-11), which puts gradients
+// 20-100x outside the float32 tolerances (rtol 2e-4, atol 2e-5).  3xTF32
+// splits each operand x = hi + lo + e with hi = tf32(x) and lo = tf32(x -
+// hi) (cvt.rna; x - hi is exact), so |e| <= 2^-22 |x|, and forms a b as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi: each product of two TF32 values is
+// exact in float32, the dropped a_lo b_lo and the split errors are about
+// 3 * 2^-22 |a b|, and the sums are float32 in the accumulators.  The
+// gradients then sit as close to a float64 route as plain float32's do
+// (tests/test_torch_flash_tf32x3.py emulates the five products of the
+// backward at D = 32, 64, 128).  Two things 3xTF32 does not give, which
+// the kernels do otherwise:
+//   - The recomputed P = exp(s * scale - m) / l must come from the scores
+//     that m and l were taken over: exp turns a score a few ulps off into
+//     a relative error of |s| * scale ulps in P, which with q x 8 (scores
+//     up to about +-50) put dV at 1.8-4.1x its allowance on an H100 with S
+//     in 3xTF32 (PERF.md).
+//     So S is formed on the CUDA cores by the fmaf chain float32 B5a forms
+//     it with, bit for bit its scores.
+//   - The tensor core's own sums drift along a long k; each half tile's
+//     gradient products sum from zero and a rounded float32 addition adds
+//     them to the accumulator (acc_product_tf32).
 //
 // Ownership (every kernel).  Each block owns one 64-row output tile of one
 // (batch, head): a query tile for B5a and B5c, a key tile for B5b, as the
@@ -70,7 +101,7 @@
 // from the diagonal to the end (the causal skip, at tile level).  Head dims
 // 32, 64 and 128 are built: those of the repo's LM configurations.
 //
-// The tensor-core kernels (bfloat16 B5a, B5b, B5c): 128 threads, 4 warps of 16
+// The bfloat16 tensor-core kernels (B5a, B5b, B5c): 128 threads, 4 warps of 16
 // rows of the block's tile.  Tiles stay bfloat16 in shared memory, rows
 // padded by 16 bytes so that the 8 rows an ldmatrix reads fall in 8
 // distinct bank groups, and arrive by cp.async into a ring of two buffers:
@@ -100,13 +131,53 @@
 //   and dP = dO V^T are 16x64 slabs in registers, dS = (dP - di) P scale
 //   is formed in place and packed into the A fragments of dQ += dS K (K by
 //   ldmatrix.trans).  P and dS never touch shared memory.
-// The CUDA-core kernels (float32 B5a, B5b, B5c; simple and right): 256
-// threads; tiles staged in shared memory as float32; for a
-// 64x64 score tile thread t owns rows 4*(t/16) .. +3 and columns t%16 +
-// 16*c, so row max and row sum reduce over a half warp by shuffles; P and
-// dS pass through shared memory; products are float32 FMAs.  Tiles read
-// down a column are padded by one float so that a half warp's reads hit 16
-// distinct banks.
+// The float32 tensor-core kernels (B5b flash_bwd_dkv_tf32x3, B5c
+// flash_bwd_dq_tf32x3): the bfloat16 B5b and B5c in 32-bit elements.  128
+// threads, 4 warps of 16 rows (256, 8 warps, at D = 128; see Warps below);
+// tiles stay float32 in shared memory, rows
+// padded by 4 floats (16 bytes), and arrive by cp.async (16-byte chunks of
+// four floats) into a ring of two buffers with one __syncthreads a tile.
+// S is an fmaf chain per element on the CUDA cores (slab_scores_ffma);
+// every other product is mma.sync m16n8k8 TF32, issued three times a k
+// step (the cross terms, then hi hi) into float32 accumulators.  A tile is
+// walked in two halves of 32 columns (one a warp at D = 128, see below).  What they do about what bounds
+// them:
+//   - ldmatrix moves 16-bit elements (its .trans cannot transpose 32-bit
+//     ones), so fragments come by 32-bit shared loads; with the pad the
+//     bank of (row, col) is 4*row + col mod 32, so both the row-major read
+//     (A operands; V in dP = dO V^T) and the transposed read (K in dS K,
+//     dO in P^T dO, Q in dS^T Q) hit 32 distinct banks.
+//   - S, P, dP and dS stay in 16x32 slabs in registers (accumulator
+//     layout) and feed the next product's A operand from there: the
+//     accumulator
+//     gives lane (g, tq) columns 2tq and 2tq+1 where the TF32 A operand
+//     wants k = tq and tq+4, so that product's k is permuted inside each
+//     8-column block (no shuffle), and its B rows are read in that order.
+//     dS never touches shared memory.
+//   - Registers: two 16xD float32 accumulators (B5b), the half tile's
+//     sums of up to 64 columns, two slabs and the hi and lo fragments fill
+//     the 255 a thread (B5b at D = 64 uses 254; full 64-column slabs
+//     spilled), so K and V (B5b) or Q and dO (B5c) are re-read from shared
+//     memory and split each half tile at every head dim; an A fragment is
+//     split once and serves 4 (or up to 8) column blocks, a B fragment
+//     where it is loaded.  At D = 128 B5b still spills (nvcc's report is in
+//     chip_smoke.py's log); the forms that spilled less were slower.
+//   - Warps: at D = 128 a block's shared memory (6 tiles of 64 x 132
+//     floats, 203 KB) holds one block an SM, and four warps left the
+//     dependent MMA chains waiting; there a block runs 8 warps, two to each
+//     16 rows, each walking one 32-column half of every tile, and the two
+//     partial accumulators are added once at the end through shared memory
+//     (hand_over_partial), in the same order every run.
+//   - The split costs 3 ALU operations an element, a product three MMAs
+//     and S a CUDA-core chain: the issue rate of mma.sync, the splits and
+//     the FFMAs, not bytes, bounds the pair (wgmma with TMA-fed tiles is
+//     later work, as for bfloat16).
+// The CUDA-core forward (float32 B5a; simple and right): 256 threads;
+// tiles staged in shared memory as float32; for a 64x64 score tile thread
+// t owns rows 4*(t/16) .. +3 and columns t%16 + 16*c, so row max and row
+// sum reduce over a half warp by shuffles; P passes through shared memory;
+// products are float32 FMAs.  Tiles read down a column are padded by one
+// float so that a half warp's reads hit 16 distinct banks.
 //
 // Masking: masked scores are -inf in the forward and P = 0 in the backward
 // (the Pallas kernels add -0.7*FLT_MAX): every row sees key column 0, so the
@@ -156,11 +227,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
   out[3] = __uint_as_float(raw.y & 0xffff0000u);
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // x rounded to the input dtype and widened back (P and dS before their
 // products)
 __device__ __forceinline__ float round_to(float x, float) { return x; }
@@ -206,44 +272,6 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-// The 64x64 tile products a (row) · b (column) over D, two at once: for
-// this thread's rows row0 .. +3 and columns lane + 16*c, x = A1 B1^T and
-// y = A2 B2^T (raw sums, unscaled).  A1, A2 are [64][ld] read along a row
-// (a broadcast within the half warp), B1, B2 [64][ld] read down a column
-// (ld = D + 1: 16 distinct banks).
-template <int D>
-__device__ __forceinline__ void tile_products2(
-    const float* a1, const float* b1, const float* a2, const float* b2,
-    int row0, int lane, float (&x)[kRows][kSCols],
-    float (&y)[kRows][kSCols]) {
-  constexpr int kLd = D + 1;
-#pragma unroll
-  for (int a = 0; a < kRows; ++a)
-#pragma unroll
-    for (int c = 0; c < kSCols; ++c) x[a][c] = y[a][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av1[kRows], av2[kRows], bv1[kSCols], bv2[kSCols];
-#pragma unroll
-    for (int a = 0; a < kRows; ++a) {
-      av1[a] = a1[(row0 + a) * kLd + d];
-      av2[a] = a2[(row0 + a) * kLd + d];
-    }
-#pragma unroll
-    for (int c = 0; c < kSCols; ++c) {
-      bv1[c] = b1[(lane + 16 * c) * kLd + d];
-      bv2[c] = b2[(lane + 16 * c) * kLd + d];
-    }
-#pragma unroll
-    for (int a = 0; a < kRows; ++a)
-#pragma unroll
-      for (int c = 0; c < kSCols; ++c) {
-        x[a][c] = fmaf(av1[a], bv1[c], x[a][c]);
-        y[a][c] = fmaf(av2[a], bv2[c], y[a][c]);
-      }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Tensor-core building blocks (bfloat16): cp.async, ldmatrix, mma.sync
 // ---------------------------------------------------------------------------
@@ -280,17 +308,19 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// 64 rows x D bfloat16 from src (row stride in elements) into shared
-// memory rows of D + 8 elements, one 16-byte cp.async per chunk.
-template <int D>
-__device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src,
+// 64 rows x D elements from src (row stride in elements) into shared
+// memory rows padded by 16 bytes (D + 8 bfloat16, D + 4 float32), one
+// 16-byte cp.async per chunk, spread over the block's kThr threads.
+template <int D, int kThr = kMmaThreads, typename T>
+__device__ __forceinline__ void copy_tile_async(T* dst, const T* src,
                                                 int64_t row_stride) {
-  constexpr int kChunks = D / 8;
+  constexpr int kElts = 16 / (int)sizeof(T);  // a chunk, and the pad
+  constexpr int kChunks = D / kElts;
 #pragma unroll
-  for (int i = 0; i < kBM * kChunks / kMmaThreads; ++i) {
-    const int idx = threadIdx.x + i * kMmaThreads;
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    cp_async16(dst + r * (D + 8) + c, src + r * row_stride + c);
+  for (int i = 0; i < kBM * kChunks / kThr; ++i) {
+    const int idx = threadIdx.x + i * kThr;
+    const int r = idx / kChunks, c = (idx % kChunks) * kElts;
+    cp_async16(dst + r * (D + kElts) + c, src + r * row_stride + c);
   }
 }
 
@@ -416,6 +446,272 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core building blocks (float32 as 3xTF32): mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+//
+// Fragments of mma.sync.m16n8k8 (tf32 in, float32 accumulate), for lane
+// l = 4*g + tq: the 16x8 A operand holds (row g, k tq), (row g+8, k tq),
+// (row g, k tq+4), (row g+8, k tq+4) in its four registers; the 8x8 B
+// operand (k tq, column g) and (k tq+4, column g); the accumulator is
+// m16n8k16's.  A TF32 value is a float32 whose low 13 mantissa bits are 0.
+//
+// An accumulator slab feeds the next product's A operand without a
+// shuffle: lane (g, tq) holds columns 2tq and 2tq+1 of each 8-column
+// block, so the k index of that product is permuted within the block,
+// column 2tq into slot tq and 2tq+1 into slot tq+4, and its B operand's
+// rows are read in the same order (load_b_kn_tf32).
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c += a b, one TF32 pass (called only by mma_3xtf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A and B operands split in two TF32 parts, hi = tf32(x), lo = tf32(x - hi)
+struct Tf32A {
+  uint32_t hi[4], lo[4];
+};
+struct Tf32B {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));  // x - hi is exact
+}
+
+// c += a b in 3xTF32: the two small cross terms, then hi hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Tf32A& a,
+                                           const Tf32B& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// The A operand of rows r0 .. +15, k0 .. +7 of a row-major float32 tile
+// (row stride ld floats).  With ld = D + 4 the bank of (row, col) is
+// 4*row + col mod 32: the 32 lanes hit 32 banks.
+__device__ __forceinline__ void load_a_tf32(Tf32A& a, const float* tile,
+                                            int ld, int r0, int k0, int g,
+                                            int tq) {
+  const float* p = tile + (r0 + g) * ld + k0 + tq;
+  split_tf32(p[0], a.hi[0], a.lo[0]);
+  split_tf32(p[8 * ld], a.hi[1], a.lo[1]);
+  split_tf32(p[4], a.hi[2], a.lo[2]);
+  split_tf32(p[8 * ld + 4], a.hi[3], a.lo[3]);
+}
+
+// The B operand of columns n0 .. +7 over k0 .. +7 of a tile stored [n][k]
+// (k contiguous: V in dP = dO V^T, dO in dP^T = V dO^T)
+__device__ __forceinline__ void load_b_nk_tf32(Tf32B& b, const float* tile,
+                                               int ld, int n0, int k0, int g,
+                                               int tq) {
+  const float* p = tile + (n0 + g) * ld + k0 + tq;
+  split_tf32(p[0], b.hi[0], b.lo[0]);
+  split_tf32(p[4], b.hi[1], b.lo[1]);
+}
+
+// The B operand of columns n0 .. +7 over rows 8j .. +7 of a tile stored
+// [k][n] (n contiguous: K in dS K, dO and Q in P^T dO and dS^T Q), k
+// permuted as slab_to_a_tf32 permutes it: slot tq is row 8j + 2tq, slot
+// tq + 4 row 8j + 2tq + 1 (banks 8tq + g and 8tq + 4 + g: no conflict).
+__device__ __forceinline__ void load_b_kn_tf32(Tf32B& b, const float* tile,
+                                               int ld, int j, int n0, int g,
+                                               int tq) {
+  const float* p = tile + (8 * j + 2 * tq) * ld + n0 + g;
+  split_tf32(p[0], b.hi[0], b.lo[0]);
+  split_tf32(p[ld], b.hi[1], b.lo[1]);
+}
+
+// A slab: 16 rows x 32 columns (half a 64-row tile) of float32 held as four
+// m16n8 accumulators; the kernels walk a tile in two halves, which keeps
+// the two slabs and the two 16 x D accumulators of B5b in 255 registers.
+constexpr int kHalf = 32;
+
+// The A operand of the 8 columns 8j .. +7 of a slab, k permuted (column
+// 8j + 2tq + e in slot tq + 4e)
+__device__ __forceinline__ void slab_to_a_tf32(Tf32A& a,
+                                               const float (&x)[4][4],
+                                               int j) {
+  split_tf32(x[j][0], a.hi[0], a.lo[0]);
+  split_tf32(x[j][2], a.hi[1], a.lo[1]);
+  split_tf32(x[j][1], a.hi[2], a.lo[2]);
+  split_tf32(x[j][3], a.hi[3], a.lo[3]);
+}
+
+// S = A B^T over D on the CUDA cores: the warp's 16 rows r0 of a_tile
+// against the 32 rows of b_tile, both stored [row][D + 4], each element one
+// fmaf chain over d from 0 in order, the chain float32 B5a forms its scores
+// with (flash_fwd), so P = exp(s * scale - m) / l is recomputed from the
+// very scores m and l were taken over.  Lanes of one tq read the same B
+// rows (a broadcast); the pad keeps the 16-byte reads conflict-free.
+template <int D>
+__device__ __forceinline__ void slab_scores_ffma(float (&s)[4][4],
+                                                 const float* a_tile, int r0,
+                                                 const float* b_tile, int g,
+                                                 int tq) {
+  const float* a0 = a_tile + (r0 + g) * (D + 4);
+  const float* a1 = a0 + 8 * (D + 4);
+  const float* b = b_tile + 2 * tq * (D + 4);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 1
+  for (int d = 0; d < D; d += 4) {
+    float av0[4], av1[4];
+    load4(a0 + d, av0);
+    load4(a1 + d, av1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float bv0[4], bv1[4];
+      load4(b + 8 * j * (D + 4) + d, bv0);
+      load4(b + (8 * j + 1) * (D + 4) + d, bv1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][0] = fmaf(av0[e], bv0[e], s[j][0]);  // row g, column 8j + 2tq
+        s[j][1] = fmaf(av0[e], bv1[e], s[j][1]);  // row g, column 8j + 2tq + 1
+        s[j][2] = fmaf(av1[e], bv0[e], s[j][2]);  // row g + 8
+        s[j][3] = fmaf(av1[e], bv1[e], s[j][3]);
+      }
+    }
+  }
+}
+
+// X = A B^T over D in 3xTF32 (dP, dP^T): the warp's 16 rows r0 of a_tile
+// against the 32 rows of b_tile, both stored [row][D + 4].  Each A
+// fragment is split once and serves the 4 column blocks.
+template <int D>
+__device__ __forceinline__ void slab_product_tf32(float (&s)[4][4],
+                                                  const float* a_tile, int r0,
+                                                  const float* b_tile, int g,
+                                                  int tq) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    Tf32A a;
+    load_a_tf32(a, a_tile, D + 4, r0, kk * 8, g, tq);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      Tf32B b;
+      load_b_nk_tf32(b, b_tile, D + 4, j * 8, kk * 8, g, tq);
+      mma_3xtf32(s[j], a, b);
+    }
+  }
+}
+
+// acc (16 x D) += X tile in 3xTF32, X a slab in registers and tile the 32
+// rows [k][n] (n over D) it multiplies: X's 8-column blocks are the k steps.
+// Each output column block's 4 k steps (12 MMAs) sum from zero in t, which
+// a rounded float32 addition adds to acc.  Chained straight into acc over
+// the whole walk (384 MMAs into one dV accumulator at L = 1024), the tensor
+// core's own sums left dV 7.7e-5 off its twin on an H100 where this leaves
+// 4.8e-6, and used 0.56-0.71 of dV's allowance at q x 8 against 0.05-0.07
+// (PERF.md).  t holds 64 output columns, 8 independent MMA chains, at a
+// time (twice at D = 128): B5b at D = 128 spills, and every form tried on
+// an H100 that spilled less (t of 32 columns, or X split once and t one
+// column block) ran its D = 128 shape 2-4% slower (PERF.md).  Each acc
+// element sees the same sums in the same order in every form.
+template <int D>
+__device__ __forceinline__ void acc_product_tf32(float (&acc)[D / 8][4],
+                                                 const float (&x)[4][4],
+                                                 const float* tile, int g,
+                                                 int tq) {
+  constexpr int kGroup = D / 8 < 8 ? D / 8 : 8;  // column blocks in t
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += kGroup) {
+    float t[kGroup][4];
+#pragma unroll
+    for (int n = 0; n < kGroup; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      Tf32A a;
+      slab_to_a_tf32(a, x, j);
+#pragma unroll
+      for (int n = 0; n < kGroup; ++n) {
+        Tf32B b;
+        load_b_kn_tf32(b, tile, D + 4, j, (n0 + n) * 8, g, tq);
+        mma_3xtf32(t[n], a, b);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kGroup; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += t[n][e];
+  }
+}
+
+// The float32 tensor-core kernels' threads: 4 warps of 16 rows, or at D =
+// 128 8 warps, two to each 16 rows, each walking one 32-column half of
+// every tile.  Their two partial sums meet once at the end
+// (hand_over_partial): at D = 128 one block fills an SM's shared memory,
+// and four warps an SM left the tensor cores idle on their dependent MMA
+// chains.
+template <int D>
+constexpr int kTf32Threads = D > 64 ? 2 * kMmaThreads : kMmaThreads;
+
+// At 8 warps: warps 4-7 hand their accumulators to warps 0-3 of the same
+// rows through shared memory (buf, free by then), lane-major so that the
+// 32 lanes hit 32 banks; returns true in the warps that store the sum,
+// whose acc is then half 0's plus half 1's, the same order every run.
+template <int kThr, int N>
+__device__ __forceinline__ bool hand_over_partial(float (&acc)[N][4],
+                                                  float* buf) {
+  if constexpr (kThr == kMmaThreads) {
+    return true;
+  } else {
+    cp_async_wait_all();
+    __syncthreads();  // every warp is done with the last tile
+    float* part = buf + (threadIdx.x & (kMmaThreads - 1));
+    const bool keep = threadIdx.x < kMmaThreads;
+    if (!keep)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          part[(n * 4 + e) * kMmaThreads] = acc[n][e];
+    __syncthreads();
+    if (keep)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] += part[(n * 4 + e) * kMmaThreads];
+    return keep;
+  }
+}
+
+// rows g (lo) and g + 8 (hi) of a 16 x D float32 accumulator into row
+// pointers (columns 8*n + 2*tq, +1 of each)
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* lo, float* hi,
+                                              const float (&acc)[D / 8][4],
+                                              int tq) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(lo + n * 8 + 2 * tq) =
+        make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(hi + n * 8 + 2 * tq) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -681,110 +977,6 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 // B5c: dQ (and di), one block per query tile
 // ---------------------------------------------------------------------------
 
-template <int D>
-constexpr int dq_smem_floats() {
-  return 4 * kBM * (D + 1) + kBM * kLdS;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ o,
-                 const T* __restrict__ dout, const float* __restrict__ m_in,
-                 const float* __restrict__ l_in, T* __restrict__ dq,
-                 float* __restrict__ di_out, int L, Strides sq, Strides sk,
-                 Strides sv, Strides so, Strides sdo, Strides sdq, float scale,
-                 int causal) {
-  constexpr int kLd = D + 1;
-  constexpr int kOCols = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;              // [kBM][kLd]
-  float* dos = qs + kBM * kLd;   // [kBM][kLd]
-  float* ks = dos + kBM * kLd;   // [kBN][kLd]
-  float* vs = ks + kBN * kLd;    // [kBN][kLd]
-  float* dss = vs + kBN * kLd;   // [kBM][kLdS]
-
-  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = tile * kBM;
-  const int rg = threadIdx.x >> 4, lane = threadIdx.x & 15;
-  const int row0 = rg * kRows;
-
-  load_tile<T, D>(qs, kLd, q + b * sq.b + q0 * sq.l + h * sq.h, sq.l, kBM);
-  load_tile<T, D>(dos, kLd, dout + b * sdo.b + q0 * sdo.l + h * sdo.h, sdo.l,
-                  kBM);
-  __syncthreads();
-
-  // the prologue: di = sum_d O * dO of this thread's rows, and m, 1/l
-  const int64_t stat0 = ((int64_t)b * gridDim.y + h) * L + q0 + row0;
-  float mrow[kRows], inv_l[kRows], di[kRows];
-#pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    const T* orow = o + b * so.b + (int64_t)(q0 + row0 + a) * so.l + h * so.h;
-    float part = 0.f;
-#pragma unroll
-    for (int e = 0; e < kOCols; ++e)
-      part = fmaf(to_float(orow[lane + 16 * e]),
-                  dos[(row0 + a) * kLd + lane + 16 * e], part);
-    di[a] = sum16(part);
-    mrow[a] = m_in[stat0 + a];
-    inv_l[a] = 1.f / l_in[stat0 + a];
-    if (lane == 0) di_out[stat0 + a] = di[a];
-  }
-
-  float acc[kRows][kOCols];
-#pragma unroll
-  for (int a = 0; a < kRows; ++a)
-#pragma unroll
-    for (int e = 0; e < kOCols; ++e) acc[a][e] = 0.f;
-
-  const int n_tiles = causal ? tile + 1 : L / kBN;  // kBM == kBN
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBN;
-    __syncthreads();  // the previous tile's reads of K, V and dS are done
-    load_tile<T, D>(ks, kLd, k + b * sk.b + k0 * sk.l + h * sk.h, sk.l, kBN);
-    load_tile<T, D>(vs, kLd, v + b * sv.b + k0 * sv.l + h * sv.h, sv.l, kBN);
-    __syncthreads();
-
-    float s[kRows][kSCols], dp[kRows][kSCols];
-    tile_products2<D>(qs, ks, dos, vs, row0, lane, s, dp);
-    const bool diag = causal && t == tile;
-#pragma unroll
-    for (int a = 0; a < kRows; ++a)
-#pragma unroll
-      for (int c = 0; c < kSCols; ++c) {
-        float ds = 0.f;
-        if (!(diag && lane + 16 * c > row0 + a)) {
-          const float p = expf(__fmul_rn(s[a][c], scale) - mrow[a]) * inv_l[a];
-          ds = (dp[a][c] - di[a]) * p * scale;
-        }
-        dss[(row0 + a) * kLdS + lane + 16 * c] = round_to(ds, T());
-      }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBN; ++j) {
-      float dsv[kRows], kv[kOCols];
-#pragma unroll
-      for (int a = 0; a < kRows; ++a) dsv[a] = dss[(row0 + a) * kLdS + j];
-#pragma unroll
-      for (int e = 0; e < kOCols; ++e) kv[e] = ks[j * kLd + lane + 16 * e];
-#pragma unroll
-      for (int a = 0; a < kRows; ++a)
-#pragma unroll
-        for (int e = 0; e < kOCols; ++e)
-          acc[a][e] = fmaf(dsv[a], kv[e], acc[a][e]);
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    T* out = dq + b * sdq.b + (int64_t)(q0 + row0 + a) * sdq.l + h * sdq.h;
-#pragma unroll
-    for (int e = 0; e < kOCols; ++e) store(out + lane + 16 * e, acc[a][e]);
-  }
-}
-
 // The tensor-core dQ (bfloat16).  Shared memory: the Q and dO tiles, then
 // two K and two V buffers, each 64 rows of D + 8 bfloat16.
 template <int D>
@@ -940,124 +1132,140 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   store_acc<D>(out, out + 8 * sdq.l, acc, tq);
 }
 
+// The tensor-core dQ in float32 (3xTF32).  Shared memory: the Q and dO
+// tiles, then two K and two V buffers, each 64 rows of D + 4 floats.
+template <int D>
+constexpr int dq_tf32_smem_bytes() {
+  return 6 * kBM * (D + 4) * (int)sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads<D>, 1)
+    flash_bwd_dq_tf32x3(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ o,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ m_in,
+                        const float* __restrict__ l_in,
+                        float* __restrict__ dq, float* __restrict__ di_out,
+                        int L, Strides sq, Strides sk, Strides sv, Strides so,
+                        Strides sdo, Strides sdq, float scale, int causal) {
+  constexpr int kThr = kTf32Threads<D>;
+  constexpr int kLd = D + 4;
+  constexpr int kTile = kBM * kLd;
+  constexpr int kNO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  float* qs = reinterpret_cast<float*>(smem_tc);
+  float* dos = qs + kTile;
+  float* ks = dos + kTile;    // [2][kBN][D + 4]
+  float* vs = ks + 2 * kTile;  // [2][kBN][D + 4]
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = tile * kBM;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int wr = (warp & 3) * 16;  // the warp's first query row
+  const int half0 = warp >> 2;     // its first key half of a tile
+  const float* kbase = k + b * sk.b + h * sk.h;
+  const float* vbase = v + b * sv.b + h * sv.h;
+
+  copy_tile_async<D, kThr>(qs, q + b * sq.b + q0 * sq.l + h * sq.h, sq.l);
+  copy_tile_async<D, kThr>(dos, dout + b * sdo.b + q0 * sdo.l + h * sdo.h,
+                           sdo.l);
+  copy_tile_async<D, kThr>(ks, kbase, sk.l);
+  copy_tile_async<D, kThr>(vs, vbase, sv.l);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp: m, 1/l and di (the same in the 4 lanes
+  // of a quad) and the 16 x D accumulator of dQ
+  const int64_t stat = ((int64_t)b * gridDim.y + h) * L + q0 + wr + g;
+  const float mrow[2] = {m_in[stat], m_in[stat + 8]};
+  const float inv_l[2] = {1.f / l_in[stat], 1.f / l_in[stat + 8]};
+  float di[2];
+  float acc[kNO][4];
+#pragma unroll
+  for (int n = 0; n < kNO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int n_tiles = causal ? tile + 1 : L / kBN;  // kBM == kBN
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t == 0) {
+      // the prologue: di = sum_d O * dO over the row, each lane of the
+      // quad a quarter of its 4-column groups (O from device memory, once;
+      // dO from its tile)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wr + g + 8 * r;
+        const float* orow = o + b * so.b + (int64_t)(q0 + row) * so.l +
+                            h * so.h;
+        float part = 0.f;
+#pragma unroll
+        for (int c = 4 * tq; c < D; c += 16) {
+          float ov[4], dv[4];
+          load4(orow + c, ov);
+          load4(dos + row * kLd + c, dv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part = fmaf(ov[e], dv[e], part);
+        }
+        di[r] = quad_sum(part);
+        if (tq == 0 && half0 == 0) di_out[stat + 8 * r] = di[r];
+      }
+    }
+    if (t + 1 < n_tiles) {  // the next tile into the other buffers
+      const int64_t k1 = (int64_t)(t + 1) * kBN;
+      copy_tile_async<D, kThr>(ks + ((t + 1) & 1) * kTile, kbase + k1 * sk.l,
+                               sk.l);
+      copy_tile_async<D, kThr>(vs + ((t + 1) & 1) * kTile, vbase + k1 * sv.l,
+                               sv.l);
+    }
+    cp_async_commit();
+    const float* kt = ks + (t & 1) * kTile;
+    const float* vt = vs + (t & 1) * kTile;
+
+    // the tile in two halves of 32 keys (one each at 8 warps): S = Q K^T on the CUDA cores (B5a's
+    // chains), dP = dO V^T in 3xTF32 (dO re-read from shared memory and
+    // split each half); key block j of a half holds keys 8j + 2tq, +1 of
+    // rows g, g + 8
+    const bool diag = causal && t == tile;
+#pragma unroll 1
+    for (int half = half0; half < kBN / kHalf; half += kThr / kMmaThreads) {
+      const float* kh = kt + half * kHalf * kLd;
+      float p[4][4], ds[4][4];
+      slab_scores_ffma<D>(p, qs, wr, kh, g, tq);
+      slab_product_tf32<D>(ds, dos, wr, vt + half * kHalf * kLd, g, tq);
+      // P = exp(s * scale - m) * (1/l), 0 where key > query on the
+      // diagonal; then dS = (dP - di) P scale in place
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int col = half * kHalf + j * 8 + 2 * tq + (e & 1);
+          const float pe =
+              diag && col > wr + g + 8 * r
+                  ? 0.f
+                  : expf(__fmul_rn(p[j][e], scale) - mrow[r]) * inv_l[r];
+          ds[j][e] = (ds[j][e] - di[r]) * pe * scale;
+        }
+      // dQ += dS K, dS straight from the accumulators
+      acc_product_tf32<D>(acc, ds, kh, g, tq);
+    }
+  }
+
+  if (!hand_over_partial<kThr>(acc, ks)) return;
+  const int64_t row = q0 + wr + g;
+  float* out = dq + b * sdq.b + row * sdq.l + h * sdq.h;
+  store_acc_f32<D>(out, out + 8 * sdq.l, acc, tq);
+}
+
 // ---------------------------------------------------------------------------
 // B5b: dK and dV, one block per key tile
 // ---------------------------------------------------------------------------
-
-template <int D>
-constexpr int dkv_smem_floats() {
-  return 4 * kBM * (D + 1) + 2 * kBM * kLdS + 3 * kBM;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ m_in,
-                  const float* __restrict__ l_in,
-                  const float* __restrict__ di_in, T* __restrict__ dk,
-                  T* __restrict__ dv, int L, Strides sq, Strides sk,
-                  Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                  float scale, int causal) {
-  constexpr int kLd = D + 1;
-  constexpr int kOCols = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;              // [kBN][kLd]
-  float* vs = ks + kBN * kLd;    // [kBN][kLd]
-  float* qs = vs + kBN * kLd;    // [kBM][kLd]
-  float* dos = qs + kBM * kLd;   // [kBM][kLd]
-  float* ps = dos + kBM * kLd;   // [kBM][kLdS]: P[query][key]
-  float* dss = ps + kBM * kLdS;  // [kBM][kLdS]: dS[query][key]
-  float* ms = dss + kBM * kLdS;  // [kBM]: m of the query tile's rows
-  float* ils = ms + kBM;         // [kBM]: 1/l
-  float* dis = ils + kBM;        // [kBM]: di
-
-  const int kt = blockIdx.x;  // key tile 0 walks the most query tiles
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kBN;
-  const int rg = threadIdx.x >> 4, lane = threadIdx.x & 15;
-  const int row0 = rg * kRows;
-
-  load_tile<T, D>(ks, kLd, k + b * sk.b + k0 * sk.l + h * sk.h, sk.l, kBN);
-  load_tile<T, D>(vs, kLd, v + b * sv.b + k0 * sv.l + h * sv.h, sv.l, kBN);
-
-  // dV and dK of key rows k0 + row0 .. +3, columns lane + 16*e
-  float acc_dk[kRows][kOCols], acc_dv[kRows][kOCols];
-#pragma unroll
-  for (int a = 0; a < kRows; ++a)
-#pragma unroll
-    for (int e = 0; e < kOCols; ++e) acc_dk[a][e] = acc_dv[a][e] = 0.f;
-
-  const int64_t stat_bh = ((int64_t)b * gridDim.y + h) * L;
-  const int n_q = L / kBM;
-  for (int j = causal ? kt : 0; j < n_q; ++j) {  // kBM == kBN
-    const int q0 = j * kBM;
-    __syncthreads();  // the previous tile's reads of Q, dO, P and dS are done
-    load_tile<T, D>(qs, kLd, q + b * sq.b + q0 * sq.l + h * sq.h, sq.l, kBM);
-    load_tile<T, D>(dos, kLd, dout + b * sdo.b + q0 * sdo.l + h * sdo.h,
-                    sdo.l, kBM);
-    if (threadIdx.x < kBM) {
-      ms[threadIdx.x] = m_in[stat_bh + q0 + threadIdx.x];
-      ils[threadIdx.x] = 1.f / l_in[stat_bh + q0 + threadIdx.x];
-      dis[threadIdx.x] = di_in[stat_bh + q0 + threadIdx.x];
-    }
-    __syncthreads();
-
-    // rows: this thread's query rows row0 .. +3; columns: keys lane + 16*c
-    float s[kRows][kSCols], dp[kRows][kSCols];
-    tile_products2<D>(qs, ks, dos, vs, row0, lane, s, dp);
-    const bool diag = causal && j == kt;
-#pragma unroll
-    for (int a = 0; a < kRows; ++a)
-#pragma unroll
-      for (int c = 0; c < kSCols; ++c) {
-        float p = 0.f, ds = 0.f;
-        if (!(diag && lane + 16 * c > row0 + a)) {
-          p = expf(__fmul_rn(s[a][c], scale) - ms[row0 + a]) * ils[row0 + a];
-          ds = (dp[a][c] - dis[row0 + a]) * p * scale;
-        }
-        ps[(row0 + a) * kLdS + lane + 16 * c] = round_to(p, T());
-        dss[(row0 + a) * kLdS + lane + 16 * c] = round_to(ds, T());
-      }
-    __syncthreads();
-
-    // rows: this thread's key rows row0 .. +3; the sum runs over queries
-#pragma unroll 4
-    for (int i = 0; i < kBM; ++i) {
-      float pv[kRows], dsv[kRows], dov[kOCols], qv[kOCols];
-#pragma unroll
-      for (int a = 0; a < kRows; ++a) {
-        pv[a] = ps[i * kLdS + row0 + a];
-        dsv[a] = dss[i * kLdS + row0 + a];
-      }
-#pragma unroll
-      for (int e = 0; e < kOCols; ++e) {
-        dov[e] = dos[i * kLd + lane + 16 * e];
-        qv[e] = qs[i * kLd + lane + 16 * e];
-      }
-#pragma unroll
-      for (int a = 0; a < kRows; ++a)
-#pragma unroll
-        for (int e = 0; e < kOCols; ++e) {
-          acc_dv[a][e] = fmaf(pv[a], dov[e], acc_dv[a][e]);
-          acc_dk[a][e] = fmaf(dsv[a], qv[e], acc_dk[a][e]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    const int64_t row = k0 + row0 + a;
-    T* out_k = dk + b * sdk.b + row * sdk.l + h * sdk.h;
-    T* out_v = dv + b * sdv.b + row * sdv.l + h * sdv.h;
-#pragma unroll
-    for (int e = 0; e < kOCols; ++e) {
-      store(out_k + lane + 16 * e, acc_dk[a][e]);
-      store(out_v + lane + 16 * e, acc_dv[a][e]);
-    }
-  }
-}
-
 
 // The tensor-core dK/dV (bfloat16).  Shared memory: the K and V tiles, two
 // Q and two dO buffers (64 rows of D + 8 bfloat16 each), then two sets of
@@ -1241,6 +1449,151 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   store_acc<D>(out_v, out_v + 8 * sdv.l, acc_dv, tq);
 }
 
+// The tensor-core dK/dV in float32 (3xTF32).  Shared memory: the K and V
+// tiles, two Q and two dO buffers (64 rows of D + 4 floats each), then two
+// sets of the query rows' m, 1/l and di.
+template <int D>
+constexpr int dkv_tf32_smem_bytes() {
+  return (6 * kBM * (D + 4) + 2 * 3 * kBM) * (int)sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads<D>, 1)
+    flash_bwd_dkv_tf32x3(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ m_in,
+                         const float* __restrict__ l_in,
+                         const float* __restrict__ di_in,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int L, Strides sq, Strides sk, Strides sv,
+                         Strides sdo, Strides sdk, Strides sdv, float scale,
+                         int causal) {
+  constexpr int kThr = kTf32Threads<D>;
+  constexpr int kLd = D + 4;
+  constexpr int kTile = kBM * kLd;
+  constexpr int kNO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  float* ks = reinterpret_cast<float*>(smem_tc);
+  float* vs = ks + kTile;
+  float* qs = vs + kTile;          // [2][kBM][D + 4]
+  float* dos = qs + 2 * kTile;     // [2][kBM][D + 4]
+  float* stats = dos + 2 * kTile;  // [2][3][kBM]
+
+  const int kt = blockIdx.x;  // key tile 0 walks the most query tiles
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * kBN;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int wr = (warp & 3) * 16;  // the warp's first key row
+  const int half0 = warp >> 2;     // its first query half of a tile
+  const int64_t stat_bh = ((int64_t)b * gridDim.y + h) * L;
+  const float* qbase = q + b * sq.b + h * sq.h;
+  const float* dobase = dout + b * sdo.b + h * sdo.h;
+  const int j0 = causal ? kt : 0, n_q = L / kBM;  // kBM == kBN
+
+  copy_tile_async<D, kThr>(ks, k + b * sk.b + k0 * sk.l + h * sk.h, sk.l);
+  copy_tile_async<D, kThr>(vs, v + b * sv.b + k0 * sv.l + h * sv.h, sv.l);
+  copy_tile_async<D, kThr>(qs, qbase + (int64_t)j0 * kBM * sq.l, sq.l);
+  copy_tile_async<D, kThr>(dos, dobase + (int64_t)j0 * kBM * sdo.l, sdo.l);
+  cp_async_commit();
+  if (threadIdx.x < kBM) {  // the first query tile's m, 1/l, di
+    const int64_t i = stat_bh + j0 * kBM + threadIdx.x;
+    stats[threadIdx.x] = m_in[i];
+    stats[kBM + threadIdx.x] = 1.f / l_in[i];
+    stats[2 * kBM + threadIdx.x] = di_in[i];
+  }
+
+  // key rows g and g + 8 of the warp: dK and dV
+  float acc_dk[kNO][4], acc_dv[kNO][4];
+#pragma unroll
+  for (int n = 0; n < kNO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
+
+  for (int j = j0; j < n_q; ++j) {
+    const int buf = (j - j0) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile j is in; every warp is done with tile j - 1
+    // the next tile into the other buffers; its statistics stay in flight
+    // in registers until this tile is done
+    const bool more = j + 1 < n_q;
+    float next_m = 0.f, next_l = 1.f, next_di = 0.f;
+    if (more) {
+      const int64_t r1 = (int64_t)(j + 1) * kBM;
+      copy_tile_async<D, kThr>(qs + (buf ^ 1) * kTile, qbase + r1 * sq.l,
+                               sq.l);
+      copy_tile_async<D, kThr>(dos + (buf ^ 1) * kTile, dobase + r1 * sdo.l,
+                               sdo.l);
+      if (threadIdx.x < kBM) {
+        next_m = m_in[stat_bh + r1 + threadIdx.x];
+        next_l = l_in[stat_bh + r1 + threadIdx.x];
+        next_di = di_in[stat_bh + r1 + threadIdx.x];
+      }
+    }
+    cp_async_commit();
+    const float* qt = qs + buf * kTile;
+    const float* dot = dos + buf * kTile;
+    const float* ms = stats + buf * 3 * kBM;
+    const float* ils = ms + kBM;
+    const float* dis = ils + kBM;
+
+    // the tile in two halves of 32 queries (one each at 8 warps): rows the
+    // warp's keys g, g + 8; query block jn of a half holds queries 8 jn +
+    // 2tq, +1
+    const bool diag = causal && j == kt;
+#pragma unroll 1
+    for (int half = half0; half < kBM / kHalf; half += kThr / kMmaThreads) {
+      const float* qh = qt + half * kHalf * kLd;
+      const float* doh = dot + half * kHalf * kLd;
+      // S^T = K Q^T on the CUDA cores (B5a's chains), then P^T = exp(s *
+      // scale - m) * (1/l), 0 where key > query on the diagonal
+      float p[4][4];
+      slab_scores_ffma<D>(p, ks, wr, qh, g, tq);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = half * kHalf + jn * 8 + 2 * tq + (e & 1);
+          p[jn][e] = diag && wr + g + (e >> 1) * 8 > col
+                         ? 0.f
+                         : expf(__fmul_rn(p[jn][e], scale) - ms[col]) *
+                               ils[col];
+        }
+      // dV += P^T dO, P^T straight from the accumulators
+      acc_product_tf32<D>(acc_dv, p, doh, g, tq);
+      // dP^T = V dO^T in 3xTF32 (V re-read from shared memory and split),
+      // then dS^T = (dP^T - di) P^T scale in place
+      float ds[4][4];
+      slab_product_tf32<D>(ds, vs, wr, doh, g, tq);
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = half * kHalf + jn * 8 + 2 * tq + (e & 1);
+          ds[jn][e] = (ds[jn][e] - dis[col]) * p[jn][e] * scale;
+        }
+      // dK += dS^T Q
+      acc_product_tf32<D>(acc_dk, ds, qh, g, tq);
+    }
+    if (more && threadIdx.x < kBM) {  // free since this tile's barrier
+      float* next = stats + (buf ^ 1) * 3 * kBM;
+      next[threadIdx.x] = next_m;
+      next[kBM + threadIdx.x] = 1.f / next_l;
+      next[2 * kBM + threadIdx.x] = next_di;
+    }
+  }
+
+  hand_over_partial<kThr>(acc_dv, ks);  // K and V are free by then
+  if (!hand_over_partial<kThr>(acc_dk, qs)) return;
+  const int64_t row = k0 + wr + g;
+  float* out_k = dk + b * sdk.b + row * sdk.l + h * sdk.h;
+  float* out_v = dv + b * sdv.b + row * sdv.l + h * sdv.h;
+  store_acc_f32<D>(out_k, out_k + 8 * sdk.l, acc_dk, tq);
+  store_acc_f32<D>(out_v, out_v + 8 * sdv.l, acc_dv, tq);
+}
+
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
@@ -1274,8 +1627,9 @@ bool rows_16b(int elt_bytes, S... s) {
 
 }  // namespace
 
-// BODY(T, DIM) for the head dim D: each entry point launches its CUDA-core
-// kernel for float32 (dtype 0) and its tensor-core kernel for bfloat16 (1).
+// BODY(T, DIM) for the head dim D: each entry point launches its float32
+// kernel for dtype 0 (CUDA cores for B5a, 3xTF32 tensor cores for B5b and
+// B5c) and its bfloat16 tensor-core kernel for dtype 1.
 #define DL_HEAD_DIMS(BODY, T)      \
   if (D == 32) { BODY(T, 32) }     \
   if (D == 64) { BODY(T, 64) }     \
@@ -1342,16 +1696,16 @@ extern "C" int dl_flash_bwd_dq(
       static_cast<const T*>(dout), static_cast<const float*>(m),            \
       static_cast<const float*>(l), static_cast<T*>(dq),                    \
       static_cast<float*>(di), L, sq, sk, sv, so, sdo, sdq, scale, causal
-#define DL_DQ_CORE(T, DIM)                                                  \
-  return launch(flash_bwd_dq<T, DIM>, dq_smem_floats<DIM>() * 4, kThreads,  \
-                DL_DQ_ARGS(T));
+#define DL_DQ_TF32(T, DIM)                                                  \
+  return launch(flash_bwd_dq_tf32x3<DIM>, dq_tf32_smem_bytes<DIM>(),        \
+                kTf32Threads<DIM>, DL_DQ_ARGS(T));
 #define DL_DQ_MMA(T, DIM)                                                   \
   return launch(flash_bwd_dq_mma<DIM>, dq_mma_smem_bytes<DIM>(),            \
                 kMmaThreads, DL_DQ_ARGS(T));
-  if (dtype == 0) { DL_HEAD_DIMS(DL_DQ_CORE, float) }
+  if (dtype == 0) { DL_HEAD_DIMS(DL_DQ_TF32, float) }
   if (dtype == 1) { DL_HEAD_DIMS(DL_DQ_MMA, bf16) }
 #undef DL_DQ_ARGS
-#undef DL_DQ_CORE
+#undef DL_DQ_TF32
 #undef DL_DQ_MMA
   return -(int)cudaErrorInvalidValue;
 }
@@ -1376,16 +1730,16 @@ extern "C" int dl_flash_bwd_dkv(
       static_cast<const float*>(m), static_cast<const float*>(l),           \
       static_cast<const float*>(di), static_cast<T*>(dk),                   \
       static_cast<T*>(dv), L, sq, sk, sv, sdo, sdk, sdv, scale, causal
-#define DL_DKV_CORE(T, DIM)                                               \
-  return launch(flash_bwd_dkv<T, DIM>, dkv_smem_floats<DIM>() * 4, kThreads, \
-                DL_DKV_ARGS(T));
+#define DL_DKV_TF32(T, DIM)                                               \
+  return launch(flash_bwd_dkv_tf32x3<DIM>, dkv_tf32_smem_bytes<DIM>(),     \
+                kTf32Threads<DIM>, DL_DKV_ARGS(T));
 #define DL_DKV_MMA(T, DIM)                                               \
   return launch(flash_bwd_dkv_mma<DIM>, dkv_mma_smem_bytes<DIM>(),         \
                 kMmaThreads, DL_DKV_ARGS(T));
-  if (dtype == 0) { DL_HEAD_DIMS(DL_DKV_CORE, float) }
+  if (dtype == 0) { DL_HEAD_DIMS(DL_DKV_TF32, float) }
   if (dtype == 1) { DL_HEAD_DIMS(DL_DKV_MMA, bf16) }
 #undef DL_DKV_ARGS
-#undef DL_DKV_CORE
+#undef DL_DKV_TF32
 #undef DL_DKV_MMA
   return -(int)cudaErrorInvalidValue;
 }

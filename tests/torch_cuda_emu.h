@@ -8,9 +8,10 @@
 // the same threads.
 // __syncthreads is a barrier over the block, and each warp collective
 // (__shfl_xor_sync, ldmatrix, mma.sync) exchanges its lanes' operands
-// through slots between two barriers over the warp.  ldmatrix and
-// mma.sync.m16n8k16 follow the PTX ISA's fragment layouts; bfloat16 rounds
-// to nearest even.  cp.async either lands at once or is held back until the
+// through slots between two barriers over the warp.  ldmatrix,
+// mma.sync.m16n8k16 (bfloat16) and mma.sync.m16n8k8 (TF32) follow the PTX
+// ISA's fragment layouts; bfloat16 rounds to nearest even, cvt.rna.tf32.f32
+// to nearest with ties away from zero.  cp.async either lands at once or is held back until the
 // issuing thread's cp.async.wait_group, the two ends of what the card may
 // do, so a tile read before its wait or overwritten while another warp
 // reads it shows up as a wrong result in one of the two modes.
@@ -66,6 +67,8 @@ inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
 struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 struct alignas(8) uint2 { uint32_t x, y; };
 struct alignas(4) char4 { signed char x, y, z, w; };
 
@@ -267,6 +270,46 @@ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
     const int row = g + (e >> 1) * 8, col = 2 * t + (e & 1);
     float acc = c[e];
     for (int k = 0; k < 16; ++k) acc += A[row][k] * Bm[k][col];
+    c[e] = acc;
+  }
+}
+
+// cvt.rna.tf32.f32: x rounded to 10 mantissa bits, to nearest with ties
+// away from zero (a carry into the exponent is the right rounding), the
+// low 13 bits 0; NaN and infinity pass through
+inline uint32_t to_tf32(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+// c += a b over the warp: A 16x8, B 8x8, C 16x8, all TF32 bit patterns in
+// 32-bit registers; each product of two TF32 values is exact in float32,
+// and the sum runs in float32 over k in order
+inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                     uint32_t b1) {
+  uint64_t* s = emu_slot(emu_lane());
+  for (int i = 0; i < 4; ++i) s[i] = a[i];
+  s[4] = b0;
+  s[5] = b1;
+  emu_warp_sync();
+  float A[16][8], Bm[8][8];
+  for (int l = 0; l < 32; ++l) {
+    const uint64_t* o = emu_slot(l);
+    const int g = l / 4, t = l % 4;
+    A[g][t] = __uint_as_float(uint32_t(o[0]));
+    A[g + 8][t] = __uint_as_float(uint32_t(o[1]));
+    A[g][t + 4] = __uint_as_float(uint32_t(o[2]));
+    A[g + 8][t + 4] = __uint_as_float(uint32_t(o[3]));
+    Bm[t][g] = __uint_as_float(uint32_t(o[4]));
+    Bm[t + 4][g] = __uint_as_float(uint32_t(o[5]));
+  }
+  emu_warp_sync();
+  const int g = emu_lane() / 4, t = emu_lane() % 4;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + (e >> 1) * 8, col = 2 * t + (e & 1);
+    float acc = c[e];
+    for (int k = 0; k < 8; ++k) acc += A[row][k] * Bm[k][col];
     c[e] = acc;
   }
 }
