@@ -13,11 +13,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 2. build   — compile every CUDA source of the port (one nvcc each, started
    together) into the git-ignored build directory; B1's two 128-bit loads
    before its first store (``cuobjdump -sass``); per flash kernel, ptxas's
-   registers and spills (none allowed in the D=64 bfloat16 B5a, B5b and
-   B5c and the D=64 float32 B5b and B5c) and the HMMA count of its SASS
-   (``cuobjdump -sass``): non-zero in exactly the tensor-core kernels, the
-   bfloat16 B5a, B5b and B5c and the float32 (3xTF32) B5b and B5c; zero in
-   the float32 B5a.
+   registers and spills (none allowed in the D=64 B5a, B5b and B5c,
+   bfloat16 and float32 alike; float32 B5a's registers logged at every
+   head dim) and the HMMA count of its SASS (``cuobjdump -sass``):
+   non-zero in every one, the bfloat16 kernels and the float32 (3xTF32)
+   B5a, B5b and B5c alike.
 3. kernels — each kernel against its plain PyTorch version, bit for bit, at
    the full-width CIFAR-10 bucket and at a ragged length, aligned and one
    element in, B1 also at lengths 1, 3 and around four chunks, one launch a
@@ -107,12 +107,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    multiplied by 8 (FLASH_BF16_CASES, untimed);
    median times (L2 flushed) beside the plain twin,
    ``F.scaled_dot_product_attention(is_causal=True)`` (timed as the
-   library yardstick only) and the bound.
+   library yardstick only) and the bound (float32: S on the CUDA cores
+   beside P V in 3xTF32, and what the CUDA cores alone would bound it at).
 10. serve  — the served transformer LM at full width (vocab 32768, dim
    1024, depth 8, 16 heads, max_len 2048, the seeded init, float32
    params) under ``DISTLEARN_TPU_ATTN=flash``: (a) float32 compute, TF32
    off, a 1024-token prompt, the engine with the flash and the xla route
-   against ``greedy_generate`` on the xla route; (b) bfloat16 compute, 4 slots, a
+   against ``greedy_generate`` on the xla route, B5a launched once a
+   layer on the flash route (its float32 kernel) and never on the xla
+   route; (b) bfloat16 compute, 4 slots, a
    ``ServeServer`` on loopback answering 8 requests (prompts of 100-1500
    tokens, 32 new tokens each) from 4 client threads, some admitted while
    others decode (the chunk pass): every stream against its isolated
@@ -130,8 +133,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``F.scaled_dot_product_attention(is_causal=True)`` (timed as the
    library yardstick only) against B5c + B5b together; the FLASH_BF16_CASES
    and FLASH_F32_CASES checked the same way, untimed; a profiled float32
-   call names only the CUDA-core B5a and the 3xTF32 tensor-core B5b and B5c
-   (``*_tf32x3``), a bfloat16 one only the tensor-core kernels (``*_mma``).
+   call names only the 3xTF32 tensor-core kernels (``*_tf32x3``), a
+   bfloat16 one only the bfloat16 tensor-core kernels (``*_mma``).
 12. train LM — the full-width LM of ``bench.py:1690-1713`` (vocab 32768,
    dim 1024, depth 8, 16 heads, max_len 1024, bfloat16 compute, float32
    params, batch 8 of uniform tokens, lr 1e-2) on one NCCL rank with
@@ -146,9 +149,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    lost no device event) and MFU against the bfloat16 dense peak (the run
    fails above 1); (f) the float32 leg: float32 compute (TF32 off), flash,
    one step whose loss and every leaf's update are held against the xla
-   route's, then 3 timed steps and one profiled: B5c and B5b 8 launches a
-   step by count and by the 3xTF32 kernels' names, and the pair's share
-   of the step's device time.
+   route's, then 3 timed steps and one profiled: B5a, B5c and B5b 8
+   launches a step by count and by the 3xTF32 kernels' names, and the
+   pair's and B5a's shares of the step's device time.
 13. examples — ``python -m distlearn_tpu_torch.examples.cifar10
    --numEpochs 1 --numExamples 2048 --testExamples 512 --batchSize 256
    --learningRate 0.01 --parity``, plain and with ``--deviceData --bf16``;
@@ -280,7 +283,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    over phase 10's LM at full width in float32 with flash: B5a's launches
    equal 8 (depth) a ``serve.prefill`` span of bucket >= 128 in the
    trails, and one profiled 1000-token prefill launches it 8 times and
-   names it on its float32 CUDA-core route; (c)
+   names it on its float32 3xTF32 route (``flash_fwd_tf32x3``); (c)
    ``diststat merge`` and ``tracecat`` over every trail: non-empty fleet
    tables, one stitched router-to-replica trace a request; (d)
    ``ea_convergence`` SGD and EA (tau 4), 4 ranks of 3 s: the EA curve
@@ -388,7 +391,8 @@ HBM_BYTES_PER_S = {"H200": 4.8e12, "H100": 3.35e12}
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
-# TF32 passes a float32 product of the 3xTF32 kernels (float32 B5b, B5c)
+# TF32 passes a float32 product of the 3xTF32 kernels (float32 B5a, B5b,
+# B5c)
 TF32_PASSES = 3
 
 # Phase 9: B5a at (B, H, D, L): the served LM's head shape at the prompt
@@ -674,8 +678,8 @@ def phase_build():
             if "ptxas" in line and ("registers" in line or "spill" in line
                                     or "Compiling" in line):
                 log(f"[build] {src}: {line.strip()}")
-    # the bfloat16 B5a, B5b and B5c and the float32 B5b and B5c run on
-    # tensor cores, the float32 B5a on CUDA cores
+    # every flash kernel runs its products on the tensor cores (the
+    # float32 ones in 3xTF32, beside their CUDA-core scores)
     if "flash_attention.cu" in logs:
         info = ptxas_report(logs["flash_attention.cu"])
         log("[build] flash kernels (registers, spill stores/loads bytes): "
@@ -684,11 +688,15 @@ def phase_build():
         for label in ("flash_fwd_mma<bf16, 64>",
                       "flash_bwd_dkv_mma<bf16, 64>",
                       "flash_bwd_dq_mma<bf16, 64>",
+                      "flash_fwd_tf32x3<f32, 64>",
                       "flash_bwd_dkv_tf32x3<f32, 64>",
                       "flash_bwd_dq_tf32x3<f32, 64>"):
             check(label in info and info[label].get("spill") == (0, 0),
                   f"{label}: ptxas reports spills or no entry: "
                   f"{info.get(label)}")
+        log("[build] float32 B5a (flash_fwd_tf32x3): " + ", ".join(
+            f"D={d} {info.get(f'flash_fwd_tf32x3<f32, {d}>', {})}"
+            for d in (32, 64, 128)))
     # B1's design issues both loads of a thread (a float4 of p and one of
     # g) before its store
     order = sass_loads_before_store(
@@ -703,10 +711,10 @@ def phase_build():
         + ", ".join(f"{k} {n}" for k, n in sorted(hmma.items())))
     check(len(hmma) == 18, f"expected 18 flash kernels, found {sorted(hmma)}")
     for label, n in hmma.items():
-        check((n > 0) == ("_mma<" in label or "_tf32x3<" in label),
-              f"{label}: {n} HMMA instructions; exactly the bfloat16 B5a, "
-              "B5b and B5c and the float32 (3xTF32) B5b and B5c kernels run "
-              "on tensor cores")
+        check(n > 0 and ("_mma<" in label or "_tf32x3<" in label),
+              f"{label}: {n} HMMA instructions; every flash kernel, the "
+              "bfloat16 (mma) and float32 (3xTF32) B5a, B5b and B5c, runs "
+              "its products on tensor cores")
 
 
 # ---------------------------------------------------------------------------
@@ -2408,9 +2416,11 @@ def attn_bound(torch, nbytes, flops, dtype, rate, core_flops=None):
     """(bound ms, bound_by): bytes over the HBM rate against operations over
     the peaks of the units the kernel's route runs them on.  bfloat16:
     every flop on the tensor cores.  float32: ``core_flops`` of them on the
-    CUDA cores (all of B5a's; the score product, and di, of B5b and B5c)
-    and the rest in 3xTF32, three TF32 tensor-core passes a product; the
-    two units run side by side, so the slower of them bounds."""
+    CUDA cores (the score product of B5a, B5b and B5c, and di of B5c) and
+    the rest in 3xTF32, three TF32 tensor-core passes a product; the two
+    units run side by side, so the slower of them bounds.  Without
+    ``core_flops``, every float32 flop on the CUDA cores: what they alone
+    would bound a kernel at."""
     if dtype != torch.float32:
         ops_s = flops / BF16_FLOPS
     elif core_flops is None:
@@ -2424,12 +2434,18 @@ def attn_bound(torch, nbytes, flops, dtype, rate, core_flops=None):
 
 
 def flash_bound(torch, B, H, D, L, dtype, rate):
-    """(bound ms, bound_by, bytes, flops) of B5a without residuals: q, k, v
-    read once and o written once; the causal products 2*B*H*L*L*D."""
+    """(bound ms, bound_by, bytes, flops, CUDA-core bound ms) of B5a without
+    residuals: q, k, v read once and o written once; the causal products
+    2*B*H*L*L*D, half of them the score product, which float32 runs on the
+    CUDA cores (the other half, P V, in 3xTF32); the last figure is what
+    the CUDA cores alone would bound float32 at (None for bfloat16)."""
     elt = 4 if dtype == torch.float32 else 2
     nbytes = 4 * B * L * H * D * elt
     flops = 2 * B * H * L * L * D
-    return (*attn_bound(torch, nbytes, flops, dtype, rate), nbytes, flops)
+    f32 = dtype == torch.float32
+    core = attn_bound(torch, nbytes, flops, dtype, rate)[0] if f32 else None
+    return (*attn_bound(torch, nbytes, flops, dtype, rate,
+                        flops // 2 if f32 else None), nbytes, flops, core)
 
 
 def flash_inputs(torch, gen, B, H, D, L, dtype, n, mult=1.0):
@@ -2487,8 +2503,8 @@ def phase_flash(torch, card):
             err_plain, err_xla = check_forward(torch, name, out, plain, xla,
                                                dtype)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            bound, bound_by, nbytes, flops = flash_bound(torch, B, H, D, L,
-                                                         dtype, rate)
+            bound, bound_by, nbytes, flops, core = flash_bound(
+                torch, B, H, D, L, dtype, rate)
             row = {
                 "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v),
                               flush),
@@ -2500,11 +2516,15 @@ def phase_flash(torch, card):
                 "bound_ms": bound, "bound_by": bound_by,
                 "max_abs_err": err_plain,
             }
+            if core is not None:
+                row["core_bound_ms"] = core
             log(f"[flash] {name}: {row['ms']:.4f} ms | plain "
                 f"{row['plain_ms']:.4f} ms | sdpa {row['library_ms']:.4f} ms"
                 f" | bound {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB"
                 f" at {rate / 1e12:.2f} TB/s ({part}), {flops / 1e9:.2f} "
-                f"GFLOP) = {bound / row['ms']:.1%} of bound | max abs err "
+                f"GFLOP) = {bound / row['ms']:.1%} of bound"
+                + ("" if core is None else f", CUDA-core bound {core:.4f}")
+                + " | max abs err "
                 f"{err_plain:.3g} (plain), {err_xla:.3g} (xla)")
             if (B, H, D, L) == FLASH_MAIN and dtype == torch.bfloat16:
                 main_row = row
@@ -2597,11 +2617,18 @@ def phase_serve_lm(torch):
         for impl in ("flash", "xla"):
             os.environ["DISTLEARN_TPU_ATTN"] = impl
             eng = DecodeEngine(params, num_slots=1, device="cuda")
+            fa.flash_attention.launches = 0
             slot, first = eng.admit(prompt, LM_CHECK_STEPS)
             got = [first] + [eng.tick()[slot]
                              for _ in range(LM_CHECK_STEPS - 1)]
             eng.finish(slot)
             del eng
+            # one full prefill: B5a (float32, flash_fwd_tf32x3) once a
+            # layer on the flash route, never on the xla route
+            b5a = fa.flash_attention.launches
+            check(b5a == (opt.depth if impl == "flash" else 0),
+                  f"[serve] (a) float32 on {impl}: B5a launched {b5a} "
+                  f"times in one full prefill of {opt.depth} layers")
             tie = compare_stream(torch, models[torch.float32], params,
                                  prompt, got, ref, TIE_TOL["float32"])
             how = "equal" if tie is None else (
@@ -2609,7 +2636,7 @@ def phase_serve_lm(torch):
                 f" top-2 margin {tie[2]:.3g})")
             log(f"[serve] (a) float32, engine on {impl}, greedy_generate on "
                 f"xla: {how} over {LM_CHECK_STEPS} tokens of a "
-                f"{LM_CHECK_PROMPT}-token prompt")
+                f"{LM_CHECK_PROMPT}-token prompt; B5a launches {b5a}")
 
         # (b) bfloat16 compute, the server on loopback
         os.environ["DISTLEARN_TPU_ATTN"] = "flash"
@@ -2775,7 +2802,7 @@ def flash_work(B, H, D, L, elt):
     pairs = B * H * L * (L + 1) // 2
     t, st = B * L * H * D * elt, B * H * L * 4
     di = 2 * B * H * L * D
-    return {"fwd": (4 * t + 2 * st, 4 * D * pairs, None),
+    return {"fwd": (4 * t + 2 * st, 4 * D * pairs, 2 * D * pairs),
             "dq": (6 * t + 3 * st, 6 * D * pairs + di, 2 * D * pairs + di),
             "dkv": (6 * t + 3 * st, 8 * D * pairs, 2 * D * pairs)}
 
@@ -2915,7 +2942,7 @@ def phase_flash_backward(torch, card):
                        "plain_ms": time_ms(torch, plain, flush) if main
                        else None}
                 core = ""
-                if dtype == torch.float32 and kern != "fwd":
+                if dtype == torch.float32:
                     # what the CUDA cores alone would bound it at
                     row["core_bound_ms"] = max(nbytes / rate,
                                                flops / FP32_FLOPS) * 1e3
@@ -2969,9 +2996,9 @@ def phase_flash_backward(torch, card):
         f"within rtol = atol = {FLASH_BF16_TOL}; a second backward equal bit "
         "for bit; bounds at "
         f"{rate / 1e12:.2f} TB/s ({part}), {FP32_FLOPS / 1e12:.0f} TFLOP/s "
-        f"float32 CUDA cores (B5a; S and di of B5b, B5c), "
+        f"float32 CUDA cores (S of B5a, B5b, B5c; di of B5c), "
         f"{TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 / {TF32_PASSES} passes (the "
-        "other float32 B5b, B5c products), "
+        "other float32 products), "
         f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bfloat16")
     B, H, D, L = FLASH_TRAIN
     return {kern: dict(rows[(B, H, D, L, "bfloat16", kern)],
@@ -2998,16 +3025,16 @@ FLASH_KERNELS = (("B5a", "flash_fwd"), ("B5b", "flash_bwd_dkv"),
                  ("B5c", "flash_bwd_dq"))
 # the kernels a bfloat16 call runs: all three on tensor cores (mma)
 FLASH_BF16_ROUTES = {"B5a": {"mma"}, "B5b": {"mma"}, "B5c": {"mma"}}
-# the kernels a float32 call runs: B5a on the CUDA cores, B5b and B5c on
-# the tensor cores in 3xTF32
-FLASH_F32_ROUTES = {"B5a": {"core"}, "B5b": {"tf32x3"}, "B5c": {"tf32x3"}}
+# the kernels a float32 call runs: all three on the tensor cores in 3xTF32
+# (their scores on the CUDA cores)
+FLASH_F32_ROUTES = {"B5a": {"tf32x3"}, "B5b": {"tf32x3"}, "B5c": {"tf32x3"}}
 
 
 def flash_routes(keys) -> dict:
     """{"B5a": {"mma"}, ...}: the flash kernels that profiler ``keys`` name,
     each with the routes seen, "mma" (``*_mma``: bfloat16 tensor cores),
     "tf32x3" (``*_tf32x3``: float32 on the tensor cores in 3xTF32) or
-    "core" (CUDA cores)."""
+    "core" (any other: a CUDA-core kernel, which no call should run)."""
     routes = {}
     for key in keys:
         for tag, sub in FLASH_KERNELS:
@@ -3268,10 +3295,10 @@ def phase_train_lm(torch, tree):
 
 def train_lm_float32(torch, tree, params0, tokens):
     """Phase 12(f): the LM step in float32 compute (TF32 off since phase
-    1) on the flash route, B5b and B5c on their 3xTF32 kernels: the first
-    step's loss and every leaf's update against the xla route's, 3 timed
-    steps after it, one profiled step.  Returns the launches, the step
-    time and the pair's device time."""
+    1) on the flash route, B5a, B5b and B5c on their 3xTF32 kernels: the
+    first step's loss and every leaf's update against the xla route's, 3
+    timed steps after it, one profiled step.  Returns the launches, the
+    step time, the pair's (B5b + B5c) and B5a's device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from distlearn_tpu_torch.models.transformer import transformer_lm
@@ -3348,8 +3375,8 @@ def train_lm_float32(torch, tree, params0, tokens):
         f"{launches[0]}, B5b {launches[1]}, B5c {launches[2]} in {n} steps; "
         f"one profiled step: device busy {busy:.2f} ms, B5c + B5b "
         f"{pair:.2f} ms = {pair / busy:.1%} (B5b {shares['B5b']:.2f}, B5c "
-        f"{shares['B5c']:.2f}, B5a {shares['B5a']:.2f} ms), names "
-        f"{counts}, routes {routes}")
+        f"{shares['B5c']:.2f} ms), B5a {shares['B5a']:.2f} ms = "
+        f"{shares['B5a'] / busy:.1%}; names {counts}, routes {routes}")
     check(routes == FLASH_F32_ROUTES,
           f"the float32 LM step ran flash kernels {routes}, expected "
           f"{FLASH_F32_ROUTES}")
@@ -3361,7 +3388,8 @@ def train_lm_float32(torch, tree, params0, tokens):
         log(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms  "
             f"x{e.count:<4d} {e.key[:90]}")
     return {"launches": launches, "step_ms": step_ms, "busy_ms": busy,
-            "pair_ms": pair, "loss_diff": dl, "update_ratio": worst}
+            "pair_ms": pair, "b5a_ms": shares["B5a"], "loss_diff": dl,
+            "update_ratio": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -5769,9 +5797,10 @@ def phase_fleet(torch) -> dict:
               f"in one prefill on the leader (expected {depth}) and "
               f"{f['named']} times in the follower's run (expected "
               f"{f['launches']})")
-        if tag == "bfloat16":
-            check(not cuda or c["routes"] == {"B5a": ["mma"]},
-                  f"[fleet] (a) bfloat16 flash routes {c['routes']}")
+        want = {"B5a": ["mma" if tag == "bfloat16" else "tf32x3"]}
+        check(not cuda or c["routes"] == want,
+              f"[fleet] (a) {tag} flash routes {c['routes']}, expected "
+              f"{want}")
         check(c["tick_psums"] == 2 * depth,
               f"[fleet] (a) {tag}: a tick ran {c['tick_psums']} psums, "
               f"expected {2 * depth}")
@@ -6044,11 +6073,11 @@ def phase_tools(torch) -> dict:
                 f"{prof['seconds']:.1f} s) names B5a {named} times for "
                 f"{prof['window']} launches, routes {routes}")
             check(prof["window"] == named == opt.depth
-                  and routes == {"B5a": {"core"}},
+                  and routes == {"B5a": {"tf32x3"}},
                   f"[tools] (b) the profiled prefill launched "
                   f"{prof['window']} B5a kernels and its profile named "
                   f"{named}, routes {routes} (expected {opt.depth} float32 "
-                  "CUDA-core flash_fwd)")
+                  "3xTF32 flash_fwd_tf32x3)")
         launches["flash_attention"] = b5a
         log(f"[tools] (b) took {time.perf_counter() - tb:.1f} s")
 
@@ -6459,6 +6488,10 @@ def main() -> int:
          "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:758"
                      " via distlearn_tpu/parallel/sequence.py:420",
          "launches": served["launches"], **kernel_rows["flash_attention"],
+         "float32": dict(bwd_rows["fwd"]["float32"],
+                         route="cuda (3xTF32 tensor cores for P V, S on "
+                               "the CUDA cores)",
+                         launches=trained["float32"]["launches"][0]),
          "mesh_lm_launches": {k: v[0] for k, v in
                               meshed["launches"].items()},
          "pp_lm_launches": {k: v[0] for k, v in
@@ -6507,7 +6540,8 @@ def main() -> int:
         f"{trained['modes']['none']['steps_per_s']:.2f} steps/s, MFU "
         f"{trained['modes']['none']['mfu']:.3f}, float32 "
         f"{trained['float32']['step_ms']:.2f} ms a step (B5c + B5b "
-        f"{trained['float32']['pair_ms']:.2f} ms); host tree sync stage / "
+        f"{trained['float32']['pair_ms']:.2f} ms, B5a "
+        f"{trained['float32']['b5a_ms']:.2f} ms); host tree sync stage / "
         f"round / return {host['tree']['stage_ms']:.3f} / "
         f"{host['tree']['round_ms']:.3f} / {host['tree']['return_ms']:.3f} "
         f"ms, ring {host['ring']['stage_ms']:.3f} / "

@@ -51,22 +51,24 @@
 // bytes): every kernel sits near the ridge, so in bfloat16 only the tensor
 // cores can approach its bound.  In float32 (twice the bytes) the CUDA
 // cores alone would bound them at 0.2567, 0.5133 and 0.3852 ms (67
-// TFLOP/s).  Float32 B5b and B5c form S on the CUDA cores (2*D*N: 0.1283
-// ms, 0.1286 with di) and their other products in 3xTF32, three TF32
-// tensor-core passes a product at 495 TFLOP/s (B5b 6*D*N: 0.1563 ms; B5c
-// 4*D*N: 0.1042 ms); the two units run side by side, so B5b is bound at
-// 0.1563 ms by its tensor-core work and B5c at 0.1286 ms by its CUDA-core
-// work (their 203 MB of float32 traffic take 0.0606 ms).
+// TFLOP/s).  Every float32 kernel forms S on the CUDA cores (2*D*N: 0.1283
+// ms, 0.1286 with di) and its other products in 3xTF32, three TF32
+// tensor-core passes a product at 495 TFLOP/s (B5a's P V 2*D*N: 0.0521
+// ms; B5b 6*D*N: 0.1563 ms; B5c 4*D*N: 0.1042 ms); the two units run side
+// by side, so B5a and B5c are bound at 0.1283 and 0.1286 ms by their
+// CUDA-core work and B5b at 0.1563 ms by its tensor-core work (their
+// float32 traffic, 135 MB for B5a and 203 MB for B5b and B5c, takes 0.0404
+// and 0.0606 ms).
 //
 // Which kernel runs where:
 //
 //   bfloat16 B5a  flash_fwd_mma         tensor cores (mma.sync m16n8k16)
 //   bfloat16 B5b  flash_bwd_dkv_mma     tensor cores (mma.sync m16n8k16)
 //   bfloat16 B5c  flash_bwd_dq_mma      tensor cores (mma.sync m16n8k16)
-//   float32 B5b   flash_bwd_dkv_tf32x3  tensor cores (mma.sync m16n8k8,
-//   float32 B5c   flash_bwd_dq_tf32x3   3xTF32) for dP and the gradient
-//                                       products; S on the CUDA cores
-//   float32 B5a   flash_fwd<float>      CUDA cores (FFMA)
+//   float32 B5a   flash_fwd_tf32x3      tensor cores (mma.sync m16n8k8,
+//   float32 B5b   flash_bwd_dkv_tf32x3  3xTF32) for P V, dP and the
+//   float32 B5c   flash_bwd_dq_tf32x3   gradient products; S on the CUDA
+//                                       cores
 //
 // Why 3xTF32 keeps float32 accuracy.  One TF32 pass rounds each operand to
 // 11 significant bits (relative error up to 2^-11), which puts gradients
@@ -76,20 +78,21 @@
 // a_lo b_hi + a_hi b_lo + a_hi b_hi: each product of two TF32 values is
 // exact in float32, the dropped a_lo b_lo and the split errors are about
 // 3 * 2^-22 |a b|, and the sums are float32 in the accumulators.  The
-// gradients then sit as close to a float64 route as plain float32's do
-// (tests/test_torch_flash_tf32x3.py emulates the five products of the
-// backward at D = 32, 64, 128).  Two things 3xTF32 does not give, which
-// the kernels do otherwise:
+// output and the gradients then sit as close to a float64 route as plain
+// float32's do (tests/test_torch_flash_tf32x3.py emulates the forward's P
+// V and the backward's products at D = 32, 64, 128).  Two things 3xTF32
+// does not give, which the kernels do otherwise:
 //   - The recomputed P = exp(s * scale - m) / l must come from the scores
 //     that m and l were taken over: exp turns a score a few ulps off into
 //     a relative error of |s| * scale ulps in P, which with q x 8 (scores
 //     up to about +-50) put dV at 1.8-4.1x its allowance on an H100 with S
 //     in 3xTF32 (PERF.md).
-//     So S is formed on the CUDA cores by the fmaf chain float32 B5a forms
-//     it with, bit for bit its scores.
+//     So all three float32 kernels form S on the CUDA cores by one fmaf
+//     chain (slab_scores_ffma): B5a's m is the row max of exactly the
+//     scores B5b and B5c form again, bit for bit.
 //   - The tensor core's own sums drift along a long k; each half tile's
-//     gradient products sum from zero and a rounded float32 addition adds
-//     them to the accumulator (acc_product_tf32).
+//     P V and gradient products sum from zero and a rounded float32
+//     addition adds them to the accumulator (acc_product_tf32).
 //
 // Ownership (every kernel).  Each block owns one 64-row output tile of one
 // (batch, head): a query tile for B5a and B5c, a key tile for B5b, as the
@@ -131,10 +134,10 @@
 //   and dP = dO V^T are 16x64 slabs in registers, dS = (dP - di) P scale
 //   is formed in place and packed into the A fragments of dQ += dS K (K by
 //   ldmatrix.trans).  P and dS never touch shared memory.
-// The float32 tensor-core kernels (B5b flash_bwd_dkv_tf32x3, B5c
-// flash_bwd_dq_tf32x3): the bfloat16 B5b and B5c in 32-bit elements.  128
-// threads, 4 warps of 16 rows (256, 8 warps, at D = 128; see Warps below);
-// tiles stay float32 in shared memory, rows
+// The float32 tensor-core kernels (B5a flash_fwd_tf32x3, B5b
+// flash_bwd_dkv_tf32x3, B5c flash_bwd_dq_tf32x3): the bfloat16 kernels in
+// 32-bit elements.  128 threads, 4 warps of 16 rows (256, 8 warps, at D =
+// 128; see Warps below); tiles stay float32 in shared memory, rows
 // padded by 4 floats (16 bytes), and arrive by cp.async (16-byte chunks of
 // four floats) into a ring of two buffers with one __syncthreads a tile.
 // S is an fmaf chain per element on the CUDA cores (slab_scores_ffma);
@@ -153,7 +156,7 @@
 //     gives lane (g, tq) columns 2tq and 2tq+1 where the TF32 A operand
 //     wants k = tq and tq+4, so that product's k is permuted inside each
 //     8-column block (no shuffle), and its B rows are read in that order.
-//     dS never touches shared memory.
+//     P and dS never touch shared memory.
 //   - Registers: two 16xD float32 accumulators (B5b), the half tile's
 //     sums of up to 64 columns, two slabs and the hi and lo fragments fill
 //     the 255 a thread (B5b at D = 64 uses 254; full 64-column slabs
@@ -163,21 +166,29 @@
 //     where it is loaded.  At D = 128 B5b still spills (nvcc's report is in
 //     chip_smoke.py's log); the forms that spilled less were slower.
 //   - Warps: at D = 128 a block's shared memory (6 tiles of 64 x 132
-//     floats, 203 KB) holds one block an SM, and four warps left the
-//     dependent MMA chains waiting; there a block runs 8 warps, two to each
+//     floats, 203 KB; B5a's 5, 165 KB) holds one block an SM, and four
+//     warps left the dependent MMA chains waiting; there a block runs 8
+//     warps, two to each
 //     16 rows, each walking one 32-column half of every tile, and the two
 //     partial accumulators are added once at the end through shared memory
-//     (hand_over_partial), in the same order every run.
+//     (hand_over_partial; B5a's by the softmax rule), in the same order
+//     every run.
 //   - The split costs 3 ALU operations an element, a product three MMAs
 //     and S a CUDA-core chain: the issue rate of mma.sync, the splits and
-//     the FFMAs, not bytes, bounds the pair (wgmma with TMA-fed tiles is
-//     later work, as for bfloat16).
-// The CUDA-core forward (float32 B5a; simple and right): 256 threads;
-// tiles staged in shared memory as float32; for a 64x64 score tile thread
-// t owns rows 4*(t/16) .. +3 and columns t%16 + 16*c, so row max and row
-// sum reduce over a half warp by shuffles; P passes through shared memory;
-// products are float32 FMAs.  Tiles read down a column are padded by one
-// float so that a half warp's reads hit 16 distinct banks.
+//     the FFMAs, not bytes, bounds them (wgmma with TMA-fed tiles is later
+//     work, as for bfloat16).  S's chains read 10 16-byte shared loads a
+//     64 FMAs (a lane holds two rows of the accumulator layout), 2.5 bytes
+//     an FMA where an SM's shared memory serves about 1: in B5a the score
+//     loop, not P V, takes most of the time (PERF.md).
+//   - B5a: the online softmax runs on the S slab in registers (the row
+//     max over the lane's 8 values and its quad, alpha = expf(m_old -
+//     m_new) on l and the accumulator), P is formed in place and feeds P V
+//     straight from the slab, so neither S nor P touches shared memory; a
+//     32-column half of the diagonal tile that lies above every row of a
+//     warp is skipped (the causal skip at half-tile granularity, uniform in
+//     the warp).  At D = 128 the two warps of a 16-row slice keep their own
+//     m, l and accumulator, merged once at the end by the softmax rule
+//     (hand_over_partial with m and l).
 //
 // Masking: masked scores are -inf in the forward and P = 0 in the backward
 // (the Pallas kernels add -0.7*FLT_MAX): every row sees key column 0, so the
@@ -200,10 +211,6 @@ namespace {
 
 constexpr int kBM = 64;        // rows of a block's own tile
 constexpr int kBN = 64;        // rows of a tile it walks over
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kRows = 4;       // tile rows per thread
-constexpr int kSCols = 4;      // score columns per thread and tile
-constexpr int kLdS = kBN + 1;  // padded row of a 64x64 score tile
 
 struct Strides {
   int64_t b, l, h;
@@ -225,51 +232,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
   out[1] = __uint_as_float(raw.x & 0xffff0000u);
   out[2] = __uint_as_float(raw.y << 16);
   out[3] = __uint_as_float(raw.y & 0xffff0000u);
-}
-
-// x rounded to the input dtype and widened back (P and dS before their
-// products)
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16_rn(x);
-}
-
-// rows x D elements from src (row stride row_stride) into dst (row stride
-// ld floats).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int64_t row_stride, int rows) {
-  constexpr int kVec = D / 4;
-  for (int idx = threadIdx.x; idx < rows * kVec; idx += kThreads) {
-    const int i = idx / kVec, d = (idx % kVec) * 4;
-    float x[4];
-    load4(src + i * row_stride + d, x);
-    float* p = dst + i * ld + d;
-    p[0] = x[0];
-    p[1] = x[1];
-    p[2] = x[2];
-    p[3] = x[3];
-  }
-}
-
-// max and sum over the 16 lanes of a half warp
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // ---------------------------------------------------------------------------
@@ -554,11 +516,15 @@ __device__ __forceinline__ void slab_to_a_tf32(Tf32A& a,
 
 // S = A B^T over D on the CUDA cores: the warp's 16 rows r0 of a_tile
 // against the 32 rows of b_tile, both stored [row][D + 4], each element one
-// fmaf chain over d from 0 in order, the chain float32 B5a forms its scores
-// with (flash_fwd), so P = exp(s * scale - m) / l is recomputed from the
-// very scores m and l were taken over.  Lanes of one tq read the same B
-// rows (a broadcast); the pad keeps the 16-byte reads conflict-free.
-template <int D>
+// fmaf chain over d from 0 in order: float32 B5a (flash_fwd_tf32x3) takes m
+// and l over these scores, and B5b and B5c recompute P = exp(s * scale - m)
+// / l from the very same.  Lanes of one tq read the same B rows (a
+// broadcast); the pad keeps the 16-byte reads conflict-free.  The d loop is
+// unrolled kUnroll steps of 4, which lets the next steps' loads issue under
+// this one's FMAs without changing any chain: B5a, with the registers to
+// spare, takes 4 (6% off its time at the LM training shape on an H100,
+// PERF.md); B5b and B5c, at up to 254 registers, take 1.
+template <int D, int kUnroll = 1>
 __device__ __forceinline__ void slab_scores_ffma(float (&s)[4][4],
                                                  const float* a_tile, int r0,
                                                  const float* b_tile, int g,
@@ -571,7 +537,10 @@ __device__ __forceinline__ void slab_scores_ffma(float (&s)[4][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 1
-  for (int d = 0; d < D; d += 4) {
+  for (int d0 = 0; d0 < D; d0 += 4 * kUnroll)
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int d = d0 + 4 * u;
     float av0[4], av1[4];
     load4(a0 + d, av0);
     load4(a1 + d, av1);
@@ -662,19 +631,25 @@ __device__ __forceinline__ void acc_product_tf32(float (&acc)[D / 8][4],
 // The float32 tensor-core kernels' threads: 4 warps of 16 rows, or at D =
 // 128 8 warps, two to each 16 rows, each walking one 32-column half of
 // every tile.  Their two partial sums meet once at the end
-// (hand_over_partial): at D = 128 one block fills an SM's shared memory,
-// and four warps an SM left the tensor cores idle on their dependent MMA
-// chains.
+// (hand_over_partial; the forward's by the softmax rule): at D = 128 one
+// block fills an SM's shared memory, and four warps an SM left the tensor
+// cores idle on their dependent MMA chains.
 template <int D>
 constexpr int kTf32Threads = D > 64 ? 2 * kMmaThreads : kMmaThreads;
 
 // At 8 warps: warps 4-7 hand their accumulators to warps 0-3 of the same
 // rows through shared memory (buf, free by then), lane-major so that the
-// 32 lanes hit 32 banks; returns true in the warps that store the sum,
-// whose acc is then half 0's plus half 1's, the same order every run.
+// 32 lanes hit 32 banks; returns true in the warps that store the result,
+// whose acc is then half 0's plus half 1's, the same order every run.  The
+// forward passes its m and l too: the halves then merge by the online
+// softmax's rule, m = max(m0, m1) and each side scaled by expf(m_i - m) (a
+// side that skipped every key, m -inf and l and acc 0, adds 0); without
+// them both weights are 1 and the sum is the backward's plain one.
 template <int kThr, int N>
 __device__ __forceinline__ bool hand_over_partial(float (&acc)[N][4],
-                                                  float* buf) {
+                                                  float* buf,
+                                                  float* m = nullptr,
+                                                  float* l = nullptr) {
   if constexpr (kThr == kMmaThreads) {
     return true;
   } else {
@@ -682,19 +657,39 @@ __device__ __forceinline__ bool hand_over_partial(float (&acc)[N][4],
     __syncthreads();  // every warp is done with the last tile
     float* part = buf + (threadIdx.x & (kMmaThreads - 1));
     const bool keep = threadIdx.x < kMmaThreads;
-    if (!keep)
+    if (!keep) {
 #pragma unroll
       for (int n = 0; n < N; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           part[(n * 4 + e) * kMmaThreads] = acc[n][e];
+      if (m != nullptr)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          part[(4 * N + r) * kMmaThreads] = m[r];
+          part[(4 * N + 2 + r) * kMmaThreads] = l[r];
+        }
+    }
     __syncthreads();
-    if (keep)
+    if (keep) {
+      float a0[2] = {1.f, 1.f}, a1[2] = {1.f, 1.f};
+      if (m != nullptr)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m1 = part[(4 * N + r) * kMmaThreads];
+          const float mm = fmaxf(m[r], m1);
+          a0[r] = expf(m[r] - mm);
+          a1[r] = expf(m1 - mm);
+          l[r] = l[r] * a0[r] + part[(4 * N + 2 + r) * kMmaThreads] * a1[r];
+          m[r] = mm;
+        }
 #pragma unroll
       for (int n = 0; n < N; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          acc[n][e] += part[(n * 4 + e) * kMmaThreads];
+          acc[n][e] = acc[n][e] * a0[e >> 1] +
+                      part[(n * 4 + e) * kMmaThreads] * a1[e >> 1];
+    }
     return keep;
   }
 }
@@ -718,125 +713,142 @@ __device__ __forceinline__ void store_acc_f32(float* lo, float* hi,
 // B5a: forward
 // ---------------------------------------------------------------------------
 
+// The tensor-core forward in float32 (3xTF32 for P V, S on the CUDA
+// cores).  Shared memory: the Q tile, then two K and two V buffers, each 64
+// rows of D + 4 floats.
 template <int D>
-constexpr int fwd_smem_floats() {
-  return kBM * (D + 1) + kBN * (D + 1) + kBN * D + kBM * kLdS;
+constexpr int fwd_tf32_smem_bytes() {
+  return 5 * kBM * (D + 4) * (int)sizeof(float);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ m_out, float* __restrict__ l_out, int L,
-              Strides sq, Strides sk, Strides sv, Strides so, float scale,
-              int causal) {
-  constexpr int kLdQK = D + 1;
-  constexpr int kOCols = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;               // [kBM][kLdQK]
-  float* ks = qs + kBM * kLdQK;   // [kBN][kLdQK]
-  float* vs = ks + kBN * kLdQK;   // [kBN][D]
-  float* ps = vs + kBN * D;       // [kBM][kLdS]
+template <int D>
+__global__ void __launch_bounds__(kTf32Threads<D>, 1)
+    flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     int L, Strides sq, Strides sk, Strides sv, Strides so,
+                     float scale, int causal) {
+  constexpr int kThr = kTf32Threads<D>;
+  constexpr int kLd = D + 4;
+  constexpr int kTile = kBM * kLd;
+  constexpr int kNO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  float* qs = reinterpret_cast<float*>(smem_tc);
+  float* ks = qs + kTile;      // [2][kBN][D + 4]
+  float* vs = ks + 2 * kTile;  // [2][kBN][D + 4]
 
   const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = tile * kBM;
-  const int rg = threadIdx.x >> 4, lane = threadIdx.x & 15;
-  const int row0 = rg * kRows;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int wr = (warp & 3) * 16;  // the warp's first query row
+  const int half0 = warp >> 2;     // its first key half of a tile
+  const float* kbase = k + b * sk.b + h * sk.h;
+  const float* vbase = v + b * sv.b + h * sv.h;
 
-  load_tile<T, D>(qs, kLdQK, q + b * sq.b + q0 * sq.l + h * sq.h, sq.l, kBM);
+  copy_tile_async<D, kThr>(qs, q + b * sq.b + q0 * sq.l + h * sq.h, sq.l);
+  copy_tile_async<D, kThr>(ks, kbase, sk.l);
+  copy_tile_async<D, kThr>(vs, vbase, sv.l);
+  cp_async_commit();
 
-  float m[kRows], l[kRows], acc[kRows][kOCols];
+  // rows g and g + 8 of the warp: m, l (the same in the 4 lanes of a quad)
+  // and the 16 x D accumulator
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[kNO][4];
 #pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.f;
+  for (int n = 0; n < kNO; ++n)
 #pragma unroll
-    for (int e = 0; e < kOCols; ++e) acc[a][e] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   const int n_tiles = causal ? tile + 1 : L / kBN;  // kBM == kBN
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBN;
-    __syncthreads();  // the previous tile's reads of K, V and P are done
-    load_tile<T, D>(ks, kLdQK, k + b * sk.b + k0 * sk.l + h * sk.h, sk.l, kBN);
-    load_tile<T, D>(vs, D, v + b * sv.b + k0 * sv.l + h * sv.h, sv.l, kBN);
-    __syncthreads();
-
-    float s[kRows][kSCols];
-#pragma unroll
-    for (int a = 0; a < kRows; ++a)
-#pragma unroll
-      for (int c = 0; c < kSCols; ++c) s[a][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kSCols];
-#pragma unroll
-      for (int a = 0; a < kRows; ++a) qv[a] = qs[(row0 + a) * kLdQK + d];
-#pragma unroll
-      for (int c = 0; c < kSCols; ++c) kv[c] = ks[(lane + 16 * c) * kLdQK + d];
-#pragma unroll
-      for (int a = 0; a < kRows; ++a)
-#pragma unroll
-        for (int c = 0; c < kSCols; ++c) s[a][c] = fmaf(qv[a], kv[c], s[a][c]);
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < n_tiles) {  // the next tile into the other buffers
+      const int64_t k1 = (int64_t)(t + 1) * kBN;
+      copy_tile_async<D, kThr>(ks + ((t + 1) & 1) * kTile, kbase + k1 * sk.l,
+                               sk.l);
+      copy_tile_async<D, kThr>(vs + ((t + 1) & 1) * kTile, vbase + k1 * sv.l,
+                               sv.l);
     }
+    cp_async_commit();
+    const float* kt = ks + (t & 1) * kTile;
+    const float* vt = vs + (t & 1) * kTile;
 
+    // the tile in two halves of 32 keys (one each at 8 warps); key block j
+    // of a half holds keys 8j + 2tq, +1 of rows g, g + 8
     const bool diag = causal && t == tile;
+#pragma unroll 1
+    for (int half = half0; half < kBN / kHalf; half += kThr / kMmaThreads) {
+      // the causal skip: every key of the half lies past the warp's rows
+      if (diag && half * kHalf > wr + 15) continue;
+      // S = Q K^T on the CUDA cores (the chains B5b and B5c form again),
+      // scaled; -inf where key > query on the diagonal
+      float s[4][4];
+      slab_scores_ffma<D, 4>(s, qs, wr, kt + half * kHalf * kLd, g, tq);
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int a = 0; a < kRows; ++a) {
-      float mx = -INFINITY;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int c = 0; c < kSCols; ++c) {
-        float x = s[a][c] * scale;
-        if (diag && lane + 16 * c > row0 + a) x = -INFINITY;
-        s[a][c] = x;
-        mx = fmaxf(mx, x);
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int col = half * kHalf + j * 8 + 2 * tq + (e & 1);
+          const float x = diag && col > wr + g + 8 * r
+                              ? -INFINITY
+                              : __fmul_rn(s[j][e], scale);
+          s[j][e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      // the online softmax: m over the quad, P = exp(s - m) in place, l
+      // and the accumulator rescaled by alpha (0 on a row's first half)
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
       }
-      const float m_new = fmaxf(m[a], max16(mx));
-      const float alpha = expf(m[a] - m_new);  // 0 on the first tile
-      float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < kSCols; ++c) {
-        const float p = expf(s[a][c] - m_new);
-        sum += p;
-        ps[(row0 + a) * kLdS + lane + 16 * c] = round_to(p, T());
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+      for (int n = 0; n < kNO; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
       }
-      l[a] = l[a] * alpha + sum16(sum);
-      m[a] = m_new;
-#pragma unroll
-      for (int e = 0; e < kOCols; ++e) acc[a][e] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBN; ++j) {
-      float pv[kRows], vv[kOCols];
-#pragma unroll
-      for (int a = 0; a < kRows; ++a) pv[a] = ps[(row0 + a) * kLdS + j];
-#pragma unroll
-      for (int e = 0; e < kOCols; ++e) vv[e] = vs[j * D + lane + 16 * e];
-#pragma unroll
-      for (int a = 0; a < kRows; ++a)
-#pragma unroll
-        for (int e = 0; e < kOCols; ++e)
-          acc[a][e] = fmaf(pv[a], vv[e], acc[a][e]);
+      // O += P V in 3xTF32, P straight from the slab, V read [k][n]
+      acc_product_tf32<D>(acc, s, vt + half * kHalf * kLd, g, tq);
     }
   }
 
-  const int64_t stat0 = ((int64_t)b * gridDim.y + h) * L + q0 + row0;
+  if (!hand_over_partial<kThr>(acc, ks, m, l)) return;
 #pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    T* out = o + b * so.b + (int64_t)(q0 + row0 + a) * so.l + h * so.h;
-#pragma unroll
-    for (int e = 0; e < kOCols; ++e)
-      store(out + lane + 16 * e, acc[a][e] / l[a]);
-    if (m_out != nullptr && lane == 0) {
-      m_out[stat0 + a] = m[a];
-      l_out[stat0 + a] = l[a];
-    }
+  for (int n = 0; n < kNO; ++n) {
+    acc[n][0] /= l[0];
+    acc[n][1] /= l[0];
+    acc[n][2] /= l[1];
+    acc[n][3] /= l[1];
+  }
+  const int64_t row = q0 + wr + g;
+  float* out = o + b * so.b + row * so.l + h * so.h;
+  store_acc_f32<D>(out, out + 8 * so.l, acc, tq);
+  if (m_out != nullptr && tq == 0) {
+    const int64_t stat = ((int64_t)b * gridDim.y + h) * L + row;
+    m_out[stat] = m[0];
+    l_out[stat] = l[0];
+    m_out[stat + 8] = m[1];
+    l_out[stat + 8] = l[1];
   }
 }
-
 
 // The tensor-core forward (bfloat16).  Shared memory: the Q tile, then two
 // K and two V buffers, each 64 rows of D + 8 bfloat16.
@@ -1628,8 +1640,8 @@ bool rows_16b(int elt_bytes, S... s) {
 }  // namespace
 
 // BODY(T, DIM) for the head dim D: each entry point launches its float32
-// kernel for dtype 0 (CUDA cores for B5a, 3xTF32 tensor cores for B5b and
-// B5c) and its bfloat16 tensor-core kernel for dtype 1.
+// kernel for dtype 0 (3xTF32 tensor cores beside the CUDA cores' scores)
+// and its bfloat16 tensor-core kernel for dtype 1.
 #define DL_HEAD_DIMS(BODY, T)      \
   if (D == 32) { BODY(T, 32) }     \
   if (D == 64) { BODY(T, 64) }     \
@@ -1655,23 +1667,21 @@ extern "C" int dl_flash_fwd(const void* q, const void* k, const void* v,
   const Strides sq{qb, ql, qh}, sk{kb, kl, kh}, sv{vb, vl, vh}, so{ob, ol, oh};
   if (!shape_ok(B, L, H) || !rows_16b(dtype == 0 ? 4 : 2, sq, sk, sv, so))
     return -(int)cudaErrorInvalidValue;
-#define DL_FWD(T, DIM)                                                      \
-  return launch(flash_fwd<T, DIM>, fwd_smem_floats<DIM>() * 4, kThreads, B, \
-                L, H, stream, static_cast<const T*>(q),                     \
-                static_cast<const T*>(k), static_cast<const T*>(v),         \
-                static_cast<T*>(o), static_cast<float*>(m_out),             \
-                static_cast<float*>(l_out), L, sq, sk, sv, so, scale,       \
-                causal);
+#define DL_FWD_ARGS(T)                                                      \
+  B, L, H, stream, static_cast<const T*>(q), static_cast<const T*>(k),      \
+      static_cast<const T*>(v), static_cast<T*>(o),                         \
+      static_cast<float*>(m_out), static_cast<float*>(l_out), L, sq, sk,    \
+      sv, so, scale, causal
+#define DL_FWD_TF32(T, DIM)                                                 \
+  return launch(flash_fwd_tf32x3<DIM>, fwd_tf32_smem_bytes<DIM>(),          \
+                kTf32Threads<DIM>, DL_FWD_ARGS(T));
 #define DL_FWD_MMA(T, DIM)                                                  \
   return launch(flash_fwd_mma<DIM>, fwd_mma_smem_bytes<DIM>(), kMmaThreads, \
-                B, L, H, stream, static_cast<const T*>(q),                  \
-                static_cast<const T*>(k), static_cast<const T*>(v),         \
-                static_cast<T*>(o), static_cast<float*>(m_out),             \
-                static_cast<float*>(l_out), L, sq, sk, sv, so, scale,       \
-                causal);
-  if (dtype == 0) { DL_HEAD_DIMS(DL_FWD, float) }
+                DL_FWD_ARGS(T));
+  if (dtype == 0) { DL_HEAD_DIMS(DL_FWD_TF32, float) }
   if (dtype == 1) { DL_HEAD_DIMS(DL_FWD_MMA, bf16) }
-#undef DL_FWD
+#undef DL_FWD_ARGS
+#undef DL_FWD_TF32
 #undef DL_FWD_MMA
   return -(int)cudaErrorInvalidValue;
 }

@@ -6,10 +6,13 @@ counterpart of the Pallas TPU kernels that
 ``_flash_attention_dq_kernel`` in
 ``jax/experimental/pallas/ops/tpu/flash_attention.py``), hand-written in
 CUDA for Hopper in ``ops/csrc/flash_attention.cu``: in bfloat16 all three
-run on the tensor cores (``mma.sync``); in float32 B5b and B5c run on the
-tensor cores in 3xTF32 (every product split into two TF32 parts and taken
-in three passes, which keeps float32's accuracy) and B5a on the CUDA
-cores.
+run on the tensor cores (``mma.sync``); in float32 all three
+(``flash_fwd_tf32x3``, ``flash_bwd_dkv_tf32x3``, ``flash_bwd_dq_tf32x3``)
+take P V and the gradient products on the tensor cores in 3xTF32 (every
+product split into two TF32 parts and taken in three passes, which keeps
+float32's accuracy) and the scores on the CUDA cores, one fmaf chain an
+element, so that B5b and B5c recompute P from exactly the scores B5a took
+m and l over.
 
 * :func:`flash_attention` — ``softmax(q k^T / sqrt(D), causal) v``; when a
   gradient is wanted it goes through :class:`FlashAttention`, whose forward

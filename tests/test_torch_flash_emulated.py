@@ -8,16 +8,20 @@ block as a thread and the warp collectives (shuffles, ``ldmatrix``,
 shared memory and its launch are mapped onto the header's.  So the
 kernels' indexing, fragment layouts, masks, online softmax and cp.async
 ring run as written: every bfloat16 kernel on its m16n8k16 tensor-core
-path, float32 B5b and B5c on their 3xTF32 m16n8k8 path (the header's
-``cvt.rna.tf32.f32`` and TF32 ``mma.sync``) and float32 B5a on the CUDA
-cores.  They are held against their plain twins
+path, the float32 kernels on their 3xTF32 m16n8k8 path (the header's
+``cvt.rna.tf32.f32`` and TF32 ``mma.sync``) beside their fmaf-chain
+scores.  They are held against their plain twins
 (``ops/flash_attention.py``), which the card holds them against too
 (``chip_smoke.py`` phases 9 and 11), at the same tolerances: float32
 within 1e-5 (B5a) and rtol 2e-4, atol 2e-5 (B5b, B5c; dK's atol times the
 factor on q, as phase 11's ``check_backward``); bfloat16 within rtol =
 atol = 2e-2; m within 1e-5 times the factor on q, l within 1e-5
-relative.  What this cannot show: that the CUDA compiler takes the source,
-and the card's speed.  Skipped where no g++ is."""
+relative.  Float32 B5a's m is held bit for bit against the row max of
+``__fmul_rn(s, scale)``, s the fmaf chain over d from 0 in order
+(:data:`SCORE_ROW_MAX`, host C++ appended to the emulated source): the
+scores that float32 B5b and B5c form again when they recompute P.  What
+this cannot show: that the CUDA compiler takes the source, and the card's
+speed.  Skipped where no g++ is."""
 
 from __future__ import annotations
 
@@ -41,6 +45,31 @@ SHIM = Path(__file__).resolve().parent / "torch_cuda_emu.h"
 PTX_HELPERS = ("smem_u32", "cp_async16", "cp_async_commit",
                "cp_async_wait_all", "ldsm_x4", "ldsm_x4_trans", "mma_bf16",
                "to_tf32", "mma_tf32")
+
+
+#: the reference for float32 B5a's m: for each (batch, head, query row) of
+#: contiguous [B, L, H, D] q and k, the max over its keys (causal: up to the
+#: row) of __fmul_rn(s, scale), s one fmaf chain over d from 0 in order
+SCORE_ROW_MAX = r"""
+extern "C" void emu_score_row_max(const float* q, const float* k, int B,
+                                  int L, int H, int D, float scale,
+                                  int causal, float* m) {
+  for (int b = 0; b < B; ++b)
+    for (int h = 0; h < H; ++h)
+      for (int i = 0; i < L; ++i) {
+        const float* qi = q + ((int64_t)(b * L + i) * H + h) * D;
+        float mx = -INFINITY;
+        for (int j = 0; j < (causal ? i + 1 : L); ++j) {
+          const float* kj = k + ((int64_t)(b * L + j) * H + h) * D;
+          float s = 0.f;
+          for (int d = 0; d < D; ++d) s = std::fmaf(qi[d], kj[d], s);
+          const float x = __fmul_rn(s, scale);
+          mx = x > mx ? x : mx;
+        }
+        m[((int64_t)b * H + h) * L + i] = mx;
+      }
+}
+"""
 
 
 def _replace(text: str, old: str, new: str, count: int) -> str:
@@ -67,9 +96,7 @@ def host_source(cu: str) -> str:
                     f'#include "{SHIM.name}"', 1)
     text = _replace(text, "#include <cuda_runtime.h>", "", 1)
     text = _replace(text, "extern __shared__ __align__(16) unsigned char "
-                    "smem_tc[];", "unsigned char* smem_tc = emu_smem;", 5)
-    text = _replace(text, "extern __shared__ float smem[];",
-                    "float* smem = reinterpret_cast<float*>(emu_smem);", 1)
+                    "smem_tc[];", "unsigned char* smem_tc = emu_smem;", 6)
     text = _replace(text, "kernel<<<dim3(L / kBM, H, B), threads, smem, "
                     "stream>>>(args...);", "emu_launch(kernel, dim3(L / kBM, "
                     "H, B), threads, args...);", 1)
@@ -84,7 +111,7 @@ def lib(tmp_path_factory):
         pytest.skip("no g++ to build the emulated kernels")
     d = tmp_path_factory.mktemp("flash_emu")
     src = d / "flash_emu.cpp"
-    src.write_text(host_source(SOURCE.read_text()))
+    src.write_text(host_source(SOURCE.read_text()) + SCORE_ROW_MAX)
     so = d / "libflash_emu.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
                     "-pthread", f"-I{SHIM.parent}", "-o", str(so), str(src)],
@@ -94,6 +121,10 @@ def lib(tmp_path_factory):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = sig, ctypes.c_int
     lib.emu_set_async_mode.argtypes = (ctypes.c_int,)
+    lib.emu_score_row_max.argtypes = (
+        ctypes.c_void_p, ctypes.c_void_p, *(ctypes.c_int,) * 4,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+    lib.emu_score_row_max.restype = None
     return lib
 
 
@@ -116,8 +147,8 @@ def _close(got, want, rtol, atol, what):
 
 #: (dtype, B, H, D, L, causal, q multiplier, cp.async mode): three tiles
 #: with held-back copies, full attention, D = 32, D = 128 with large scores
-#: (B5b's K and V from shared memory), a single diagonal tile; float32 (B5a
-#: on the CUDA cores, B5b and B5c in 3xTF32) at D = 64 and 128, then at
+#: (B5b's K and V from shared memory), a single diagonal tile; float32 (P V
+#: and the backward's products in 3xTF32) at D = 64 and 128, then at
 #: D = 32, with held-back copies over three tiles, and with q x 8 (scores
 #: up to about +-50, P nearly one-hot) at D = 64 and 128
 CASES = [("bfloat16", 1, 2, 64, 192, True, 1.0, 1),
@@ -207,3 +238,35 @@ def test_emulated_entry_points_refuse_what_the_kernels_do_not_take(lib):
                             0.125, 1, None) == -1
     assert lib.dl_flash_fwd(*args, 1, 1, 128, 1, 64, *st, 0.125, 1,
                             None) == 1
+
+
+#: (B, H, D, L, causal, q multiplier) for float32 B5a's m: three causal
+#: tiles of two heads (4 warps), and q x 8 at D = 128 (8 warps, the two
+#: halves' m merged at the end) and at D = 32 over full attention
+M_CASES = [(1, 2, 64, 192, True, 1.0), (1, 1, 128, 128, True, 8.0),
+           (1, 1, 32, 128, False, 8.0)]
+
+
+@pytest.mark.parametrize(
+    "B,H,D,L,causal,mult", M_CASES,
+    ids=[f"B{c[0]}H{c[1]}D{c[2]}L{c[3]}-{'causal' if c[4] else 'full'}-"
+         f"q{c[5]:g}" for c in M_CASES])
+def test_emulated_b5a_m_is_the_row_max_of_the_fmaf_chain_scores(
+        lib, B, H, D, L, causal, mult):
+    """Float32 B5a's m equals, bit for bit, the row max of ``__fmul_rn(s,
+    scale)`` with s the fmaf chain over d from 0 in order: the scores that
+    float32 B5b and B5c form again, so their P = exp(s * scale - m) / l
+    is normalised by the max of exactly the values it exponentiates."""
+    lib.emu_set_async_mode(1)
+    g = torch.Generator().manual_seed(L + D + 1)
+    q, k, v = (torch.randn((B, L, H, D), generator=g) for _ in range(3))
+    q = q * mult
+    o, m, l = (torch.empty_like(q), torch.empty((B, H, L)),
+               torch.empty((B, H, L)))
+    _call(lib, "dl_flash_fwd", q, (q, k, v, o, m, l), (q, k, v, o), causal)
+    want = torch.empty((B, H, L))
+    lib.emu_score_row_max(q.data_ptr(), k.data_ptr(), B, L, H, D,
+                          1.0 / math.sqrt(D), int(causal), want.data_ptr())
+    assert torch.equal(m, want), (
+        f"{int((m != want).sum())} rows differ, max "
+        f"{float((m - want).abs().max()):.3g}")

@@ -1,7 +1,8 @@
-"""Why float32 B5b and B5c may run on the tensor cores as 3xTF32.
+"""Why float32 B5a's P V and B5b and B5c may run on the tensor cores as
+3xTF32.
 
 A TF32 tensor-core product rounds each float32 operand to 11 significant
-bits.  ``ops/csrc/flash_attention.cu``'s float32 backward kernels split
+bits.  ``ops/csrc/flash_attention.cu``'s float32 kernels split
 every operand instead, ``x = hi + lo`` with ``hi = tf32(x)`` and ``lo =
 tf32(x - hi)`` (``cvt.rna.tf32.f32``: to nearest, ties away from zero),
 and form ``a b`` as ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` in float32
@@ -20,8 +21,14 @@ within it wherever plain float32 is, and one TF32 pass is not.  Why S
 stays off the tensor cores: scores formed anew by another product (3xTF32
 here, more accurate than the forward's) no longer match the m and l they
 are normalised by, and with q x 8 that mismatch pushes dV past the
-tolerance.  The card's tensor cores may sum inside an MMA in another
-order; the kernels themselves are held on the card (phase 11) and, run as
+tolerance.  The forward is emulated as float32 B5a runs it: 64-key tiles
+walked in halves of 32 with an online softmax, each half's P V in 3xTF32
+summed from zero and added to the accumulator (at D = 128 the two halves
+of every tile walked apart and merged at the end), o held within the
+1e-5 that the card holds B5a to (``chip_smoke.py``'s ``FLASH_F32_TOL``)
+of a float64 route from the same float32 scores; one TF32 pass misses
+it.  The card's tensor cores may
+sum inside an MMA in another order; the kernels themselves are held on the card (phase 11) and, run as
 written, on the CPU (``tests/test_torch_flash_emulated.py``)."""
 
 from __future__ import annotations
@@ -216,3 +223,86 @@ def test_scores_formed_anew_lose_ps_match_with_m_and_l(D, L):
     assert anew["dv"][0] >= 2 * same["dv"][0], (anew["dv"], same["dv"])
     if (D, L) == Q8_CASES[-1]:
         assert not anew["dv"][1], anew["dv"]
+
+
+#: ``FLASH_F32_TOL`` of chip_smoke.py: B5a's o against its twin and xla
+FWD_ATOL = 1e-5
+#: keys of a tile, and of the half tile that is the kernels' unit of P V
+TILE, HALF = 64, 32
+
+
+def scaled_scores(q, k):
+    """The causal scaled scores, -inf above the diagonal, in q's dtype."""
+    L, D = q.shape[-2:]
+    ss = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(D))
+    return ss.masked_fill(causal_mask(L), -math.inf)
+
+
+def forward_online(ss, v, mm, streams=1):
+    """The causal forward as float32 B5a runs it on the scaled scores
+    ``ss``: the keys in halves of 32, each an online-softmax step (m, then
+    alpha = exp(m_old - m_new) on l and the accumulator, P = exp(s - m))
+    whose P V goes through ``mm`` from zero and is added to the
+    accumulator.  A row skips the halves whose first key lies past it.
+    ``streams=2`` walks the first and the second half of every tile apart,
+    as two warps do at D = 128, and merges their (m, l, acc) at the end by
+    the softmax rule; returns o = acc / l."""
+    L = ss.shape[-1]
+    rows = torch.arange(L).unsqueeze(-1)
+    state = []
+    for st in range(streams):
+        m = torch.full(ss.shape[:-1] + (1,), -math.inf)
+        l = torch.zeros(ss.shape[:-1] + (1,))
+        acc = torch.zeros(v.shape)
+        for k0 in range(0, L, TILE):
+            for half in range(TILE // HALF):
+                if half % streams != st:
+                    continue
+                keys = slice(k0 + half * HALF, k0 + (half + 1) * HALF)
+                live = rows >= keys.start
+                x = ss[..., keys]
+                m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+                m_new = torch.where(live, m_new, m)
+                alpha = torch.where(live, torch.exp(m - m_new), 1.0)
+                p = torch.where(live, torch.exp(x - m_new), 0.0)
+                l = torch.where(live, l * alpha + p.sum(-1, keepdim=True), l)
+                t = mm(p, v[..., keys, :].contiguous())
+                acc = torch.where(live, acc * alpha + t, acc)
+                m = m_new
+        state.append((m, l, acc))
+    m, l, acc = state[0]
+    for m1, l1, acc1 in state[1:]:
+        mm_ = torch.maximum(m, m1)
+        a0, a1 = torch.exp(m - mm_), torch.exp(m1 - mm_)
+        l, acc, m = l * a0 + l1 * a1, acc * a0 + acc1 * a1, mm_
+    return acc / l
+
+
+def forward_error(D, L, mult, mm):
+    """Max abs error of o from :func:`forward_online` in float32 (P V
+    through ``mm``; two streams at D = 128) against the float64 route on the
+    same float32 scores.  The scores are the kernel's own fmaf chains,
+    which the card holds against the twin's; with q x 8 their float32
+    rounding alone moves o by about 1e-5 from a float64 route's, which is
+    not what P V adds."""
+    q, k, v, _ = inputs(D, L, mult)
+    ss = scaled_scores(q.float(), k.float())
+    ref = torch.softmax(ss.double(), -1) @ v
+    got = forward_online(ss, v.float(), mm, streams=2 if D > 64 else 1)
+    return float((got.double() - ref).abs().max())
+
+
+@pytest.mark.parametrize("D,L,mult", CASES, ids=IDS)
+def test_3xtf32_forward_within_the_float32_tolerance(D, L, mult):
+    plain, split3 = (forward_error(D, L, mult, mm)
+                     for mm in (mm_float32, mm_3xtf32))
+    assert plain <= FWD_ATOL, f"plain float32 o: {plain:.3g}"
+    assert split3 <= FWD_ATOL, (
+        f"3xTF32 o: max abs {split3:.3g} (plain float32 {plain:.3g})")
+    assert split3 <= 4 * plain + 1e-7, (split3, plain)
+
+
+@pytest.mark.parametrize("D,L,mult", CASES, ids=IDS)
+def test_one_tf32_pass_misses_the_forward_tolerance(D, L, mult):
+    one = forward_error(D, L, mult, mm_tf32)
+    assert one > FWD_ATOL, f"one TF32 pass o: max abs {one:.3g}"
