@@ -875,7 +875,6 @@ def profile_step(torch, run, classes=KERNEL_CLASSES,
     fail the run.  Returns what ``run()`` returned, the busy and wall
     milliseconds (busy None if not profiled) and ``{class: [busy ms,
     launches]}``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from distlearn_tpu_torch.utils.profiling import settled_profile
     torch.cuda.synchronize()
@@ -891,8 +890,7 @@ def profile_step(torch, run, classes=KERNEL_CLASSES,
         out = run()
         torch.cuda.synchronize()
         return out, None, None, {}
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     by_class: dict[str, list] = {}
     for e in kernels:
@@ -1066,12 +1064,21 @@ def trees_equal(torch, a, b) -> bool:
                                       for x, y in zip(la, lb))
 
 
+def device_events(prof) -> list:
+    """A profile's device rows, less the device side of ``record_function``
+    ranges (the port's spans, such as ``train.step``), which would count
+    the kernels under them a second time."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_replay(torch, fn) -> dict:
     """One profiled, synchronised ``fn()``: its device kernels by name with
     their counts, the busy and wall milliseconds; and the CUDA runtime calls
     of another ``fn()`` by name (graph launches among them), less the
     profiler's own."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from distlearn_tpu_torch.utils.profiling import settled_profile
     torch.cuda.synchronize()
@@ -1081,11 +1088,9 @@ def profile_replay(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = {e.key: e.count for e in events
-               if e.device_type == DeviceType.CUDA}
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
+    events = device_events(prof)
+    kernels = {e.key: e.count for e in events}
+    busy = sum(e.self_device_time_total for e in events) / 1e3
     return {"kernels": kernels, "busy_ms": busy, "wall_ms": wall_ms,
             "calls": runtime_calls(torch, fn)}
 
@@ -3083,7 +3088,6 @@ def reset_flash_counts(fa):
 
 
 def phase_train_lm(torch, tree):
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from distlearn_tpu_torch.utils.profiling import settled_profile
 
@@ -3261,7 +3265,7 @@ def phase_train_lm(torch, tree):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     del p1
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    evs = device_events(prof)
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     check(busy > 0, "torch.profiler saw no device time in the LM step")
     shares, counts, routes = flash_profile(evs)
@@ -3299,7 +3303,6 @@ def train_lm_float32(torch, tree, params0, tokens):
     first step's loss and every leaf's update against the xla route's, 3
     timed steps after it, one profiled step.  Returns the launches, the
     step time, the pair's (B5b + B5c) and B5a's device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from distlearn_tpu_torch.models.transformer import transformer_lm
     from distlearn_tpu_torch.ops import flash_attention as fa
@@ -3364,7 +3367,7 @@ def train_lm_float32(torch, tree, params0, tokens):
         params, _ = step(params, tokens)
         torch.cuda.synchronize()
     del params
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    evs = device_events(prof)
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     check(busy > 0, "torch.profiler saw no device time in the float32 step")
     shares, counts, routes = flash_profile(evs)

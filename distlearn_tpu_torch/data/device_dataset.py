@@ -16,6 +16,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from distlearn_tpu_torch import obs
 from distlearn_tpu_torch.utils.platform import resolve_device
 
 
@@ -44,9 +45,11 @@ class DeviceDataset:
 
     def gather(self, idx) -> tuple[torch.Tensor, torch.Tensor]:
         """One batch: the int32 index vector is all that crosses to the
-        device."""
-        idx = torch.from_numpy(np.ascontiguousarray(idx, np.int32))
-        return self.take(idx.to(self.device))
+        device.  The span ``data.gather`` covers the index vector's copy
+        and the two ``index_select`` launches."""
+        with obs.span("data.gather"):
+            idx = torch.from_numpy(np.ascontiguousarray(idx, np.int32))
+            return self.take(idx.to(self.device))
 
     def batches(self, sampler, batch_size: int) -> Iterator[tuple]:
         """One epoch of device-resident batches drawn by a

@@ -129,23 +129,27 @@ class _WeightedNodeMean(torch.autograd.Function):
     package): the cotangent is divided by the same denominator, summed over
     the nodes, and scaled by this node's weight.  Each node's input gradient
     therefore carries every node's loss through the shared statistics, and
-    the sum over nodes is the gradient of the summed loss.
+    the sum over nodes is the gradient of the summed loss.  Each allreduce
+    counts on ``tree`` (a :class:`~distlearn_tpu_torch.parallel.mesh.MeshTree`)
+    under the sites ``bn_fwd`` and ``bn_bwd``.
     """
 
     @staticmethod
-    def forward(ctx, stats, w, group):
+    def forward(ctx, stats, w, tree):
         buf = torch.cat([(stats * w).reshape(-1), w.reshape(1)])
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, group=tree.group)
+        tree.count("bn_fwd", buf)
         denom = torch.clamp(buf[-1], min=1)
         ctx.save_for_backward(w, denom)
-        ctx.group = group
+        ctx.tree = tree
         return buf[:-1].view_as(stats) / denom
 
     @staticmethod
     def backward(ctx, grad):
         w, denom = ctx.saved_tensors
         g = grad / denom
-        dist.all_reduce(g, group=ctx.group)
+        dist.all_reduce(g, group=ctx.tree.group)
+        ctx.tree.count("bn_bwd", g)
         return g * w, None, None
 
 
@@ -177,7 +181,7 @@ def batchnorm(params, stats, x, train: bool, eps: float = 1e-3,
             w = torch.ones((), dtype=x.dtype, device=x.device) \
                 if weight is None else torch.as_tensor(weight).to(x)
             both = _WeightedNodeMean.apply(torch.stack([mean, mean2]), w,
-                                           tree.group)
+                                           tree)
             mean, mean2 = both[0], both[1]
         var = mean2 - mean * mean
         m = momentum

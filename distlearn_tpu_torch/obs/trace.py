@@ -28,11 +28,18 @@ Propagation is OFF by default (``DISTLEARN_TRACE_PROP``, the shared
 pre-trace peer's — mixed fleets interop unchanged.  Local span
 *recording* is governed only by the ``DISTLEARN_OBS`` kill switch.
 
+A record carries ``ts`` (epoch seconds at the span's end, as before),
+``dur`` (seconds, from the monotonic clock) and ``start`` (epoch seconds
+at its start).  ``start`` is on the clock of ``torch.profiler``'s Chrome
+trace: a profiler event at trace time ``t`` microseconds happened at
+epoch ``t + baseTimeNanoseconds / 1e3`` microseconds, so a span joins a
+device trace at ``start * 1e6 - baseTimeNanoseconds / 1e3``.
+
 torch bridge: when torch is already imported (this module never imports
-it — obs stays dependency-free), each span also opens a
-``torch.profiler.record_function`` range so host spans line up with
-device timelines in a captured profile.  The range is a cheap no-op
-while no profiler is active.
+it — obs stays dependency-free) and a torch profiler is recording, each
+span also opens a ``torch.profiler.record_function`` range so host spans
+line up with device timelines in a captured profile.  With no profiler
+recording no range is opened: one costs microseconds even then.
 
 Kill switch: with ``DISTLEARN_OBS=0`` :func:`span` returns a shared
 null context manager — no record, no timing calls, no allocation.
@@ -238,12 +245,36 @@ def set_propagate(on: bool | None):
     _propagate = on
 
 
+_profiler_on = None       # torch.autograd._profiler_enabled, once loaded
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function`` range named ``name`` while a torch
+    profiler records, else ``None``."""
+    global _profiler_on
+    try:
+        if _profiler_on is None:
+            if "torch" not in sys.modules:
+                return None
+            _profiler_on = sys.modules["torch"].autograd._profiler_enabled
+        if not _profiler_on():
+            return None
+        ann = sys.modules["torch"].profiler.record_function(name)
+        ann.__enter__()
+        return ann
+    except Exception:
+        return None
+
+
 class _Span:
-    __slots__ = ("name", "labels", "_t0", "_ann", "_tc")
+    """One timed region; after the block, ``dur`` holds its seconds."""
+
+    __slots__ = ("name", "labels", "dur", "_t0", "_start", "_ann", "_tc")
 
     def __init__(self, name: str, labels: dict):
         self.name = name
         self.labels = labels
+        self.dur = None
         self._ann = None
         self._tc = None
 
@@ -254,25 +285,21 @@ class _Span:
             sid = _gen_id(4)
             self._tc = (parent["t"], sid, parent["s"])
             st.append({"t": parent["t"], "s": sid, "f": 1})
-        if bridge_torch and "torch" in sys.modules:
-            try:
-                torch = sys.modules["torch"]
-                self._ann = torch.profiler.record_function(self.name)
-                self._ann.__enter__()
-            except Exception:
-                self._ann = None
+        if bridge_torch:
+            self._ann = _profiler_range(self.name)
+        self._start = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        dur = time.perf_counter() - self._t0
+        self.dur = dur = time.perf_counter() - self._t0
         if self._ann is not None:
             try:
                 self._ann.__exit__(exc_type, exc, tb)
             except Exception:
                 pass
         rec = {"type": "span", "name": self.name, "ts": time.time(),
-               "dur": dur}
+               "dur": dur, "start": self._start}
         if self.labels:
             rec["labels"] = self.labels
         if exc_type is not None:
@@ -324,8 +351,9 @@ def record_span(name: str, dur: float, **labels):
     context stamps it the same way."""
     if not core.enabled():
         return
-    rec = {"type": "span", "name": name, "ts": time.time(),
-           "dur": float(dur)}
+    ts = time.time()
+    rec = {"type": "span", "name": name, "ts": ts, "dur": float(dur),
+           "start": ts - float(dur)}
     if labels:
         rec["labels"] = labels
     cur = current()

@@ -43,7 +43,7 @@ def sum_gradients(grads: PyTree, state: SGDSyncState, tree: MeshTree,
     """Allreduce-sum gradients across nodes (ref lua :10-15).  Returns
     ``(summed, new_state, n_contributors)``; ``contrib`` is this node's 0/1
     flag (default: contributing)."""
-    summed, n = tree.all_reduce(grads, contrib=contrib)
+    summed, n = tree.all_reduce(grads, contrib=contrib, site="grad")
     c = 1 if contrib is None else \
         torch.as_tensor(contrib, device=tree.device).to(torch.int32)
     return summed, SGDSyncState(my_steps=state.my_steps + c), n

@@ -23,10 +23,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from distlearn_tpu_torch import obs
 from distlearn_tpu_torch.utils.platform import resolve_device
 from distlearn_tpu_torch.utils.tree import tree_map
 
 PyTree = Any
+
+#: where a step's collectives come from, the ``site`` label of
+#: ``collective_calls_total`` and ``collective_bytes_total``: sync
+#: batchnorm's forward and backward, the gradient sum, the loss, the rest
+COLLECTIVE_SITES = ("bn_fwd", "bn_bwd", "grad", "loss", "other")
 
 
 class MeshTree:
@@ -36,6 +42,13 @@ class MeshTree:
     (0-based here).  Values are this node's own pytrees of tensors on
     ``device``; every collective returns new tensors and leaves its
     inputs as they were.
+
+    Each allreduce this node issues through the tree (and sync batchnorm's,
+    :class:`~distlearn_tpu_torch.models.nn._WeightedNodeMean`) counts one
+    call and its buffer's bytes under its site (:data:`COLLECTIVE_SITES`)
+    in ``collective_calls_total`` and ``collective_bytes_total``.  A CUDA
+    graph counts the calls it captured once a replay
+    (:class:`~distlearn_tpu_torch.train.graphs.GraphedProgram`).
     """
 
     # the CollectiveBackend convention: plain per-node values, one node a
@@ -50,14 +63,28 @@ class MeshTree:
         self.group = group
         self.num_nodes = dist.get_world_size(group)
         self.node_index = dist.get_rank(group)
+        tally = collective_tally()
+        if not tally:
+            self.count = _no_count
+            return
+        self._tally = dict(zip(COLLECTIVE_SITES, zip(tally[0::2],
+                                                     tally[1::2])))
 
-    def all_reduce(self, tree: PyTree, contrib=None
+    def count(self, site: str, t: torch.Tensor) -> None:
+        """One collective call on ``t`` from ``site`` (a no-op with
+        telemetry off)."""
+        calls, nbytes = self._tally[site]
+        calls.inc()
+        nbytes.inc(t.nbytes)
+
+    def all_reduce(self, tree: PyTree, contrib=None, site: str = "other"
                    ) -> tuple[PyTree, torch.Tensor]:
         """Sum a pytree over the nodes; returns ``(reduced, n)`` with ``n``
         the number of contributing nodes (ref ``tree.allReduce(value, add)
         -> _, n``, lua/AllReduceSGD.lua:12).  ``contrib`` is this node's 0/1
         participation flag: a non-contributor's values are zeroed before the
-        sum and ``n`` counts the flags.  ``n`` stays on the device (int32)."""
+        sum and ``n`` counts the flags.  ``n`` stays on the device (int32).
+        ``site`` labels the calls' counts."""
         if contrib is None:
             n = torch.full((), self.num_nodes, dtype=torch.int32,
                            device=self.device)
@@ -65,15 +92,18 @@ class MeshTree:
             def _sum(x):
                 out = x.clone()
                 dist.all_reduce(out, group=self.group)
+                self.count(site, out)
                 return out
             return tree_map(_sum, tree), n
         c = torch.as_tensor(contrib, device=self.device).to(torch.int32)
         n = c.reshape(1).clone()
         dist.all_reduce(n, group=self.group)
+        self.count(site, n)
 
         def _masked_sum(x):
             out = x * c.to(x.dtype)
             dist.all_reduce(out, group=self.group)
+            self.count(site, out)
             return out
         return tree_map(_masked_sum, tree), n[0]
 
@@ -105,6 +135,25 @@ class MeshTree:
         parts = [torch.empty_like(x) for _ in range(self.num_nodes)]
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts)
+
+
+def _no_count(site: str, t: torch.Tensor) -> None:
+    pass
+
+
+def collective_tally() -> list:
+    """The children of ``collective_calls_total`` and
+    ``collective_bytes_total``, calls then bytes for each site of
+    :data:`COLLECTIVE_SITES` in turn; empty with telemetry off."""
+    if not obs.enabled():
+        return []
+    calls = obs.counter("collective_calls_total",
+                        "allreduce calls this node issued", labels=("site",))
+    nbytes = obs.counter("collective_bytes_total",
+                         "bytes of the buffers those calls reduced",
+                         labels=("site",))
+    return [c for s in COLLECTIVE_SITES
+            for c in (calls.labels(site=s), nbytes.labels(site=s))]
 
 
 def local_init_method() -> str:

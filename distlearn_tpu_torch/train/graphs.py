@@ -21,6 +21,11 @@ all K steps.
   advances it exactly as the same steps run eagerly do.  A state carrying
   another generator has that generator's state copied in; the returned
   state carries the registered one.
+* **Counts.** The collectives' counts
+  (:func:`~distlearn_tpu_torch.parallel.mesh.collective_tally`) made while
+  the program is captured stand for the replay that follows the capture;
+  every later replay adds them again, so a call counts the collectives its
+  replay issues.
 * **No fallback.** A capture or replay that fails raises.  On the CPU
   there is nothing to capture: the program runs as it is.
 """
@@ -31,6 +36,7 @@ from typing import Any, Callable
 
 import torch
 
+from distlearn_tpu_torch.parallel.mesh import collective_tally
 from distlearn_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
 PyTree = Any
@@ -56,6 +62,8 @@ class _Capture:
             if g is not default:        # the default one registers itself
                 self.graph.register_generator_state(g)
         self._warm_up(program, device)
+        self.counters = collective_tally()
+        before = [c.value for c in self.counters]
         with torch.cuda.graph(self.graph):
             new_state, losses = program(self._state(), *self.batch)
             new_leaves = tree_flatten(new_state)[0]
@@ -63,6 +71,7 @@ class _Capture:
                 if not g:
                     buf.copy_(x)
             self.losses = losses
+        self.counts = [c.value - b for c, b in zip(self.counters, before)]
 
     def _state(self) -> PyTree:
         return tree_unflatten(self.treedef, self.leaves)
@@ -118,7 +127,12 @@ class GraphedProgram:
         batch = [torch.as_tensor(b) for b in batch]
         key = tuple((tuple(b.shape), b.dtype) for b in batch)
         cap = self.captures.get(key)
-        if cap is None:
+        fresh = cap is None
+        if fresh:
             cap = _Capture(self.program, state, batch, self.device)
             self.captures[key] = cap
-        return cap.replay(state, batch)
+        out = cap.replay(state, batch)
+        if not fresh:
+            for c, n in zip(cap.counters, cap.counts):
+                c.inc(n)
+        return out

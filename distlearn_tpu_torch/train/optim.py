@@ -356,7 +356,7 @@ def build_optax_step(model: Model, tree: MeshTree,
         updates, opt_state = tx.update(grads, ts.opt_state, ts.params)
         params = tree_map(lambda p, u: p + u.to(p.dtype), ts.params, updates)
         cm = metrics_lib.update_confusion(ts.cm, log_probs, y)
-        mean_loss = tree.all_reduce(loss)[0] / tree.num_nodes
+        mean_loss = tree.all_reduce(loss, site="loss")[0] / tree.num_nodes
         return (OptaxTrainState(params, mstate, opt_state, sync, cm, ts.rng),
                 mean_loss)
 
@@ -472,7 +472,7 @@ def build_zero_optax_step(model: Model, tree: MeshTree,
                                     group=tree.group)
         params = flatten_lib.unpack(spec, flat_new)
         cm = metrics_lib.update_confusion(ts.cm, log_probs, y)
-        mean_loss = tree.all_reduce(loss)[0] / tree.num_nodes
+        mean_loss = tree.all_reduce(loss, site="loss")[0] / tree.num_nodes
         return (ZeroTrainState(params, mstate, opt_state, sync, cm, ts.rng),
                 mean_loss)
 

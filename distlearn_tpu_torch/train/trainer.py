@@ -20,15 +20,21 @@ and one hand-written kernel launch per bucket (:mod:`..ops.fused_update`).
   ``lax.scan`` in one XLA program; on the CPU the same steps in a loop.
 
 No step waits on the host: losses and counts stay on the device.  The
-dropout generator in the state is advanced in place by each step.  Every
-step made here counts its calls and times their host dispatch
-(``train_steps_total``, ``train_step_dispatch_seconds``) unless
-``DISTLEARN_OBS=0``.
+dropout generator in the state is advanced in place by each step.  Unless
+``DISTLEARN_OBS=0``, every call of a step made here is one trace: a root
+span ``train.step{step=<name>}`` whose duration is the call's host
+dispatch, also observed in ``train_step_dispatch_seconds``.  A step of
+:func:`build_sgd_step` records its phases as children of the root:
+``train.forward`` (the loss, with the sync batchnorm), ``train.backward``
+(``torch.autograd.grad``), ``train.grad_sum`` (the bucket plan, the
+packing and the gradient allreduce) and ``train.update`` (the SGD update,
+B1's launches on the card).  The confusion matrix and the loss's
+allreduce stay in the root's own time.  The scanned steps and the EA
+cycle record the root alone: their bodies run under CUDA graph capture.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -49,26 +55,26 @@ PyTree = Any
 
 
 class _TimedStep:
-    """Telemetry around a built step: times each call's host dispatch (the
-    wall time to enqueue its work, which the graphed steps exist to
-    shorten, not the device's compute) and counts the calls; other
-    attributes are the step's own."""
+    """Telemetry around a built step: each call is a trace whose root span,
+    ``train.step{step=<name>}``, times its host dispatch (the wall time to
+    enqueue its work, which the graphed steps exist to shorten, not the
+    device's compute); the histogram observes the span's own duration, and
+    its count is the number of calls.  Other attributes are the step's
+    own."""
 
     def __init__(self, fn, name: str):
         self._fn = fn
+        self._name = name
         lat = obs.histogram(
             "train_step_dispatch_seconds",
             "host-side dispatch wall time per step call", labels=("step",))
-        cnt = obs.counter("train_steps_total", "step calls",
-                          labels=("step",))
         self._h = lat.labels(step=name)
-        self._c = cnt.labels(step=name)
 
     def __call__(self, *a, **kw):
-        t0 = time.perf_counter()
-        out = self._fn(*a, **kw)
-        self._c.inc()
-        self._h.observe(time.perf_counter() - t0)
+        with obs.use_context(obs.new_trace()):
+            with obs.span("train.step", step=self._name) as root:
+                out = self._fn(*a, **kw)
+        self._h.observe(root.dur)
         return out
 
     def __getattr__(self, name):
@@ -80,6 +86,16 @@ def _timed(fn, name: str):
     if not obs.enabled():
         return fn
     return _TimedStep(fn, name)
+
+
+def _no_phase(name: str):
+    return obs.trace.NULL_SPAN
+
+
+def _phase_spans(on: bool) -> Callable:
+    """``name -> span``: a child span of the step's trace when ``on`` and
+    telemetry is on, else the shared null span."""
+    return obs.span if on and obs.enabled() else _no_phase
 
 
 class TrainState(NamedTuple):
@@ -115,15 +131,20 @@ def local_update(params: PyTree, grads: PyTree, vel: PyTree, lr: float,
 
 
 def value_and_grad(model: Model, params: PyTree, mstate: PyTree, x, y,
-                   rng, tree: MeshTree | None, bn_weight=None):
+                   rng, tree: MeshTree | None, bn_weight=None,
+                   phase: Callable = _no_phase):
     """Loss, log-probs, new batchnorm state and parameter gradients of one
-    training forward; nothing returned carries an autograd graph."""
+    training forward; nothing returned carries an autograd graph.
+    ``phase(name)`` spans the forward (``train.forward``) and the backward
+    (``train.backward``)."""
     leaves, treedef = tree_flatten(params)
     req = [p.detach().requires_grad_() for p in leaves]
-    loss, (log_probs, mstate) = loss_fn(
-        model, tree_unflatten(treedef, req), mstate, x, y, train=True,
-        rng=rng, tree=tree, bn_weight=bn_weight)
-    grads = torch.autograd.grad(loss, req)
+    with phase("train.forward"):
+        loss, (log_probs, mstate) = loss_fn(
+            model, tree_unflatten(treedef, req), mstate, x, y, train=True,
+            rng=rng, tree=tree, bn_weight=bn_weight)
+    with phase("train.backward"):
+        grads = torch.autograd.grad(loss, req)
     return (loss.detach(), log_probs.detach(), mstate,
             tree_unflatten(treedef, list(grads)))
 
@@ -169,7 +190,8 @@ def build_sgd_step(model: Model, tree: MeshTree, lr: float,
     bucket instead of one of each per parameter.  ``max_bucket_bytes``
     caps a bucket.
     """
-    _body = _make_sgd_body(model, tree, lr, fused, max_bucket_bytes)
+    _body = _make_sgd_body(model, tree, lr, fused, max_bucket_bytes,
+                           phases=True)
     if with_contrib:
         def step(ts, x, y, contrib):
             return _body(ts, x, y, contrib)
@@ -180,10 +202,13 @@ def build_sgd_step(model: Model, tree: MeshTree, lr: float,
 
 
 def _make_sgd_body(model: Model, tree: MeshTree, lr: float,
-                   fused: bool | None, max_bucket_bytes: int | None):
+                   fused: bool | None, max_bucket_bytes: int | None,
+                   phases: bool):
     """The body of one AllReduceSGD step, ``(ts, x, y, contrib) -> (ts,
-    loss)`` (shared by the per-call and the scanned steps)."""
+    loss)`` (shared by the per-call and the scanned steps); ``phases``
+    records its phase spans."""
     use_fused = fused_update.fused_enabled(fused, tree.device)
+    phase = _phase_spans(phases)
 
     def _body(ts: TrainState, x, y, contrib):
         x = torch.as_tensor(x, device=tree.device)
@@ -191,24 +216,29 @@ def _make_sgd_body(model: Model, tree: MeshTree, lr: float,
         c = None if contrib is None else \
             torch.as_tensor(contrib, device=tree.device).to(torch.int32)
         loss, log_probs, mstate, grads = value_and_grad(
-            model, ts.params, ts.model_state, x, y, ts.rng, tree, c)
+            model, ts.params, ts.model_state, x, y, ts.rng, tree, c, phase)
         if use_fused:
-            spec = flatten_lib.make_bucket_spec(grads, max_bucket_bytes)
-            g_flats, sync, n = allreduce_sgd.sum_and_normalize_gradients(
-                flatten_lib.pack_buckets(spec, grads), ts.sync, tree, c)
-            params = fused_update.sgd_update_buckets(spec, ts.params, g_flats,
-                                                     lr)
+            with phase("train.grad_sum"):
+                spec = flatten_lib.make_bucket_spec(grads, max_bucket_bytes)
+                g_flats, sync, n = allreduce_sgd.sum_and_normalize_gradients(
+                    flatten_lib.pack_buckets(spec, grads), ts.sync, tree, c)
+            with phase("train.update"):
+                params = fused_update.sgd_update_buckets(spec, ts.params,
+                                                         g_flats, lr)
         else:
-            grads, sync, n = allreduce_sgd.sum_and_normalize_gradients(
-                grads, ts.sync, tree, c)
-            params = tree_map(lambda p, g: fused_update.sgd_plain(p, g, lr),
-                              ts.params, grads)
+            with phase("train.grad_sum"):
+                grads, sync, n = allreduce_sgd.sum_and_normalize_gradients(
+                    grads, ts.sync, tree, c)
+            with phase("train.update"):
+                params = tree_map(
+                    lambda p, g: fused_update.sgd_plain(p, g, lr), ts.params,
+                    grads)
         cm = metrics_lib.update_confusion(ts.cm, log_probs, y)
         if c is None:
-            mean_loss = tree.all_reduce(loss)[0] / tree.num_nodes
+            mean_loss = tree.all_reduce(loss, site="loss")[0] / tree.num_nodes
         else:
             cm = torch.where(c > 0, cm, ts.cm)
-            total = tree.all_reduce(loss * c.to(loss.dtype))[0]
+            total = tree.all_reduce(loss * c.to(loss.dtype), site="loss")[0]
             mean_loss = total / torch.clamp(n, min=1).to(loss.dtype)
         return TrainState(params, mstate, sync, cm, ts.rng), mean_loss
 
@@ -241,7 +271,8 @@ def build_sgd_scan_step(model: Model, tree: MeshTree, lr: float,
     step's batch is gathered inside the graph, and a call moves only the
     index vectors to the card.
     """
-    body = _make_sgd_body(model, tree, lr, fused, max_bucket_bytes)
+    body = _make_sgd_body(model, tree, lr, fused, max_bucket_bytes,
+                          phases=False)
 
     want = (1 if dataset is not None else 2) + with_contrib
 
@@ -292,7 +323,7 @@ def build_eval_step(model: Model, tree: MeshTree) -> Callable:
         loss, (log_probs, _) = loss_fn(model, params, mstate, x, y,
                                        train=False)
         cm = metrics_lib.update_confusion(cm, log_probs, y)
-        return cm, tree.all_reduce(loss)[0] / tree.num_nodes
+        return cm, tree.all_reduce(loss, site="loss")[0] / tree.num_nodes
 
     return _timed(step, "eval")
 

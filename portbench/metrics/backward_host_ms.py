@@ -1,0 +1,15 @@
+"""Host time a step in the port's backward: the span ``train.backward``
+(``torch.autograd.grad``, with sync batchnorm's backward collectives), a
+mean per step over the measured window."""
+
+from portbench import spans
+
+LAYER = "model"
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "program_span"
+MOVES = "train_samples_per_s"
+
+
+def read(run):
+    return spans.phase_ms(run, "train.backward")

@@ -14,7 +14,8 @@ chip_smoke.py):
   in float64 with tests/test_torch_train.py's tolerances (rtol 1e-9, atol
   1e-12), on one node and on two (tests/torch_scan_dist_worker.py);
 * the ``DeviceDataset`` route (index vectors) against the batch route, the
-  telemetry counters, and a wrong number of batch arguments.
+  calls the dispatch histogram counts, and a wrong number of batch
+  arguments.
 """
 
 import pytest
@@ -229,8 +230,8 @@ def test_scanned_steps_count_calls_and_check_arguments(tree):
     xs, ys = _stacked(synthetic_mnist, k=2)
     scan = ttr.build_sgd_scan_step(model, tree, LR)
     cycle = ttr.build_ea_cycle(model, tree, LR, ALPHA)
-    calls = obs.counter("train_steps_total", labels=("step",))
-    count = lambda name: calls.labels(step=name).value
+    calls = obs.histogram("train_step_dispatch_seconds", labels=("step",))
+    count = lambda name: calls.labels(step=name).count
     before = count("sgd_scan"), count("ea_cycle")
     ts, _ = scan(ttr.init_train_state(model, tree, 0, 10), xs, ys)
     ts, _ = scan(ts, xs, ys)
